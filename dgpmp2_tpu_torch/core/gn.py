@@ -1,0 +1,203 @@
+"""Gauss-Newton / Levenberg-Marquardt engine over the block factor graph.
+
+Port of ``dgpmp2_tpu/core/gn.py``.  :func:`gn_step` is one damped GN update;
+:func:`plan` runs a fixed iteration budget as a Python loop of masked
+``torch.where`` updates (the JAX package's ``lax.scan``), with per-problem
+convergence freezing, so no iteration waits for the host.  The whole plan is
+differentiable through the unrolled iterations.  ``err`` (the convergence
+metric) is detached; ``err_ext`` (fixed external covariances) carries
+gradients.
+
+There is one linear-system engine, the standard one: assembly in
+``core/graph.py`` and the solve in ``ops/tridiag.btd_solve_auto`` (the K-BTD
+kernel for CUDA tensors).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from dgpmp2_tpu_torch.core import graph as graph_lib
+from dgpmp2_tpu_torch.ops import tridiag
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """Optimizer options (``optim_params`` YAML)."""
+
+    method: str = "gauss_newton"  # or "lm"
+    reg: float = 0.1
+    max_iters: int = 100
+    tol_err: float = 1e-3
+    tol_delta: float = 1e-4
+    conv_check_dtheta: bool = True
+    conv_check_err: bool = False
+    lm_lambda_init: float = 1e-4
+    # "auto" and "standard" both mean the standard engine.  The JAX
+    # package's "stream" layout and "df32" two-float engine exist for the
+    # TPU's vector layout and its lack of float64; neither applies here.
+    engine: str = "auto"
+
+
+def resolve_engine(engine: str) -> str:
+    """Map ``engine`` to the one engine of the port, or raise."""
+    if engine in ("stream", "df32"):
+        raise NotImplementedError(
+            f"engine={engine!r} is a TPU engine of dgpmp2_tpu and is not "
+            "ported (ROADMAP.md, 'Not to port'); use 'auto' or 'standard'"
+        )
+    if engine not in ("auto", "standard"):
+        raise ValueError(f"unknown engine {engine!r}; expected 'auto' or 'standard'")
+    return "standard"
+
+
+class PlanResult(NamedTuple):
+    th: torch.Tensor  # (B, T+1, D) final trajectories
+    err_init: torch.Tensor  # (B,)
+    err_final: torch.Tensor  # (B,)
+    err_per_iter: torch.Tensor  # (iters, B) weighted error trace
+    err_ext_per_iter: torch.Tensor  # (iters, B) external error trace
+    iters: torch.Tensor  # (B,) iterations actually used per problem
+    # Best non-colliding trajectory by GP-MSE seen along the optimisation;
+    # equals `th` where none was non-colliding (track_best only).
+    best_th: Optional[torch.Tensor] = None
+    best_valid: Optional[torch.Tensor] = None  # (B,) bool
+
+
+def damped_system(diag, off, rhs, delta, trust_region: bool = False):
+    """GN damping ``+δI`` or LM trust-region ``+δ·diag(Λ)``; ``delta`` is a
+    scalar or a (B,) per-problem value."""
+    d = diag.shape[-1]
+    delta = torch.as_tensor(delta, dtype=diag.dtype, device=diag.device)
+    while delta.ndim < diag.ndim - 2:
+        delta = delta[..., None]
+    scale = delta[..., None, None]
+    eye = torch.eye(d, dtype=diag.dtype, device=diag.device)
+    damp = scale * (eye * diag) if trust_region else scale * eye
+    return diag + damp, off, rhs
+
+
+def gn_step(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
+            th: torch.Tensor, sdf: torch.Tensor, delta,
+            trust_region: bool = False) -> torch.Tensor:
+    """One Gauss-Newton update ``dθ = (AᵀKA + δI)⁻¹ AᵀKb`` in block form."""
+    diag, off, rhs = graph_lib.assemble(spec, robot, params, th, sdf)
+    diag, off, rhs = damped_system(diag, off, rhs, delta, trust_region)
+    return tridiag.btd_solve_auto(diag, off, rhs)
+
+
+def _converged(dth, err_delta, cfg: OptimConfig):
+    """Per-problem convergence test."""
+    b = dth.shape[0]
+    conv = torch.zeros((b,), dtype=torch.bool, device=dth.device)
+    if cfg.conv_check_dtheta:
+        conv = conv | (torch.linalg.vector_norm(dth.reshape(b, -1), dim=-1)
+                       < cfg.tol_delta)
+    if cfg.conv_check_err:
+        conv = conv | (err_delta.abs() < cfg.tol_err)
+    return conv
+
+
+def _best_score(res: graph_lib.FactorResiduals) -> torch.Tensor:
+    """GP-MSE if the interior is collision-free, else +inf."""
+    colliding = torch.any((res.r_obs[..., 1:-1, :] > 0).flatten(-2), dim=-1)
+    gp_mse = torch.mean(torch.sum(res.r_gp**2, dim=-1), dim=-1)
+    return torch.where(colliding, torch.full_like(gp_mse, float("inf")),
+                       gp_mse)
+
+
+def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
+         th_init: torch.Tensor, sdf: torch.Tensor, cfg: OptimConfig,
+         params_fix: Optional[graph_lib.GraphParams] = None,
+         track_best: bool = False) -> PlanResult:
+    """Batched plan: ``cfg.max_iters`` GN/LM steps with convergence freeze.
+
+    LM keeps one lambda per problem (accepted steps divide it by 10, rejected
+    steps multiply it by 10).  ``params_fix`` supplies the fixed external
+    covariances of the ``err_ext`` trace; it defaults to ``params``.
+    """
+    if cfg.method not in ("gauss_newton", "lm"):
+        raise ValueError(
+            f"unknown method {cfg.method!r}; expected 'gauss_newton' or 'lm'"
+        )
+    resolve_engine(cfg.engine)
+    if params_fix is None:
+        params_fix = params
+    b = th_init.shape[0]
+    dtype, dev = th_init.dtype, th_init.device
+    lm = cfg.method == "lm"
+
+    def residuals(th):
+        return graph_lib.eval_residuals(spec, robot, params, th, sdf)
+
+    def weighted_err(res):
+        return graph_lib.error_from_residuals(spec, params, res).detach()
+
+    def ext_err(res):
+        return graph_lib.error_from_residuals(
+            spec, params, res, q_inv=params_fix.q_inv,
+            obs_inv=params_fix.obs_inv,
+        )
+
+    # One factor-graph evaluation per iteration feeds assembly and both
+    # error traces; the GP/prior Gauss blocks are built once.
+    res = residuals(th_init)
+    err0 = weighted_err(res)
+    static = graph_lib.assemble_static(spec, params, dtype)
+    th, err_old = th_init, err0
+    conv = torch.zeros((b,), dtype=torch.bool, device=dev)
+    lam = torch.full((b,), cfg.lm_lambda_init, dtype=dtype, device=dev)
+    iters = torch.zeros((b,), dtype=torch.int32, device=dev)
+    reg = torch.tensor(cfg.reg, dtype=dtype, device=dev)
+    if track_best:
+        best_th, best_s = th_init, _best_score(res).detach()
+    errs, errs_ext = [], []
+    for _ in range(cfg.max_iters):
+        diag, off, rhs = graph_lib.assemble_from_residuals(
+            spec, params, res, dtype=dtype, static=static)
+        diag, off, rhs = damped_system(diag, off, rhs, lam if lm else reg,
+                                       trust_region=lm)
+        dth = tridiag.btd_solve_auto(diag, off, rhs)
+        th_prop = th + dth
+        res_prop = residuals(th_prop)
+        err_prop = weighted_err(res_prop)
+        accept = (err_prop < err_old) if lm else torch.ones_like(conv)
+        take = accept & ~conv
+        th = torch.where(take[:, None, None], th_prop, th)
+        res = graph_lib.select(take, res_prop, res)
+        err_next = torch.where(take, err_prop, err_old)
+        if lm:
+            lam = torch.where(conv, lam,
+                              torch.where(accept, lam / 10.0, lam * 10.0))
+        trigger = _converged(dth, err_next - err_old, cfg)
+        if lm:
+            # A rejected proposal is not convergence: LM raises lambda and
+            # retries instead.
+            trigger = trigger & accept
+        iters = iters + (~conv).to(torch.int32)
+        conv = conv | trigger
+        err_old = err_next
+        errs.append(err_next)
+        errs_ext.append(ext_err(res))
+        if track_best:
+            s = _best_score(res).detach()
+            better = s < best_s
+            best_th = torch.where(better[:, None, None], th, best_th)
+            best_s = torch.minimum(s, best_s)
+    best_valid = None
+    if track_best:
+        best_valid = torch.isfinite(best_s)
+        best_th = torch.where(best_valid[:, None, None], best_th, th)
+    else:
+        best_th = None
+
+    def trace(xs):
+        return (torch.stack(xs) if xs
+                else torch.zeros((0, b), dtype=dtype, device=dev))
+
+    return PlanResult(th=th, err_init=err0, err_final=err_old,
+                      err_per_iter=trace(errs),
+                      err_ext_per_iter=trace(errs_ext), iters=iters,
+                      best_th=best_th, best_valid=best_valid)

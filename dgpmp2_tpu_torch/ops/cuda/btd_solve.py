@@ -1,0 +1,86 @@
+"""Wrapper of the K-BTD CUDA kernel (``csrc/btd_solve.cu``).
+
+Replaces the TPU kernels ``dgpmp2_tpu/ops/pallas/btd_solve.py`` and
+``dgpmp2_tpu/ops/pallas/btd_stream.py``.  The plain version is
+:func:`dgpmp2_tpu_torch.ops.tridiag.btd_solve`.
+
+``launches`` counts kernel launches in this process; it goes up by one in
+:func:`launch` and nowhere else.
+"""
+from __future__ import annotations
+
+import torch
+
+from dgpmp2_tpu_torch.ops import tridiag
+from dgpmp2_tpu_torch.ops.cuda import _build
+
+SUPPORTED_D = (4, 6)
+launches = 0
+
+
+def launch(diag: torch.Tensor, off: torch.Tensor,
+           rhs: torch.Tensor) -> torch.Tensor:
+    """One kernel launch: x with ``Λ x = rhs``, on the current CUDA stream.
+
+    diag (B, T, D, D), off (B, T-1, D, D), rhs (B, T, D); contiguous CUDA
+    tensors of one dtype, float32 or float64; D in ``SUPPORTED_D``.
+    """
+    global launches
+    _check(diag, off, rhs)
+    b, t, d = rhs.shape
+    lib = _build.library()
+    fn = (lib.dgpmp2_btd_solve_f32 if diag.dtype == torch.float32
+          else lib.dgpmp2_btd_solve_f64)
+    x = torch.empty_like(rhs)
+    chol = torch.empty((b, t, d * d), dtype=diag.dtype, device=diag.device)
+    with torch.cuda.device(diag.device):
+        stream = torch.cuda.current_stream(diag.device).cuda_stream
+        rc = fn(diag.data_ptr(), off.data_ptr(), rhs.data_ptr(), x.data_ptr(),
+                chol.data_ptr(), b, t, d, stream)
+    _build.check(rc, "btd_solve kernel")
+    launches += 1
+    return x
+
+
+def _check(diag, off, rhs):
+    if rhs.ndim != 3:
+        raise ValueError(f"btd_solve kernel takes rhs (B, T, D); got {tuple(rhs.shape)}")
+    b, t, d = rhs.shape
+    if d not in SUPPORTED_D:
+        raise ValueError(f"btd_solve kernel supports D in {SUPPORTED_D}; got D={d}")
+    if tuple(diag.shape) != (b, t, d, d) or tuple(off.shape) != (b, t - 1, d, d):
+        raise ValueError(
+            f"btd_solve kernel shape mismatch: diag {tuple(diag.shape)}, "
+            f"off {tuple(off.shape)}, rhs {tuple(rhs.shape)}"
+        )
+    for name, a in (("diag", diag), ("off", off), ("rhs", rhs)):
+        if a.device.type != "cuda" or a.device != diag.device:
+            raise ValueError(f"btd_solve kernel needs CUDA tensors on one device; {name} is on {a.device}")
+        if a.dtype not in (torch.float32, torch.float64) or a.dtype != diag.dtype:
+            raise ValueError(f"btd_solve kernel needs float32 or float64 of one dtype; {name} is {a.dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"btd_solve kernel needs contiguous inputs; {name} is not")
+
+
+class _BTDSolveKernel(torch.autograd.Function):
+    """Forward and backward are each one kernel launch; the backward solves
+    with the cotangent as right-hand side (as the TPU kernels' VJP does)."""
+
+    @staticmethod
+    def forward(ctx, diag, off, rhs):
+        x = launch(diag, off, rhs)
+        ctx.save_for_backward(diag, off, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        diag, off, x = ctx.saved_tensors
+        lam = launch(diag, off, x_bar.contiguous())
+        return tridiag.solve_adjoint(lam, x)
+
+
+def btd_solve_cuda(diag: torch.Tensor, off: torch.Tensor,
+                   rhs: torch.Tensor) -> torch.Tensor:
+    """Differentiable K-BTD solve of CUDA tensors (see :func:`launch`)."""
+    return _BTDSolveKernel.apply(diag.contiguous(), off.contiguous(),
+                                 rhs.contiguous())

@@ -1,0 +1,78 @@
+"""Shared helpers of the tests that hold dgpmp2_tpu_torch against dgpmp2_tpu.
+
+Inputs are made with numpy from a seed and handed to both packages; results
+come back as numpy.  JAX stays on the CPU in float64 (tests/conftest.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from dgpmp2_tpu.core import graph as jgraph
+from dgpmp2_tpu.robots import PointRobot2D as JPointRobot2D
+from dgpmp2_tpu.ops import sdf as jsdf
+from dgpmp2_tpu.utils.trajectory import straight_line_traj as j_straight
+
+from dgpmp2_tpu_torch import convert
+from dgpmp2_tpu_torch.core import graph as tgraph
+from dgpmp2_tpu_torch.ops import sdf as tsdf
+from dgpmp2_tpu_torch.robots import PointRobot2D as TPointRobot2D
+from dgpmp2_tpu_torch.utils.trajectory import straight_line_traj as t_straight
+
+F64 = torch.float64
+
+
+def np_(x):
+    """A JAX array or a torch tensor as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def params_arrays(p) -> dict:
+    """JAX GraphParams -> the dict convert.graph_params_from_numpy takes."""
+    return {f.name: None if getattr(p, f.name) is None
+            else np.asarray(getattr(p, f.name))
+            for f in dataclasses.fields(p)}
+
+
+def world(seed, b, n):
+    """Occupancy images with one or two square obstacles each, b x n x n."""
+    rng = np.random.default_rng(seed)
+    imgs = np.ones((b, n, n))
+    for i in range(b):
+        for _ in range(1 + i % 2):
+            r, c = rng.integers(n // 5, 3 * n // 5, 2)
+            imgs[i, r:r + n // 5, c:c + n // 5] = 0.0
+    start = np.zeros((b, 4))
+    start[:, :2] = rng.uniform(-4.5, -3.5, (b, 2))
+    goal = np.zeros((b, 4))
+    goal[:, :2] = rng.uniform(3.5, 4.5, (b, 2))
+    return imgs, start, goal
+
+
+def both_problems(seed=0, b=4, t=16, n=32, cost_sigma=0.05, eps=0.4):
+    """The same float64 problem in both packages:
+    ((spec, robot, params, th0, sdf) JAX, (...) torch)."""
+    imgs, start, goal = world(seed, b, n)
+    res = 10.0 / n
+    kw = dict(qc_inv=np.eye(2), cost_sigma=cost_sigma, epsilon_dist=eps,
+              k_s=0.01, k_g=0.01)
+    spec_j = jgraph.GraphSpec(total_time_step=t)
+    sdf_j = jsdf.sdf_from_occupancy(jnp.asarray(imgs), res=res)
+    params_j = jgraph.default_params(spec_j, JPointRobot2D(),
+                                     jnp.asarray(start), jnp.asarray(goal),
+                                     dtype=jnp.float64, **kw)
+    th_j = j_straight(jnp.asarray(start[:, :2]), jnp.asarray(goal[:, :2]),
+                      spec_j.total_time_sec, t)
+    spec_t = tgraph.GraphSpec(total_time_step=t)
+    sdf_t = tsdf.sdf_from_occupancy(torch.tensor(imgs), res=res, dtype=F64)
+    params_t = convert.graph_params_from_numpy(params_arrays(params_j), "cpu",
+                                               F64)
+    th_t = t_straight(torch.tensor(start[:, :2]), torch.tensor(goal[:, :2]),
+                      spec_t.total_time_sec, t)
+    return ((spec_j, JPointRobot2D(), params_j, th_j, sdf_j),
+            (spec_t, TPointRobot2D(), params_t, th_t, sdf_t))

@@ -1,0 +1,109 @@
+"""The port as a whole: the stored JAX golden, import hygiene and the rule
+that the CUDA path has no fallback."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import chip_smoke
+from dgpmp2_tpu_torch.ops import sdf as tsdf
+from dgpmp2_tpu_torch.ops import tridiag
+from dgpmp2_tpu_torch.ops.cuda import _build
+from dgpmp2_tpu_torch.ops.cuda import btd_solve as k_btd
+from dgpmp2_tpu_torch.ops.cuda import sdf_lookup as k_lookup
+
+torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_plan_matches_the_jax_golden():
+    """The B=8 bench problem, 5 GN iterations in float64 (the check that
+    chip_smoke.py repeats on the card with the kernels): 1e-8 relative."""
+    out, g = chip_smoke.golden_plan(torch.device("cpu"))
+    errs = chip_smoke.golden_errors(out, g)
+    assert all(v <= 1e-8 for v in errs.values()), errs
+    assert os.path.getsize(chip_smoke.GOLDEN) < 300_000
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys, dgpmp2_tpu_torch, dgpmp2_tpu_torch.convert, "
+        "dgpmp2_tpu_torch.utils.config, dgpmp2_tpu_torch.ops.cuda.btd_solve, "
+        "dgpmp2_tpu_torch.ops.cuda.sdf_lookup, dgpmp2_tpu_torch.ops.cuda._build\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'dgpmp2_tpu')]\n"
+        "assert not bad, bad\n"
+        "from dgpmp2_tpu_torch.ops.cuda import _build\n"
+        "assert _build._lib is None\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_package_sources_never_name_jax():
+    for path in (ROOT / "dgpmp2_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        for word in ("import jax", "from jax", "import flax", "from flax",
+                     "import optax", "from dgpmp2_tpu ", "from dgpmp2_tpu.",
+                     "import dgpmp2_tpu\n"):
+            assert word not in text, f"{path}: {word!r}"
+
+
+def test_missing_nvcc_raises_and_does_not_fall_back(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.library()
+    assert _build._lib is None
+
+
+def test_failed_build_names_the_command(monkeypatch, tmp_path):
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\nexit 3\n")
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "_lib", None)
+    with pytest.raises(RuntimeError, match="no such target") as info:
+        _build.library()
+    assert "sm_90a" in str(info.value) and str(fake) in str(info.value)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
+    d = torch.eye(4, dtype=torch.float64).expand(2, 5, 4, 4).contiguous()
+    off = torch.zeros((2, 4, 4, 4), dtype=torch.float64)
+    rhs = torch.ones((2, 5, 4), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_btd.launch(d, off, rhs)
+    with pytest.raises(ValueError, match="D="):
+        k_btd.launch(d[..., :3, :3].contiguous(), off[..., :3, :3], rhs[..., :3])
+    sdf = torch.zeros((2, 8, 8), dtype=torch.float64)
+    pts = torch.zeros((2, 3, 2), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_lookup.launch(sdf, pts, 10 / 8, (-5.0, 5.0), (-5.0, 5.0))
+    with pytest.raises(ValueError, match=r"\(B, H, W\)"):
+        k_lookup.launch(sdf[0], pts[0], 10 / 8, (-5.0, 5.0), (-5.0, 5.0))
+    # The dispatchers take the plain versions for CPU tensors.
+    tridiag.btd_solve_auto(d, off, rhs)
+    tsdf.lookup(sdf, pts, 10 / 8, (-5.0, 5.0), (-5.0, 5.0))
+    assert k_btd.launches == 0 and k_lookup.launches == 0
+
+
+def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
+    """Without a card it exits non-zero and prints no result; alone in a
+    directory it cannot even import the port."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    for cwd, script in ((ROOT, ROOT / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            script.write_text((ROOT / "chip_smoke.py").read_text())
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd, env=env,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -1,0 +1,110 @@
+#!/usr/bin/env python3
+"""Where the time of one GN iteration of the PyTorch port goes, on a GPU.
+
+    python3 tools/profile_torch_plan.py [--iters 20] [--out build/profile]
+
+At the bench problem (B=1024, T=100, 128x128, float32):
+
+* each layer of one iteration timed alone with CUDA events (median of 20):
+  residuals with the lookup, assembly, damping, the solve, and the
+  error/freeze bookkeeping;
+* ``torch.profiler`` over an ``--iters`` plan: device time by kernel, the
+  number of kernel launches per iteration, and the device's busy share of
+  the wall time.  The Chrome trace goes to ``--out``.
+
+Needs a CUDA device; imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import chip_smoke as cs  # noqa: E402
+from dgpmp2_tpu_torch.core import gn, graph  # noqa: E402
+from dgpmp2_tpu_torch.ops import tridiag  # noqa: E402
+
+
+def layer_times(bench, reg=0.1):
+    spec, robot, params, th0, sdf = bench
+    static = graph.assemble_static(spec, params, th0.dtype)
+    res = graph.eval_residuals(spec, robot, params, th0, sdf)
+    sys_ = graph.assemble_from_residuals(spec, params, res, static=static)
+    damped = gn.damped_system(*sys_, torch.tensor(reg, device=th0.device))
+    dth = tridiag.btd_solve_auto(*damped)
+    err = graph.error_from_residuals(spec, params, res)
+    conv = torch.zeros_like(err, dtype=torch.bool)
+    cfg = gn.OptimConfig(reg=reg)
+
+    def bookkeeping():
+        th_prop = th0 + dth
+        take = ~conv
+        torch.where(take[:, None, None], th_prop, th0)
+        graph.select(take, res, res)
+        e = graph.error_from_residuals(spec, params, res).detach()
+        torch.where(take, e, err)
+        gn._converged(dth, e - err, cfg)
+        graph.error_from_residuals(spec, params, res, q_inv=params.q_inv,
+                                   obs_inv=params.obs_inv)
+
+    layers = {
+        "residuals+lookup": lambda: graph.eval_residuals(spec, robot, params,
+                                                         th0, sdf),
+        "assembly": lambda: graph.assemble_from_residuals(spec, params, res,
+                                                          static=static),
+        "damping": lambda: gn.damped_system(*sys_, torch.tensor(
+            reg, device=th0.device)),
+        "solve (K-BTD)": lambda: tridiag.btd_solve_auto(*damped),
+        "errors+freeze": bookkeeping,
+    }
+    return {k: cs.cuda_ms(fn) for k, fn in layers.items()}
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--out", default="build/profile")
+    args = ap.parse_args()
+    smi = cs.device_info()
+    dev = torch.device("cuda", 0)
+    bench = cs.port_problem(*cs.bench_inputs(cs.B), dev, torch.float32)
+    spec, robot, params, th0, sdf = bench
+
+    print(f"[{smi}] layer times, ms (median of 20, one layer alone):")
+    for k, v in layer_times(bench).items():
+        print(f"  {k:18s} {v:.4f}")
+
+    cfg = gn.OptimConfig(reg=0.1, max_iters=args.iters, tol_delta=0.0)
+    gn.plan(spec, robot, params, th0, sdf, cfg)  # warm-up
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        gn.plan(spec, robot, params, th0, sdf, cfg)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    # Kernel rows only: an op's row repeats the device time of its kernels.
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kernels)
+    n_kernels = sum(e.count for e in kernels)
+    print(f"[{smi}] profiled plan of {args.iters} iterations: wall "
+          f"{wall_ms:.3f} ms, device busy {dev_us / 1e3:.3f} ms "
+          f"({dev_us / 1e3 / wall_ms:.3f} of wall), {n_kernels} device "
+          f"operations ({n_kernels / args.iters:.1f} per iteration)")
+    print(events.table(sort_by="self_device_time_total", row_limit=25))
+    os.makedirs(args.out, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(args.out, "plan_trace.json"))
+
+
+if __name__ == "__main__":
+    main()
