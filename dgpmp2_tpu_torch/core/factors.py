@@ -57,18 +57,14 @@ def hinge_obstacle_residual(centers, jac_fk, radii, eps, sdf, res, x_lims,
                             y_lims, z_lims=None):
     """Hinge obstacle residual + Jacobian per trajectory state.
 
-    centers (..., T, L, 2), jac_fk (..., T, L, 2, D), radii (L,),
-    eps (..., T, L), sdf (..., H, W).  Returns r (..., T, L) and
+    centers (..., T, L, W), jac_fk (..., T, L, W, D), radii (L,),
+    eps (..., T, L), sdf (..., H, Wim); W = 3 and a voxel sdf
+    (..., D, H, Wim) when ``z_lims`` is set.  Returns r (..., T, L) and
     H (..., T, L, D).  One SDF lookup for all spheres of all states.
     """
-    if z_lims is not None:
-        raise NotImplementedError(
-            "3-D workspaces are not ported to dgpmp2_tpu_torch yet "
-            "(ROADMAP.md, queue 1 item 10)"
-        )
     t, l = centers.shape[-3], centers.shape[-2]
     pts = centers.reshape(*centers.shape[:-3], t * l, centers.shape[-1])
-    d, grad = sdf_ops.lookup(sdf, pts, res, x_lims, y_lims)
+    d, grad = sdf_ops.lookup_nd(sdf, pts, res, x_lims, y_lims, z_lims)
     d = d.reshape(*centers.shape[:-3], t, l)
     grad = grad.reshape(centers.shape)
     return hinge_from_lookup(d, grad, jac_fk, radii, eps)

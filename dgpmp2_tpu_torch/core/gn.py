@@ -125,6 +125,9 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
     resolve_engine(cfg.engine)
     if params_fix is None:
         params_fix = params
+    # The lookup kernels read a contiguous SDF batch; made so once here, a
+    # strided one (as sdf_from_occupancy returns) is not copied per lookup.
+    sdf = sdf.contiguous()
     b = th_init.shape[0]
     dtype, dev = th_init.dtype, th_init.device
     lm = cfg.method == "lm"

@@ -1,7 +1,7 @@
 """Factor-graph specification and block-tridiagonal normal-equation assembly.
 
 Port of ``dgpmp2_tpu/core/graph.py`` for the main path (CV-GP prior,
-start/goal priors, hinge obstacle factors).  ``AᵀKA`` is assembled directly
+start/goal priors, hinge obstacle factors) in 2-D and 3-D workspaces.  ``AᵀKA`` is assembled directly
 as its ``D×D`` blocks,
 
     diag_i = Σ H_fᵀ Λ_f H_f over factors touching state i
@@ -71,12 +71,10 @@ class GraphSpec:
 
     def __post_init__(self):
         enabled = [f for f in _OPTIONAL if getattr(self, f)]
-        if self.z_lims is not None:
-            enabled.append("z_lims")
         if enabled:
             raise NotImplementedError(
                 f"GraphSpec options {enabled} are not ported to "
-                "dgpmp2_tpu_torch yet (ROADMAP.md, queue 1 items 9-10)"
+                "dgpmp2_tpu_torch yet (ROADMAP.md, queue 1 item 9)"
             )
 
     @property
@@ -106,18 +104,24 @@ class GraphSpec:
         return (self.x_lims[1] - self.x_lims[0]) / float(sdf_width)
 
     def validate_grid(self, sdf_shape) -> None:
-        """Raise unless the SDF's y cells match the x-derived resolution."""
+        """Raise unless the SDF's y (and, with ``z_lims``, z) cells match the
+        x-derived resolution."""
         r = self.res(sdf_shape[-1])
-        y_ext = self.y_lims[1] - self.y_lims[0]
-        got = y_ext / float(sdf_shape[-2])
-        if abs(got - r) > 1e-6 * max(abs(r), 1.0):
-            raise ValueError(
-                f"SDF grid inconsistent with workspace extents: y_lims extent "
-                f"{y_ext} over {sdf_shape[-2]} cells gives {got:.6g} m/cell "
-                f"but x-derived res is {r:.6g} m/cell (sdf shape "
-                f"{tuple(sdf_shape)}, x_lims {self.x_lims}, y_lims "
-                f"{self.y_lims}); pixels must be square"
-            )
+        checks = [("y_lims", self.y_lims, sdf_shape[-2])]
+        if self.z_lims is not None:
+            checks.append(("z_lims", self.z_lims, sdf_shape[-3]))
+        for name, lims, cells in checks:
+            ext = lims[1] - lims[0]
+            got = ext / float(cells)
+            if abs(got - r) > 1e-6 * max(abs(r), 1.0):
+                raise ValueError(
+                    f"SDF grid inconsistent with workspace extents: {name} "
+                    f"extent {ext} over {cells} cells gives {got:.6g} m/cell "
+                    f"but x-derived res is {r:.6g} m/cell (sdf shape "
+                    f"{tuple(sdf_shape)}, x_lims {self.x_lims}, y_lims "
+                    f"{self.y_lims}, z_lims {self.z_lims}); voxels must be "
+                    "square/cubical"
+                )
 
 
 @dataclasses.dataclass

@@ -1,9 +1,11 @@
 // K-LOOKUP: bilinear SDF value and spatial gradient at world-space points.
 //
-// Replaces the TPU kernel dgpmp2_tpu/ops/pallas/sdf_lookup.py
+// Replaces the TPU kernels dgpmp2_tpu/ops/pallas/sdf_lookup.py
 // `_make_kernel_v2` (via `bilinear_lookup_pallas_v2`, the TPU default of
-// dgpmp2_tpu/ops/sdf.py `lookup`).  Same function as the plain version
-// dgpmp2_tpu_torch/ops/sdf.py `bilinear_lookup`:
+// dgpmp2_tpu/ops/sdf.py `lookup`) and `_make_kernel` (v1, via
+// `bilinear_lookup_pallas`, the "pallas" engine), which compute the same
+// function; they differ only in TPU relayouts.  Same function as the plain
+// version dgpmp2_tpu_torch/ops/sdf.py `bilinear_lookup`:
 //
 //   px = -x_lo/res + x/res,  py = -y_lo/res - y/res   (y is flipped)
 //   corners floor(p), floor(p)+1 clamped to the grid
@@ -23,19 +25,18 @@
 // trajectory, so taps of a warp share cache lines.
 //
 // What the design does about it: reads the taps through the read-only cache
-// and keeps everything else in registers.  The pixel coordinates use
-// correctly rounded division and no fused multiply-add, so the corner choice
-// (a discontinuity of the gradient) agrees bit for bit with the plain version.
+// and keeps everything else in registers.  The pixel coordinates and the
+// blend are correctly rounded with no fused multiply-add
+// (lookup_common.cuh), so the corner choice (a discontinuity of the
+// gradient) and the result agree bit for bit with the plain version, far
+// out-of-grid points in the "reference" mode included.
 #include <cuda_runtime.h>
+
+#include "lookup_common.cuh"
 
 namespace {
 
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+using namespace dgpmp2;
 
 template <typename T>
 __global__ void sdf_lookup_kernel(const T* __restrict__ sdf,
@@ -57,12 +58,9 @@ __global__ void sdf_lookup_kernel(const T* __restrict__ sdf,
   const T py1f = floor(py);
   const T fx = sub_rn(px, px1f);
   const T fy = sub_rn(py, py1f);
-  const int px1 = static_cast<int>(px1f);
-  const int py1 = static_cast<int>(py1f);
-  const int px1c = min(max(px1, 0), w - 1);
-  const int px2c = min(max(px1 + 1, 0), w - 1);
-  const int py1c = min(max(py1, 0), h - 1);
-  const int py2c = min(max(py1 + 1, 0), h - 1);
+  int px1c, px2c, py1c, py2c;
+  corners(px1f, w, px1c, px2c);
+  corners(py1f, h, py1c, py2c);
 
   const T* img = sdf + b * h * w;
   const T d11 = __ldg(img + py1c * w + px1c);
@@ -82,11 +80,11 @@ __global__ void sdf_lookup_kernel(const T* __restrict__ sdf,
     ay1 = T(1) - fy;
     ay2 = fy;
   }
-  T d = ay1 * (ax1 * d11 + ax2 * d21) + ay2 * (ax1 * d12 + ax2 * d22);
-  const T dd_dpx = ay1 * (d21 - d11) + ay2 * (d22 - d12);
-  const T dd_dpy = ax1 * (d12 - d11) + ax2 * (d22 - d21);
-  T gx = dd_dpx / res;
-  T gy = -dd_dpy / res;
+  T d = blend(ay1, blend(ax1, d11, ax2, d21), ay2, blend(ax1, d12, ax2, d22));
+  const T dd_dpx = blend(ay1, sub_rn(d21, d11), ay2, sub_rn(d22, d12));
+  const T dd_dpy = blend(ax1, sub_rn(d12, d11), ax2, sub_rn(d22, d21));
+  T gx = div_rn(dd_dpx, res);
+  T gy = div_rn(-dd_dpy, res);
 
   if (!reference_mode) {
     const bool inside = (x >= x_lo) && (x <= x_hi) && (y >= y_lo) && (y <= y_hi);

@@ -38,6 +38,12 @@ _SIGNATURES = {
                               _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     "dgpmp2_sdf_lookup_f64": [_P, _P, _P, _P, _I, _I, _I, _I,
                               _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    "dgpmp2_sdf_lookup3d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                *[_F] * 11, _I, _P],
+    "dgpmp2_sdf_lookup3d_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                *[_F] * 11, _I, _P],
+    "dgpmp2_sdf_lookup_limbs": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                *[_F] * 8, _P],
 }
 
 _lib = None

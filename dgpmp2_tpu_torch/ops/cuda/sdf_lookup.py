@@ -1,7 +1,9 @@
 """Wrapper of the K-LOOKUP CUDA kernel (``csrc/sdf_lookup.cu``).
 
-Replaces the TPU kernel ``dgpmp2_tpu/ops/pallas/sdf_lookup.py``
-``_make_kernel_v2``.  The plain version is
+Replaces the TPU kernels ``dgpmp2_tpu/ops/pallas/sdf_lookup.py``
+``_make_kernel_v2`` and ``_make_kernel`` (v1), which compute the same
+function (engines ``auto``/``pallas_v2`` and ``pallas``).  The plain version
+is
 :func:`dgpmp2_tpu_torch.ops.sdf.bilinear_lookup`.
 
 ``launches`` counts kernel launches in this process; it goes up by one in

@@ -1,19 +1,28 @@
-"""Signed-distance fields: exact EDT construction and bilinear lookup.
+"""Signed-distance fields: exact EDT construction and SDF lookups.
 
-Port of the 2-D part of ``dgpmp2_tpu/ops/sdf.py``.
+Port of ``dgpmp2_tpu/ops/sdf.py``.
 
-* :func:`edt_sq` / :func:`edt` / :func:`sdf_from_occupancy` — exact Euclidean
-  distance transform as two dense min-plus passes in int32, chunked over the
-  output axis so that the (..., n, n) intermediate stays under a byte limit.
+* :func:`edt_sq` / :func:`edt` / :func:`sdf_from_occupancy` /
+  :func:`sdf_from_occupancy_3d` — exact Euclidean distance transform as one
+  dense min-plus pass per spatial axis in int32, chunked over the output
+  axis so that the (..., k, n) intermediate stays near a byte limit.
 * :func:`bilinear_lookup` — bilinear SDF value + analytic spatial gradient,
   the plain version of the CUDA kernel K-LOOKUP (``ops/cuda/sdf_lookup.py``).
-* :func:`lookup` — the dispatcher: CPU tensors go to :func:`bilinear_lookup`,
-  a CUDA (B, H, W) SDF with (B, P, 2) points goes to the kernel, any other
-  CUDA input raises.
+* :func:`limb_split` / :func:`bilinear_lookup_limbs` — the SDF as 1–3 bf16
+  limbs and the lookup that sums them per tap, the plain version of
+  K-LOOKUP-LIMB (``ops/cuda/sdf_lookup_limbs.py``).
+* :func:`trilinear_lookup` — the 3-D voxel lookup, the plain version of
+  K-LOOKUP3D (``ops/cuda/sdf_lookup3d.py``).
+* :func:`lookup` / :func:`lookup_nd` — the dispatchers: CPU tensors go to
+  the plain versions, CUDA tensors of the kernels' shapes go to the
+  kernels, any other CUDA input raises.  :func:`set_lookup_method` and
+  :func:`set_lookup3d_method` choose the engine as the JAX package does.
 
 Images are row-major with row 0 at the top of the world (y is flipped):
-``px = -x_lims[0]/res + x/res``, ``py = -y_lims[0]/res - y/res``.  The
-returned gradient is the true spatial gradient ``∇d = (∂d/∂x, ∂d/∂y)``.
+``px = -x_lims[0]/res + x/res``, ``py = -y_lims[0]/res - y/res``.  Voxel
+grids are ``sdf[..., z, row, col]`` with z unflipped:
+``pz = -z_lims[0]/res + z/res``.  The returned gradient is the true spatial
+gradient ``∇d``.
 """
 from __future__ import annotations
 
@@ -22,7 +31,9 @@ import torch.nn.functional as F
 
 # Peak bytes of one min-plus intermediate before the EDT evaluates its output
 # axis in chunks.  The dense form needs lanes·n² int32: at B = 1024 on the
-# 130-px padded grid that is 9 GB.
+# 130-px padded grid that is 9 GB.  A chunk holds at least one output
+# column, so a pass whose lanes·n·4 bytes exceed the limit (B = 1024 at 66³
+# padded: 1.18 GB) runs one column at a time above it.
 EDT_CHUNK_BYTES = 1 << 30
 
 
@@ -40,23 +51,41 @@ def _edt_1d_sq(cost: torch.Tensor, chunk_bytes: int) -> torch.Tensor:
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
 
 
-def edt_sq(mask: torch.Tensor,
+def edt_sq(mask: torch.Tensor, spatial_ndim: int = 2,
            chunk_bytes: int = EDT_CHUNK_BYTES) -> torch.Tensor:
-    """Squared EDT (int32) of a boolean (..., H, W) mask: squared distance to
-    the nearest True cell; a mask with no True cell gives ``H² + W² + 1``."""
-    h, w = mask.shape[-2], mask.shape[-1]
-    cap = h * h + w * w + 1
+    """Squared EDT (int32) of a boolean mask over its last ``spatial_ndim``
+    axes (2 for images, 3 for voxel grids; leading axes are batch): squared
+    distance to the nearest True cell; a mask with no True cell gives
+    ``Σ n² + 1``."""
+    dims = mask.shape[-spatial_ndim:]
+    cap = sum(n * n for n in dims) + 1
     cost = torch.where(mask, 0, cap).to(torch.int32)
-    cost = _edt_1d_sq(cost.transpose(-1, -2), chunk_bytes).transpose(-1, -2)
+    # One dense min-plus pass per spatial axis, innermost last.
+    for ax in range(-spatial_ndim, -1):
+        cost = _edt_1d_sq(cost.transpose(-1, ax), chunk_bytes).transpose(-1, ax)
     cost = _edt_1d_sq(cost, chunk_bytes)
     return torch.clamp(cost, max=cap)
 
 
 def edt(mask: torch.Tensor, dtype: torch.dtype = torch.float32,
+        spatial_ndim: int = 2,
         chunk_bytes: int = EDT_CHUNK_BYTES) -> torch.Tensor:
     """Euclidean distance in pixels to the nearest True cell; exact in int32
     up to the final sqrt."""
-    return torch.sqrt(edt_sq(mask, chunk_bytes).to(dtype))
+    return torch.sqrt(edt_sq(mask, spatial_ndim, chunk_bytes).to(dtype))
+
+
+def _sdf_from_occupancy_nd(image, res, threshold, padlen, dtype, chunk_bytes,
+                           spatial_ndim):
+    free = image > threshold
+    if padlen > 0:
+        free = F.pad(free.to(torch.uint8), (padlen,) * (2 * spatial_ndim),
+                     value=1).bool()
+    kw = dict(dtype=dtype, spatial_ndim=spatial_ndim, chunk_bytes=chunk_bytes)
+    out = (edt(~free, **kw) - edt(free, **kw)) * res
+    if padlen > 0:
+        out = out[(Ellipsis,) + (slice(padlen, -padlen),) * spatial_ndim]
+    return out
 
 
 def sdf_from_occupancy(image: torch.Tensor, res: float = 1.0,
@@ -69,13 +98,18 @@ def sdf_from_occupancy(image: torch.Tensor, res: float = 1.0,
     then ``(edt(occupied) - edt(free)) * res`` (positive in free space), and
     the border is stripped so the output keeps the input's shape.
     """
-    free = image > threshold
-    if padlen > 0:
-        free = F.pad(free.to(torch.uint8), (padlen,) * 4, value=1).bool()
-    out = (edt(~free, dtype, chunk_bytes) - edt(free, dtype, chunk_bytes)) * res
-    if padlen > 0:
-        out = out[..., padlen:-padlen, padlen:-padlen]
-    return out
+    return _sdf_from_occupancy_nd(image, res, threshold, padlen, dtype,
+                                  chunk_bytes, 2)
+
+
+def sdf_from_occupancy_3d(voxels: torch.Tensor, res: float = 1.0,
+                          threshold: float = 0.75, padlen: int = 1,
+                          dtype: torch.dtype = torch.float32,
+                          chunk_bytes: int = EDT_CHUNK_BYTES) -> torch.Tensor:
+    """SDF of a voxel occupancy grid (..., D, H, W): the 2-D pipeline with
+    a third min-plus pass."""
+    return _sdf_from_occupancy_nd(voxels, res, threshold, padlen, dtype,
+                                  chunk_bytes, 3)
 
 
 # Out-of-bounds semantics of the lookup (as ``dgpmp2_tpu.ops.sdf``):
@@ -95,6 +129,53 @@ def set_oob_mode(mode: str) -> None:
     _OOB_MODE = mode
 
 
+def _axis(p: torch.Tensor, n: int, reference: bool):
+    """Along one axis of an n-cell grid: the corners floor(p) and
+    floor(p) + 1 clamped to [0, n-1], and their (low, high) weights — from
+    the unclamped fraction, or in the "reference" mode from the clamped
+    corners, so that they sum to ``p2c - p1c`` (zero when both corners clamp
+    together: the collapse outside the grid)."""
+    p1f = torch.floor(p)
+    p1 = p1f.long()
+    p1c = p1.clamp(0, n - 1)
+    p2c = (p1 + 1).clamp(0, n - 1)
+    if reference:
+        return p1c, p2c, p2c.to(p.dtype) - p, p - p1c.to(p.dtype)
+    f = p - p1f
+    return p1c, p2c, 1.0 - f, f
+
+
+def _bilinear(take, points, dtype, h, w, res, x_lims, y_lims, reference):
+    """Bilinear value and gradient of the (H, W) grid whose flat cells
+    ``take(idx)`` reads, at (..., P, 2) points, in ``dtype``."""
+    x = points[..., 0].to(dtype)
+    y = points[..., 1].to(dtype)
+    res_t = torch.tensor(res, dtype=dtype, device=points.device)
+    px = (-x_lims[0] / res) + x / res_t
+    py = (-y_lims[0] / res) - y / res_t
+    px1c, px2c, ax1, ax2 = _axis(px, w, reference)
+    py1c, py2c, ay1, ay2 = _axis(py, h, reference)
+    d11 = take(py1c * w + px1c)
+    d21 = take(py1c * w + px2c)
+    d12 = take(py2c * w + px1c)
+    d22 = take(py2c * w + px2c)
+    d = ay1 * (ax1 * d11 + ax2 * d21) + ay2 * (ax1 * d12 + ax2 * d22)
+    dd_dpx = ay1 * (d21 - d11) + ay2 * (d22 - d12)
+    dd_dpy = ax1 * (d12 - d11) + ax2 * (d22 - d21)
+    gx = dd_dpx / res_t
+    gy = -dd_dpy / res_t
+    if reference:
+        return d, torch.stack([gx, gy], dim=-1)
+
+    inside = ((x >= x_lims[0]) & (x <= x_lims[1])
+              & (y >= y_lims[0]) & (y <= y_lims[1]))
+    zero = torch.zeros((), dtype=dtype, device=points.device)
+    d = torch.where(inside, d, torch.full_like(d, x_lims[1] - x_lims[0]))
+    grad = torch.stack([torch.where(inside, gx, zero),
+                        torch.where(inside, gy, zero)], dim=-1)
+    return d, grad
+
+
 def bilinear_lookup(sdf: torch.Tensor, points: torch.Tensor, res: float,
                     x_lims, y_lims, oob_mode: str | None = None):
     """Bilinear SDF interpolation with analytic spatial gradient.
@@ -108,75 +189,218 @@ def bilinear_lookup(sdf: torch.Tensor, points: torch.Tensor, res: float,
     kernel's.
     """
     h, w = sdf.shape[-2], sdf.shape[-1]
+    flat = sdf.reshape(*sdf.shape[:-2], h * w)
+    return _bilinear(lambda idx: torch.gather(flat, -1, idx), points,
+                     sdf.dtype, h, w, res, x_lims, y_lims,
+                     (oob_mode or _OOB_MODE) == "reference")
+
+
+def limb_split(sdf: torch.Tensor, n_limbs: int) -> torch.Tensor:
+    """(B, H, W) SDF -> (B, L, H, W) bf16 limbs with ``S ≈ Σ_l limb_l``:
+    each limb is the round-to-nearest-even bf16 of the float32 residual the
+    previous limbs leave (as ``_limb_split`` of the TPU kernel T5)."""
+    rem = sdf.to(torch.float32)
+    limbs = []
+    for _ in range(n_limbs):
+        limb = rem.to(torch.bfloat16)
+        limbs.append(limb)
+        rem = rem - limb.to(torch.float32)
+    return torch.stack(limbs, dim=-3)
+
+
+def bilinear_lookup_limbs(limbs: torch.Tensor, points: torch.Tensor,
+                          res: float, x_lims, y_lims):
+    """Bilinear lookup of an SDF stored as bf16 limbs, intended OOB mode.
+
+    limbs (B, L, H, W) bf16 (:func:`limb_split`), points (B, P, 2).  Each tap
+    is ``Σ_l float(limb_l)`` summed in order l = 0..L-1 in float32, then the
+    intended-mode blend and coordinate arithmetic of
+    :func:`bilinear_lookup`.  Returns float32 d (B, P), grad (B, P, 2).
+    The plain version of K-LOOKUP-LIMB.
+    """
+    b, n_limbs, h, w = limbs.shape
+    flat = limbs.reshape(b, n_limbs, h * w)
+
+    def take(idx):
+        tap = torch.gather(flat[:, 0], -1, idx).to(torch.float32)
+        for l in range(1, n_limbs):
+            tap = tap + torch.gather(flat[:, l], -1, idx).to(torch.float32)
+        return tap
+
+    return _bilinear(take, points, torch.float32, h, w, res, x_lims, y_lims,
+                     False)
+
+
+def trilinear_lookup(sdf: torch.Tensor, points: torch.Tensor, res: float,
+                     x_lims, y_lims, z_lims, oob_mode: str | None = None):
+    """Trilinear SDF interpolation with analytic spatial gradient.
+
+    sdf (..., D, H, W) metric distances laid out ``[z, row, col]``, points
+    (..., P, 3) world ``(x, y, z)``.  Returns d (..., P) and grad (..., P, 3).
+    Both OOB modes as :func:`bilinear_lookup`; refuses asymmetric ``y_lims``.
+    The plain version of K-LOOKUP3D; divides by a 0-d ``res`` tensor for the
+    same reason as :func:`bilinear_lookup`.
+    """
+    res = float(res)
+    x_lims, y_lims, z_lims = _world_lims(x_lims, y_lims, z_lims)
+    nz, h, w = sdf.shape[-3], sdf.shape[-2], sdf.shape[-1]
     dtype = sdf.dtype
     x = points[..., 0].to(dtype)
     y = points[..., 1].to(dtype)
+    z = points[..., 2].to(dtype)
     res_t = torch.tensor(res, dtype=dtype, device=sdf.device)
     px = (-x_lims[0] / res) + x / res_t
     py = (-y_lims[0] / res) - y / res_t
-    px1f = torch.floor(px)
-    py1f = torch.floor(py)
-    fx = px - px1f
-    fy = py - py1f
-    px1 = px1f.long()
-    py1 = py1f.long()
-    px1c = px1.clamp(0, w - 1)
-    px2c = (px1 + 1).clamp(0, w - 1)
-    py1c = py1.clamp(0, h - 1)
-    py2c = (py1 + 1).clamp(0, h - 1)
-
-    flat = sdf.reshape(*sdf.shape[:-2], h * w)
-
-    def take(pyi, pxi):
-        return torch.gather(flat, -1, pyi * w + pxi)
-
-    d11 = take(py1c, px1c)
-    d21 = take(py1c, px2c)
-    d12 = take(py2c, px1c)
-    d22 = take(py2c, px2c)
+    pz = (-z_lims[0] / res) + z / res_t
 
     reference = (oob_mode or _OOB_MODE) == "reference"
-    if reference:
-        ax1, ax2 = px2c.to(dtype) - px, px - px1c.to(dtype)
-        ay1, ay2 = py2c.to(dtype) - py, py - py1c.to(dtype)
-    else:
-        ax1, ax2 = 1.0 - fx, fx
-        ay1, ay2 = 1.0 - fy, fy
-    d = ay1 * (ax1 * d11 + ax2 * d21) + ay2 * (ax1 * d12 + ax2 * d22)
-    dd_dpx = ay1 * (d21 - d11) + ay2 * (d22 - d12)
-    dd_dpy = ax1 * (d12 - d11) + ax2 * (d22 - d21)
+    px1c, px2c, ax1, ax2 = _axis(px, w, reference)
+    py1c, py2c, ay1, ay2 = _axis(py, h, reference)
+    pz1c, pz2c, az1, az2 = _axis(pz, nz, reference)
+
+    flat = sdf.reshape(*sdf.shape[:-3], nz * h * w)
+
+    def take(pzi, pyi, pxi):
+        return torch.gather(flat, -1, (pzi * h + pyi) * w + pxi)
+
+    # d{z}{y}{x}: 1 = low corner, 2 = high corner.
+    d111 = take(pz1c, py1c, px1c)
+    d112 = take(pz1c, py1c, px2c)
+    d121 = take(pz1c, py2c, px1c)
+    d122 = take(pz1c, py2c, px2c)
+    d211 = take(pz2c, py1c, px1c)
+    d212 = take(pz2c, py1c, px2c)
+    d221 = take(pz2c, py2c, px1c)
+    d222 = take(pz2c, py2c, px2c)
+
+    dy11 = ax1 * d111 + ax2 * d112
+    dy12 = ax1 * d121 + ax2 * d122
+    dy21 = ax1 * d211 + ax2 * d212
+    dy22 = ax1 * d221 + ax2 * d222
+    dz1 = ay1 * dy11 + ay2 * dy12
+    dz2 = ay1 * dy21 + ay2 * dy22
+    d = az1 * dz1 + az2 * dz2
+    dd_dpx = (az1 * (ay1 * (d112 - d111) + ay2 * (d122 - d121))
+              + az2 * (ay1 * (d212 - d211) + ay2 * (d222 - d221)))
+    dd_dpy = az1 * (dy12 - dy11) + az2 * (dy22 - dy21)
+    dd_dpz = dz2 - dz1
     gx = dd_dpx / res_t
     gy = -dd_dpy / res_t
+    gz = dd_dpz / res_t
     if reference:
-        return d, torch.stack([gx, gy], dim=-1)
+        return d, torch.stack([gx, gy, gz], dim=-1)
 
     inside = ((x >= x_lims[0]) & (x <= x_lims[1])
-              & (y >= y_lims[0]) & (y <= y_lims[1]))
+              & (y >= y_lims[0]) & (y <= y_lims[1])
+              & (z >= z_lims[0]) & (z <= z_lims[1]))
     zero = torch.zeros((), dtype=dtype, device=sdf.device)
     d = torch.where(inside, d, torch.full_like(d, x_lims[1] - x_lims[0]))
     grad = torch.stack([torch.where(inside, gx, zero),
-                        torch.where(inside, gy, zero)], dim=-1)
+                        torch.where(inside, gy, zero),
+                        torch.where(inside, gz, zero)], dim=-1)
     return d, grad
 
 
-def lookup(sdf: torch.Tensor, points: torch.Tensor, res, x_lims, y_lims):
-    """Device-dispatched bilinear lookup (see the module docstring)."""
-    # Limits loaded as numpy scalars become Python floats before they touch
-    # a tensor, so they never promote a float32 lookup.
-    res = float(res)
-    x_lims = (float(x_lims[0]), float(x_lims[1]))
-    y_lims = (float(y_lims[0]), float(y_lims[1]))
-    # The y -> row transform (py = -y_lims[0]/res - y/res) is right only for
-    # symmetric y limits; refuse an asymmetric world instead of reading wrong
-    # rows.
-    if abs(y_lims[0] + y_lims[1]) > 1e-9:
+# 2-D lookup engines, by the JAX package's names (``ops/sdf.py`` there).
+# The exact engines all compute bilinear_lookup; on the card they all
+# launch K-LOOKUP, which computes what the TPU kernels T3 (pallas_v2) and T4
+# (pallas) compute.  The limb engines (T5) read the SDF as 3, 2 or 1 bf16
+# limbs and launch K-LOOKUP-LIMB on the card.
+EXACT_ENGINES = ("auto", "gather", "pallas", "pallas_v2")
+LIMB_ENGINES = {"pallas_v3": 3, "pallas_v3_2": 2, "pallas_v3_1": 1}
+_NOT_PORTED_ENGINES = ("mxu", "rows")
+_LOOKUP_METHOD = "auto"
+
+
+def set_lookup_method(method: str) -> None:
+    """Select the 2-D lookup engine for this process: 'auto' | 'gather' |
+    'pallas' | 'pallas_v2' (exact) or 'pallas_v3' | 'pallas_v3_2' |
+    'pallas_v3_1' (SDF in 3, 2 or 1 bf16 limbs; 'pallas_v3_1' is the
+    serving trade, a bf16 SDF at ~0.4 % relative error)."""
+    global _LOOKUP_METHOD
+    if method in _NOT_PORTED_ENGINES:
         raise NotImplementedError(
-            f"asymmetric y_lims {tuple(y_lims)} are not supported by the "
+            f"lookup engine {method!r} is an XLA alternate shaped by TPU "
+            "costs and is not ported (ROADMAP.md, 'Not to port')"
+        )
+    if method not in EXACT_ENGINES and method not in LIMB_ENGINES:
+        raise ValueError(method)
+    _LOOKUP_METHOD = method
+
+
+def _world_lims(*lims):
+    """``(x_lims, y_lims[, z_lims])`` as Python floats (numpy scalars never
+    promote a float32 lookup), refusing asymmetric y limits: the y -> row
+    transform (py = -y_lims[0]/res - y/res) is right only for a centered
+    world."""
+    lims = tuple((float(lo), float(hi)) for lo, hi in lims)
+    if abs(lims[1][0] + lims[1][1]) > 1e-9:
+        raise NotImplementedError(
+            f"asymmetric y_lims {lims[1]} are not supported by the "
             "reference y->row transform; recenter the world"
         )
+    return lims
+
+
+def lookup(sdf: torch.Tensor, points: torch.Tensor, res, x_lims, y_lims):
+    """Device-dispatched bilinear lookup under the :func:`set_lookup_method`
+    engine (see the module docstring).  A limb engine refuses the
+    "reference" OOB mode: its TPU kernel has the intended semantics only."""
+    res = float(res)
+    x_lims, y_lims = _world_lims(x_lims, y_lims)
+    n_limbs = LIMB_ENGINES.get(_LOOKUP_METHOD)
+    if n_limbs is not None:
+        if _OOB_MODE != "intended":
+            raise NotImplementedError(
+                f"lookup engine {_LOOKUP_METHOD!r} implements the intended "
+                "OOB semantics only; use an exact engine in reference mode"
+            )
+        from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_limbs as kernel
+
+        return kernel.limb_lookup(sdf, points, res, x_lims, y_lims, n_limbs)
     if sdf.device.type == "cpu" and points.device.type == "cpu":
         return bilinear_lookup(sdf, points, res, x_lims, y_lims)
     from dgpmp2_tpu_torch.ops.cuda import sdf_lookup as kernel
 
     return kernel.bilinear_lookup_cuda(sdf, points, res, x_lims, y_lims,
                                        _OOB_MODE)
+
+
+LOOKUP3D_ENGINES = ("auto", "gather", "pallas_tile")
+_LOOKUP3D_METHOD = "auto"
+
+
+def set_lookup3d_method(method: str) -> None:
+    """Select the 3-D lookup engine: 'auto' | 'gather' | 'pallas_tile'
+    (the JAX package's names).  All of them compute :func:`trilinear_lookup`
+    and launch K-LOOKUP3D on the card.  'pallas_tile' keeps its TPU
+    kernel's refusal of the "reference" OOB mode; that kernel's VMEM-size
+    and ``H % 8`` applicability guard (``_pallas3d_ok``) is a TPU artefact
+    and is not carried over."""
+    global _LOOKUP3D_METHOD
+    if method not in LOOKUP3D_ENGINES:
+        raise ValueError(method)
+    _LOOKUP3D_METHOD = method
+
+
+def lookup_nd(sdf: torch.Tensor, points: torch.Tensor, res, x_lims, y_lims,
+              z_lims=None):
+    """Workspace-dimension dispatcher: :func:`lookup` when ``z_lims`` is
+    None; otherwise CPU tensors go to :func:`trilinear_lookup` and a CUDA
+    (B, D, H, W) SDF with (B, P, 3) points to K-LOOKUP3D (any other CUDA
+    input raises)."""
+    if z_lims is None:
+        return lookup(sdf, points, res, x_lims, y_lims)
+    res = float(res)
+    x_lims, y_lims, z_lims = _world_lims(x_lims, y_lims, z_lims)
+    if _LOOKUP3D_METHOD == "pallas_tile" and _OOB_MODE != "intended":
+        raise NotImplementedError(
+            "pallas_tile implements the intended OOB semantics only; use "
+            "the gather engine for reference-parity experiments"
+        )
+    if sdf.device.type == "cpu" and points.device.type == "cpu":
+        return trilinear_lookup(sdf, points, res, x_lims, y_lims, z_lims)
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup3d as kernel
+
+    return kernel.trilinear_lookup_cuda(sdf, points, res, x_lims, y_lims,
+                                        z_lims, _OOB_MODE)

@@ -13,6 +13,7 @@ import torch
 
 from dgpmp2_tpu.core import graph as jgraph
 from dgpmp2_tpu.robots import PointRobot2D as JPointRobot2D
+from dgpmp2_tpu.robots import PointRobot3D as JPointRobot3D
 from dgpmp2_tpu.ops import sdf as jsdf
 from dgpmp2_tpu.utils.trajectory import straight_line_traj as j_straight
 
@@ -20,6 +21,7 @@ from dgpmp2_tpu_torch import convert
 from dgpmp2_tpu_torch.core import graph as tgraph
 from dgpmp2_tpu_torch.ops import sdf as tsdf
 from dgpmp2_tpu_torch.robots import PointRobot2D as TPointRobot2D
+from dgpmp2_tpu_torch.robots import PointRobot3D as TPointRobot3D
 from dgpmp2_tpu_torch.utils.trajectory import straight_line_traj as t_straight
 
 F64 = torch.float64
@@ -76,3 +78,46 @@ def both_problems(seed=0, b=4, t=16, n=32, cost_sigma=0.05, eps=0.4):
                       spec_t.total_time_sec, t)
     return ((spec_j, JPointRobot2D(), params_j, th_j, sdf_j),
             (spec_t, TPointRobot2D(), params_t, th_t, sdf_t))
+
+
+def world3d(seed, b, n=16):
+    """Voxel occupancy (b, n, n, n) with one central box each (edge n/4,
+    low corner in [5n/16, n/2)), which the straight start -> goal line runs
+    through; starts near (-4,-4,-4), goals near (4,4,4)."""
+    rng = np.random.default_rng(seed)
+    vox = np.ones((b, n, n, n))
+    e = n // 4
+    for i, (z, r, c) in enumerate(rng.integers(5 * n // 16, n // 2, (b, 3))):
+        vox[i, z:z + e, r:r + e, c:c + e] = 0.0
+    start = np.zeros((b, 6))
+    start[:, :3] = rng.uniform(-4.5, -3.5, (b, 3))
+    goal = np.zeros((b, 6))
+    goal[:, :3] = rng.uniform(3.5, 4.5, (b, 3))
+    return vox, start, goal
+
+
+def both_problems_3d(seed=0, b=3, t=16, n=16, cost_sigma=0.05, eps=0.4):
+    """The same float64 3-D problem (PointRobot3D, n^3 voxels) in both
+    packages, as :func:`both_problems`."""
+    vox, start, goal = world3d(seed, b, n)
+    res = 10.0 / n
+    lims = (-5.0, 5.0)
+    kw = dict(qc_inv=np.eye(3), cost_sigma=cost_sigma, epsilon_dist=eps,
+              k_s=0.01, k_g=0.01)
+    spec_j = jgraph.GraphSpec(dof=3, state_dim=6, total_time_step=t,
+                              z_lims=lims)
+    sdf_j = jsdf.sdf_from_occupancy_3d(jnp.asarray(vox), res=res)
+    params_j = jgraph.default_params(spec_j, JPointRobot3D(),
+                                     jnp.asarray(start), jnp.asarray(goal),
+                                     dtype=jnp.float64, **kw)
+    th_j = j_straight(jnp.asarray(start[:, :3]), jnp.asarray(goal[:, :3]),
+                      spec_j.total_time_sec, t)
+    spec_t = tgraph.GraphSpec(dof=3, state_dim=6, total_time_step=t,
+                              z_lims=lims)
+    sdf_t = tsdf.sdf_from_occupancy_3d(torch.tensor(vox), res=res, dtype=F64)
+    params_t = convert.graph_params_from_numpy(params_arrays(params_j), "cpu",
+                                               F64)
+    th_t = t_straight(torch.tensor(start[:, :3]), torch.tensor(goal[:, :3]),
+                      spec_t.total_time_sec, t)
+    return ((spec_j, JPointRobot3D(), params_j, th_j, sdf_j),
+            (spec_t, TPointRobot3D(), params_t, th_t, sdf_t))

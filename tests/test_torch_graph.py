@@ -94,7 +94,7 @@ def test_default_params_match_the_converted_ones(problems):
     {"non_holonomic": True}, {"use_vel_limits": True},
     {"use_gp_inter": True}, {"use_self_collision": True},
     {"use_joint_limits": True}, {"use_workspace_goal": True},
-    {"z_lims": (-5.0, 5.0)},
+    {"z_lims": (-5.0, 5.0), "use_vel_limits": True},
 ])
 def test_spec_options_not_ported_raise(option):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

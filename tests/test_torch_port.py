@@ -14,6 +14,8 @@ from dgpmp2_tpu_torch.ops import tridiag
 from dgpmp2_tpu_torch.ops.cuda import _build
 from dgpmp2_tpu_torch.ops.cuda import btd_solve as k_btd
 from dgpmp2_tpu_torch.ops.cuda import sdf_lookup as k_lookup
+from dgpmp2_tpu_torch.ops.cuda import sdf_lookup3d as k_lookup3d
+from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_limbs as k_limbs
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -32,7 +34,9 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys, dgpmp2_tpu_torch, dgpmp2_tpu_torch.convert, "
         "dgpmp2_tpu_torch.utils.config, dgpmp2_tpu_torch.ops.cuda.btd_solve, "
-        "dgpmp2_tpu_torch.ops.cuda.sdf_lookup, dgpmp2_tpu_torch.ops.cuda._build\n"
+        "dgpmp2_tpu_torch.ops.cuda.sdf_lookup, dgpmp2_tpu_torch.ops.cuda._build, "
+        "dgpmp2_tpu_torch.ops.cuda.sdf_lookup3d, "
+        "dgpmp2_tpu_torch.ops.cuda.sdf_lookup_limbs\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dgpmp2_tpu')]\n"
         "assert not bad, bad\n"
@@ -93,6 +97,41 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     tridiag.btd_solve_auto(d, off, rhs)
     tsdf.lookup(sdf, pts, 10 / 8, (-5.0, 5.0), (-5.0, 5.0))
     assert k_btd.launches == 0 and k_lookup.launches == 0
+
+
+def test_new_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
+    lims = (-5.0, 5.0)
+    sdf = torch.zeros((2, 8, 8, 8), dtype=torch.float64)
+    pts = torch.zeros((2, 3, 3), dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_lookup3d.launch(sdf, pts, 10 / 8, lims, lims, lims)
+    with pytest.raises(ValueError, match=r"\(B, D, H, W\)"):
+        k_lookup3d.launch(sdf[0], pts, 10 / 8, lims, lims, lims)
+    limbs = tsdf.limb_split(sdf[:, 0], 2)
+    pts2 = torch.zeros((2, 3, 2), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        k_limbs.launch(limbs, pts2, 10 / 8, lims, lims)
+    with pytest.raises(ValueError, match="L in 1..3"):
+        k_limbs.launch(limbs.repeat(1, 2, 1, 1), pts2, 10 / 8, lims, lims)
+    # The dispatchers take the plain versions for CPU tensors.
+    tsdf.lookup_nd(sdf, pts, 10 / 8, lims, lims, lims)
+    k_limbs.limb_lookup(sdf[:, 0], pts2, 10 / 8, lims, lims, 1)
+    assert k_lookup3d.launches == 0 and k_limbs.launches == 0
+
+
+def test_build_covers_every_source_and_binds_every_entry_point():
+    """The library's hash reads every csrc source, the header included, and
+    _SIGNATURES names exactly the extern "C" entry points of the sources."""
+    import re
+
+    names = {p.name for p in _build._sources()}
+    assert {"btd_solve.cu", "sdf_lookup.cu", "sdf_lookup3d.cu",
+            "sdf_lookup_limbs.cu", "lookup_common.cuh"} <= names
+    exported = set()
+    for path in _build._sources():
+        exported |= set(re.findall(r'extern "C" int (\w+)\(',
+                                   path.read_text()))
+    assert exported == set(_build._SIGNATURES)
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Where the time of one GN iteration of the PyTorch port goes, on a GPU.
 
-    python3 tools/profile_torch_plan.py [--iters 20] [--out build/profile]
+    python3 tools/profile_torch_plan.py [--iters 20] [--out build/profile] [--plan3d]
 
-At the bench problem (B=1024, T=100, 128x128, float32):
+At the bench problem (B=1024, T=100, 128x128, float32), or with
+``--plan3d`` at the 3-D one (B=1024 PointRobot3D, T=100, 64^3 voxels):
 
 * each layer of one iteration timed alone with CUDA events (median of 20):
   residuals with the lookup, assembly, damping, the solve, and the
@@ -70,10 +71,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default="build/profile")
+    ap.add_argument("--plan3d", action="store_true",
+                    help="profile the 3-D problem instead of the 2-D one")
     args = ap.parse_args()
     smi = cs.device_info()
     dev = torch.device("cuda", 0)
-    bench = cs.port_problem(*cs.bench_inputs(cs.B), dev, torch.float32)
+    inputs = (cs.bench3d_inputs(cs.B, dev) if args.plan3d
+              else cs.bench_inputs(cs.B))
+    bench = cs.port_problem(*inputs, dev, torch.float32)
     spec, robot, params, th0, sdf = bench
 
     print(f"[{smi}] layer times, ms (median of 20, one layer alone):")
@@ -103,7 +108,8 @@ def main():
           f"operations ({n_kernels / args.iters:.1f} per iteration)")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, "plan_trace.json"))
+    name = "plan3d_trace.json" if args.plan3d else "plan_trace.json"
+    prof.export_chrome_trace(os.path.join(args.out, name))
 
 
 if __name__ == "__main__":
