@@ -12,7 +12,9 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
    SDFs (K-LOOKUP also with far out-of-grid points); K-LOOKUP3D at B=1024,
    64^3 voxels, P=101; K-LOOKUP-LIMB at B=1024, 128x128, P=101, L=1..3;
 4. float64 plans on the small goldens that the JAX package wrote
-   (``tests/goldens/torch_port_plan_small.npz``, ``..._plan3d_small.npz``);
+   (``tests/goldens/torch_port_plan_small.npz``, ``..._plan3d_small.npz``,
+   and ``..._plan_ext_small.npz``: the 2-link arm, the task-space 3-link
+   arm, the heading robot and GP interpolation with velocity limits);
 5. the 2-D main path: the bench.py problem at B=1024 in float32 through
    ``DiffGPMP2Planner.plan`` (YAML configs) and ``core.gn.plan``;
 6. the 3-D path: B=1024 PointRobot3D problems in 64^3 voxel worlds built
@@ -21,8 +23,18 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
 7. the 2-D lookup engines: the bench problem under
    ``set_lookup_method("pallas_v3_1")`` (K-LOOKUP-LIMB) and ``"pallas"``
    (K-LOOKUP);
-8. timing with CUDA events: ms per GN iteration in 2-D and 3-D and each
-   kernel beside its plain version.
+8. the constrained robots at B=1024 in float32 through
+   ``DiffGPMP2Planner`` built from the YAMLs: the 2-link arm (self-collision,
+   joint limits), the heading robot (nonholonomic, D=6), the task-space
+   3-link arm (workspace goal, self-collision, joint limits, D=6) and the
+   bench problem with GP interpolation and velocity limits; then
+   ``GPMP2Planner.plan_batch`` (LM, float64) on B=256 bench problems;
+9. multistart: the ``benchmarks/bench_multistart.py`` problem (B=256, K=16)
+   through ``GPMP2Planner.plan_multistart``, full pool and staged, for four
+   seeds of the perturbation draws;
+10. timing with CUDA events: ms per GN iteration in 2-D, 3-D, for the arm
+    and the heading robot, ms per multistart batch, and each kernel beside
+    its plain version.
 
 Every path phase sets all kernel launch counters to 0 just before it and
 reads them just after.  The last two lines are JSON: the kernels' record,
@@ -43,6 +55,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "torch_port_plan_small.npz"
 GOLDEN3D = ROOT / "tests" / "goldens" / "torch_port_plan3d_small.npz"
+GOLDEN_EXT = ROOT / "tests" / "goldens" / "torch_port_plan_ext_small.npz"
 CONFIGS = ROOT / "dgpmp2_tpu" / "configs"
 B, T, IMSIZE, VOX = 1024, 100, 128, 64
 LIMS = (-5.0, 5.0)
@@ -203,14 +216,46 @@ def golden_plan(dev, path=GOLDEN):
     return gn.plan(spec, robot, params, th0, sdf, cfg), g
 
 
-def golden_errors(out, g) -> dict:
+def golden_errors(out, g, prefix="") -> dict:
     """Relative max-abs errors of the port's plan against the golden."""
     def err(name, ref):
         ref = torch.tensor(ref)
         return rel_err(getattr(out, name).detach().cpu(), ref)
 
-    return {k: err(k, g[k]) for k in
+    return {k: err(k, g[prefix + k]) for k in
             ("th", "err_init", "err_per_iter", "err_ext_per_iter")}
+
+
+def golden_ext_problem(dev, case, g, dtype=torch.float64):
+    """One case of the constrained golden on ``dev``: (planner, params, th0,
+    sdf), the planner a ``DiffGPMP2Planner`` of the stored YAML-schema
+    config and the params with the workspace goal where the case has one."""
+    from dgpmp2_tpu_torch.planner import DiffGPMP2Planner
+    from dgpmp2_tpu_torch.robots import make_robot
+
+    cfg = json.loads(str(g[f"{case}_config"]))
+    planner = DiffGPMP2Planner(
+        cfg["gp"], cfg["obs"], cfg["planner"],
+        {"method": cfg["method"], "reg": cfg["reg"],
+         "max_iters": cfg["iters"], "tol_delta": 0.0},
+        cfg["env"], make_robot(cfg["robot"]), dtype=dtype, device=dev)
+    params = planner.make_params(g[f"{case}_start"], g[f"{case}_goal"],
+                                 workspace_goal=g.get(f"{case}_workspace_goal"))
+    return (planner, params,
+            torch.tensor(g[f"{case}_th0"], dtype=dtype, device=dev),
+            occupancy_sdf(g[f"{case}_images"], dev, dtype))
+
+
+def golden_ext_plan(dev, case, g):
+    """Plan one case of the constrained golden in float64 on ``dev`` as the
+    JAX package did: ``DiffGPMP2Planner.plan``, or ``gn.plan`` of its spec
+    with the workspace-goal params."""
+    from dgpmp2_tpu_torch.core import gn
+
+    planner, params, th0, sdf = golden_ext_problem(dev, case, g)
+    if params.p_goal is None:
+        return planner.plan(th0, g[f"{case}_start"], g[f"{case}_goal"], sdf)
+    return gn.plan(planner.spec, planner.robot, params, th0, sdf, planner.cfg)
 
 
 def spd_system(rng, b, t, d, dtype, dev):
@@ -409,20 +454,26 @@ def check_limbs(dev, record):
 
 def check_golden(dev):
     phase("4 float64 reference check (goldens from the JAX package)")
-    for path in (GOLDEN, GOLDEN3D):
-        out, g = golden_plan(dev, path)
-        errs = golden_errors(out, g)
-        print(f"{path.name} relative errors " + json.dumps(errs))
-        # 1e-8: both sides are float64 solves of the same well-posed
-        # systems; no hinge sits on its activation boundary in either.
+    # 1e-8: both sides are float64 solves of the same well-posed systems;
+    # no hinge sits on its activation boundary in any of them.
+    runs = [(path.name, *golden_plan(dev, path), "")
+            for path in (GOLDEN, GOLDEN3D)]
+    g = dict(np.load(GOLDEN_EXT))
+    runs += [(f"{GOLDEN_EXT.name}:{case}", golden_ext_plan(dev, case, g), g,
+              f"{case}_") for case in g["cases"]]
+    for name, out, gold, prefix in runs:
+        errs = golden_errors(out, gold, prefix)
+        print(f"{name} relative errors " + json.dumps(errs))
         bad = {k: v for k, v in errs.items() if not v <= 1e-8}
         if bad:
-            raise AssertionError(f"{path.name} mismatch: {bad}")
+            raise AssertionError(f"{name} mismatch: {bad}")
 
 
-def check_plan(name, out, n_iter, dof=2):
+def check_plan(name, out, n_iter, dof=2, t=T):
+    """Shapes (B, t+1, 2·dof) and (n_iter, B), finite trajectories, and
+    ``err_final < err_init`` on at least 95 % of the problems."""
     shapes = (tuple(out.th.shape), tuple(out.err_per_iter.shape))
-    if shapes != ((B, T + 1, 2 * dof), (n_iter, B)):
+    if shapes != ((B, t + 1, 2 * dof), (n_iter, B)):
         raise AssertionError(f"{name}: shapes {shapes}")
     finite = bool(torch.isfinite(out.th).all())
     better = float((out.err_final < out.err_init).double().mean())
@@ -442,9 +493,14 @@ def counters():
                               sdf_lookup_limbs)))
 
 
+# Launches of every path run through drive(), by kernel: the kernels line.
+TOTALS = dict.fromkeys(KERNELS, 0)
+
+
 def drive(name, run, want):
     """Run one path with every launch counter set to 0 just before and read
-    just after; the counts must equal ``want`` (absent kernels: 0)."""
+    just after; the counts must equal ``want`` (absent kernels: 0), or
+    ``want(out)`` where the count depends on the path's output."""
     mods = counters()
     torch.cuda.synchronize()
     for m in mods.values():
@@ -452,28 +508,96 @@ def drive(name, run, want):
     out = run()
     torch.cuda.synchronize()
     counts = {k: m.launches for k, m in mods.items()}
+    want = want(out) if callable(want) else want
     want = {k: want.get(k, 0) for k in KERNELS}
     print(f"{name} launches {json.dumps(counts)}, expected {json.dumps(want)}")
     if counts != want:
         raise AssertionError(f"{name}: launch counts {counts} != {want}")
+    for k, v in counts.items():
+        TOTALS[k] += v
     return out, counts
+
+
+def load_yamls(plan_yaml, robot_yaml="robot_2d.yaml",
+               env_yaml="env_2d_params.yaml"):
+    """(world limits, planner, gp, obs, optim, robot dicts) of the repo's
+    YAMLs."""
+    from dgpmp2_tpu_torch.utils.config import load_params
+
+    env, pp, gp, obs, opt, robot_data = load_params(
+        CONFIGS / plan_yaml, CONFIGS / robot_yaml, CONFIGS / env_yaml)
+    lims = {k: env[k] for k in ("x_lims", "y_lims", "z_lims") if k in env}
+    return lims, pp, gp, obs, opt, robot_data
 
 
 def planner_from_yaml(dim, dev):
     from dgpmp2_tpu_torch.planner import DiffGPMP2Planner
     from dgpmp2_tpu_torch.robots import make_robot
-    from dgpmp2_tpu_torch.utils.config import load_params
 
-    env, pp, gp, obs, opt, robot_data = load_params(
-        CONFIGS / f"gpmp2_{dim}_params.yaml", CONFIGS / f"robot_{dim}.yaml",
-        CONFIGS / f"env_{dim}_params.yaml")
-    lims = {k: env[k] for k in ("x_lims", "y_lims", "z_lims") if k in env}
+    lims, pp, gp, obs, opt, robot_data = load_yamls(
+        f"gpmp2_{dim}_params.yaml", f"robot_{dim}.yaml",
+        f"env_{dim}_params.yaml")
     return DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(robot_data),
                             dtype=torch.float32, device=dev)
 
 
+def seeds(spec, start, goal, dev, dtype=torch.float32):
+    """Straight-line seeds (b, T+1, D) on ``dev`` between (b, D) states."""
+    from dgpmp2_tpu_torch.utils.trajectory import straight_line_traj
+
+    s = torch.tensor(start[:, :spec.dof], dtype=dtype, device=dev)
+    g = torch.tensor(goal[:, :spec.dof], dtype=dtype, device=dev)
+    return straight_line_traj(s, g, spec.total_time_sec,
+                              spec.total_time_step)
+
+
+def occupancy_sdf(imgs, dev, dtype=torch.float32):
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+
+    imgs = torch.as_tensor(imgs, device=dev)
+    return sdf_ops.sdf_from_occupancy(imgs, res=10.0 / imgs.shape[-1],
+                                      dtype=dtype).contiguous()
+
+
+def joint_states(rng, b, dof, centre, spread):
+    """(b, 2·dof) states at rest with joint angles ``centre ± spread``."""
+    x = np.zeros((b, 2 * dof))
+    x[:, :dof] = np.asarray(centre) + rng.uniform(-1, 1, (b, dof)) * spread
+    return x
+
+
+def taskspace_inputs(b, seed=0):
+    """examples/arm_taskspace_example.py's problem, b times: its 96x96 world
+    (one obstacle on the tip's sweep arc), starts near q = (-0.4, 0, 0) and
+    tip targets near (2.6, 2.6) behind the obstacle."""
+    rng = np.random.default_rng(seed)
+    img = np.ones((b, 96, 96), np.uint8)
+    img[:, 31:42, 79:90] = 0
+    start = joint_states(rng, b, 3, (-0.4, 0.0, 0.0), (0.3, 0.2, 0.2))
+    target = 2.6 + rng.uniform(-0.4, 0.4, (b, 2))
+    return img, start, target
+
+
+def forest_inputs(b, imsize=IMSIZE, seed=0):
+    """benchmarks/bench_multistart.py's build: 24 small boxes per image
+    (forest-like clutter), starts near (-4, -4) and goals near (4, 4)."""
+    rng = np.random.default_rng(seed)
+    imgs = np.ones((b, imsize, imsize), np.float32)
+    for i in range(b):
+        for _ in range(24):
+            cy, cx = rng.integers(12, imsize - 16, 2)
+            s = rng.integers(3, 7)
+            imgs[i, cy:cy + s, cx:cx + s] = 0.0
+    start = np.zeros((b, 4))
+    start[:, :2] = rng.uniform(-4.5, -3.5, (b, 2))
+    goal = np.zeros((b, 4))
+    goal[:, :2] = rng.uniform(3.5, 4.5, (b, 2))
+    return imgs, start, goal
+
+
 def main_path(dev, bench_np):
-    """Drive the port's 2-D entry points at B=1024; returns launch counts."""
+    """Drive the port's 2-D entry points at B=1024; returns the float32
+    bench problem."""
     phase("5 main path (B=1024, float32)")
     from dgpmp2_tpu_torch.core import gn
 
@@ -490,16 +614,16 @@ def main_path(dev, bench_np):
         return bench
 
     # One solve per iteration, one lookup per iteration plus the initial one.
-    bench, counts = drive("2-D path", run, {"btd_solve": n_p + n_g,
-                                            "sdf_lookup": n_p + n_g + 2})
+    bench, _ = drive("2-D path", run, {"btd_solve": n_p + n_g,
+                                       "sdf_lookup": n_p + n_g + 2})
     check_plan("DiffGPMP2Planner.plan (YAML config)", outs["p"], n_p)
     check_plan("core.gn.plan (reg=0.1, 50 iterations)", outs["g"], n_g)
-    return counts, bench
+    return bench
 
 
 def path3d(dev, smi):
     """The 3-D path at B=1024: SDFs built on the card, then both entry
-    points; returns launch counts and the float32 problem."""
+    points; returns the float32 problem."""
     phase("6 3-D path (B=1024, 64^3 voxels, float32)")
     from dgpmp2_tpu_torch.core import gn
 
@@ -528,12 +652,12 @@ def path3d(dev, smi):
         outs["p"] = planner.plan(bench[3], start, goal, sdf)
         outs["g"] = gn.plan(*bench, cfg)
 
-    _, counts = drive("3-D path", run, {"btd_solve": n_p + n_g,
-                                        "sdf_lookup3d": n_p + n_g + 2})
+    drive("3-D path", run, {"btd_solve": n_p + n_g,
+                            "sdf_lookup3d": n_p + n_g + 2})
     check_plan("3-D DiffGPMP2Planner.plan (3-D YAMLs)", outs["p"], n_p, 3)
     check_plan("3-D core.gn.plan (reg=0.1, 50 iterations)", outs["g"], n_g, 3)
     check_btd_bench_system("3-D bench system", bench)
-    return counts, bench
+    return bench
 
 
 def engines(bench):
@@ -545,7 +669,7 @@ def engines(bench):
     cfg = gn.OptimConfig(reg=0.1, max_iters=50, tol_delta=0.0)
     try:
         sdf_ops.set_lookup_method("pallas_v3_1")
-        out, counts = drive("pallas_v3_1", lambda: gn.plan(*bench, cfg), {
+        out, _ = drive("pallas_v3_1", lambda: gn.plan(*bench, cfg), {
             "btd_solve": 50, "sdf_lookup_limbs": 51})
         check_plan("core.gn.plan under pallas_v3_1 (bf16 SDF)", out, 50)
         sdf_ops.set_lookup_method("pallas")
@@ -554,7 +678,189 @@ def engines(bench):
               {"btd_solve": 5, "sdf_lookup": 6})
     finally:
         sdf_ops.set_lookup_method("auto")
-    return counts
+
+
+def constrained_problems(dev, bench_np):
+    """The four constrained paths at B=1024 in float32, each a
+    DiffGPMP2Planner from the YAMLs with its inputs: name -> (planner,
+    start, goal, workspace goal or None, sdf)."""
+    from dgpmp2_tpu_torch.planner import DiffGPMP2Planner
+    from dgpmp2_tpu_torch.robots import make_robot
+
+    imgs, start2, goal2 = bench_np
+    sdf = occupancy_sdf(imgs, dev)
+    rng = np.random.default_rng(5)
+    out = {}
+
+    def planner(yamls, robot, pp=None, gp=None, obs=None, opt=None):
+        lims, pp0, gp0, obs0, opt0, rd = load_yamls(*yamls)
+        return DiffGPMP2Planner(
+            dict(gp0, **(gp or {})), dict(obs0, **(obs or {})),
+            dict(pp0, **(pp or {})), dict(opt0, **(opt or {})), lims,
+            make_robot(robot or rd), dtype=torch.float32, device=dev)
+
+    arm_yamls = ("gpmp2_arm_params.yaml", "robot_arm.yaml")
+    # 2-link arm (self-collision, joint limits), the arm YAMLs as they are.
+    out["2-link arm"] = (
+        planner(arm_yamls, None),
+        joint_states(rng, B, 2, (-2.0, 0.0), 0.4),
+        joint_states(rng, B, 2, (1.6, 0.0), 0.4), None, sdf)
+    # Heading robot (nonholonomic, D=6): the XYH YAML, 3-dof robot.
+    start6, goal6 = np.zeros((B, 6)), np.zeros((B, 6))
+    start6[:, :2], goal6[:, :2] = start2[:, :2], goal2[:, :2]
+    start6[:, 2] = goal6[:, 2] = 0.785
+    out["heading robot"] = (
+        planner(("gpmp2_xyh_params.yaml",), {"type": "point_robot", "dof": 3,
+                                             "sphere_radius": [0.4]}),
+        start6, goal6, None, sdf)
+    # Task-space 3-link arm (workspace goal, self-collision, joint limits,
+    # D=6), the arm_taskspace_example.py problem with the arm YAMLs'
+    # remaining values, under LM: plain GN swings this arm by tens of
+    # radians in its first steps.
+    img96, start3, target = taskspace_inputs(B)
+    out["task-space 3-link arm"] = (
+        planner(arm_yamls,
+                {"type": "planar_arm", "link_lengths": [1.8, 1.4, 1.2],
+                 "spheres_per_link": 2, "sphere_radius": [0.25]},
+                pp=dict(dof=3, state_dim=6, total_time_step=30,
+                        use_workspace_goal=True),
+                gp=dict(Q_c_inv=np.eye(3), K_g=100.0, q_min=[-2.4] * 3,
+                        q_max=[2.4] * 3),
+                obs=dict(epsilon_dist=0.25), opt=dict(method="lm")),
+        start3, start3, target, occupancy_sdf(img96, dev))
+    # The bench problem with GP interpolation (4T checks: 3 per segment,
+    # P = 101 + 300 points in one lookup) and velocity limits.
+    out["GP interpolation + velocity limits"] = (
+        planner(("gpmp2_2d_params.yaml",), None,
+                pp=dict(use_gp_inter=True, total_check_step=4 * T,
+                        use_vel_limits=True)),
+        start2, goal2, None, sdf)
+    return out
+
+
+def problem_of(planner, start, goal, wg, sdf):
+    """(spec, robot, params, th0, sdf) of one constrained path."""
+    dev = planner.device
+    return (planner.spec, planner.robot,
+            planner.make_params(start, goal, workspace_goal=wg),
+            seeds(planner.spec, start, goal, dev), sdf)
+
+
+def constrained(dev, bench_np):
+    """The constrained robots at B=1024, float32, through DiffGPMP2Planner
+    from the YAMLs (``plan``; under a workspace goal ``make_params`` with it
+    and ``gn.plan``), then GPMP2Planner.plan_batch; returns the float32
+    problems for the timing phase."""
+    phase("8 constrained robots (B=1024, float32)")
+    from dgpmp2_tpu_torch.core import gn
+    from dgpmp2_tpu_torch.planner import GPMP2Planner
+    from dgpmp2_tpu_torch.robots import make_robot
+
+    problems = {}
+    for name, (planner, start, goal, wg, sdf) in constrained_problems(
+            dev, bench_np).items():
+        prob = problem_of(planner, start, goal, wg, sdf)
+        spec, robot, params, th0, _ = prob
+        n = planner.cfg.max_iters
+        if wg is None:
+            run = lambda: planner.plan(th0, start, goal, sdf)  # noqa: E731
+        else:
+            run = lambda: gn.plan(spec, robot, params, th0, sdf,  # noqa: E731
+                                  planner.cfg)
+        out, _ = drive(name, run, {"btd_solve": n, "sdf_lookup": n + 1})
+        check_plan(name, out, n, spec.dof, spec.total_time_step)
+        problems[name] = prob
+        if wg is not None:
+            centers, _ = robot.fk(out.th)
+            tip_err = (centers[:, -1, -1] - params.p_goal).norm(dim=-1)
+            print(f"{name}: tip within 0.1 m of its target on "
+                  f"{float((tip_err < 0.1).double().mean()):.4f} of problems")
+    if problems["GP interpolation + velocity limits"][0].num_inter != 3:
+        raise AssertionError("GP interpolation: num_inter != 3")
+
+    # GPMP2Planner.plan_batch, LM in float64 on 256 bench problems: one
+    # solve and two lookups per host iteration, plus the initial lookup.
+    imgs, start2, goal2 = bench_np
+    lims, pp, gp, obs, _, rd = load_yamls("gpmp2_2d_params.yaml")
+    classic = GPMP2Planner(gp, obs, pp, lims, make_robot(rd), device=dev)
+    nb = 256
+    sdf64 = occupancy_sdf(imgs[:nb], dev, torch.float64)
+    th0 = seeds(classic.spec, start2[:nb], goal2[:nb], dev, torch.float64)
+    optim = {"method": "lm", "max_iters": 50, "tol_delta": 1e-3,
+             "plan_time": "inf"}
+    res, _ = drive("GPMP2Planner.plan_batch (LM, float64)",
+                   lambda: classic.plan_batch(start2[:nb], goal2[:nb], th0,
+                                              sdf64, optim),
+                   lambda r: {"btd_solve": len(r[3]),
+                              "sdf_lookup": 2 * len(r[3]) + 1})
+    th, err_init, err_final, err_per_iter, iters, secs = res
+    better = float(np.mean(err_final < err_init))
+    finite = bool(torch.isfinite(th).all())
+    print(f"GPMP2Planner.plan_batch (LM, float64, B={nb}): finite {finite}, "
+          f"err_final < err_init on {better:.4f} of problems, "
+          f"{len(err_per_iter)} host iterations, max iters {int(iters.max())}"
+          f", {secs:.3f} s")
+    if tuple(th.shape) != (nb, T + 1, 4) or not (finite and better >= 0.95):
+        raise AssertionError(f"plan_batch: {tuple(th.shape)} {better}")
+    return problems
+
+
+MS_B, MS_K, MS_SEEDS = 256, 16, 4
+MS_OPTIM = {"reg": 0.1, "max_iters": 50}
+MS_RUNS = {"full": {}, "staged": {"prune_iters": 10, "keep": 4}}
+
+
+def multistart(dev):
+    """benchmarks/bench_multistart.py's defaults through
+    GPMP2Planner.plan_multistart in float32: full pool and staged, for
+    seeds 0..MS_SEEDS-1 of the perturbation draws.  Staged must keep the
+    full pool's contact-free count within 2 % of the problems, summed over
+    the seeds: one seed's difference spreads by a few problems either way
+    (in the JAX package too)."""
+    phase(f"9 multistart (B={MS_B}, K={MS_K}, float32)")
+    from dgpmp2_tpu_torch.planner import GPMP2Planner
+    from dgpmp2_tpu_torch.robots import make_robot
+
+    lims, pp, gp, obs, _, rd = load_yamls("gpmp2_2d_params.yaml")
+    planner = GPMP2Planner(gp, obs, pp, lims, make_robot(rd),
+                           dtype=torch.float32, device=dev)
+    imgs, start, goal = forest_inputs(MS_B)
+    sdf = occupancy_sdf(imgs, dev)
+    th0 = seeds(planner.spec, start, goal, dev)
+
+    def run(name, seed=0):
+        return planner.plan_multistart(start, goal, th0, sdf, MS_OPTIM,
+                                       restarts=MS_K, amp=2.0, seed=seed,
+                                       **MS_RUNS[name])
+
+    free = {name: [] for name in MS_RUNS}
+    for seed in range(MS_SEEDS):
+        for name, kw in MS_RUNS.items():
+            # Full: one K·B plan (50 solves, 51 lookups) and one scoring
+            # lookup; staged: phases of 10 and 40 iterations and two
+            # scoring lookups.
+            want = {"btd_solve": 50, "sdf_lookup": 54 if kw else 52}
+            out, _ = drive(f"multistart {name} seed {seed}",
+                           lambda: run(name, seed), want)
+            pool = 2 * kw["keep"] if kw else MS_K
+            shapes = [tuple(x.shape) for x in out]
+            if (shapes != [(MS_B, T + 1, 4)] + [(MS_B,)] * 4
+                    or not bool(torch.isfinite(out.th).all())
+                    or not bool(((out.k_best >= 0)
+                                 & (out.k_best < pool)).all())
+                    or not bool((out.iters <= 50).all())):
+                raise AssertionError(f"multistart {name}: {shapes}")
+            free[name].append(int(out.contact_free.sum()))
+            print(f"multistart {name} seed {seed}: contact-free "
+                  f"{free[name][-1]}/{MS_B}, mean iterations of the winners "
+                  f"{float(out.iters.double().mean()):.2f}")
+    total = {name: sum(v) for name, v in free.items()}
+    print(f"multistart contact-free over seeds 0..{MS_SEEDS - 1}: "
+          f"{json.dumps(free)}, totals {json.dumps(total)} of "
+          f"{MS_B * MS_SEEDS}")
+    if total["staged"] < total["full"] - 0.02 * MS_B * MS_SEEDS:
+        raise AssertionError(f"staged multistart lost coverage: {free}")
+    return run
 
 
 def plan_ms(bench):
@@ -570,17 +876,24 @@ def plan_ms(bench):
     return t50, t200, (t200 - t50) / 150.0
 
 
-def timing(smi, bench, bench3):
-    phase("8 timing")
-    t50, t200, per_iter = plan_ms(bench)
-    print(f"[{smi}] core.gn.plan B=1024 T=100 128x128 float32: 50 iterations "
-          f"{t50:.3f} ms, 200 iterations {t200:.3f} ms, "
-          f"ms per GN iteration {per_iter:.4f}")
-    t50, t200, per_iter3 = plan_ms(bench3)
-    print(f"[{smi}] 3-D core.gn.plan B=1024 T=100 64^3 float32: 50 "
-          f"iterations {t50:.3f} ms, 200 iterations {t200:.3f} ms, "
-          f"ms per GN iteration {per_iter3:.4f}")
-    return per_iter, per_iter3
+def timing(smi, bench, bench3, problems, ms_run):
+    phase("10 timing")
+    per_iter = {}
+    for key, name, prob in (
+            ("", "core.gn.plan B=1024 T=100 128x128", bench),
+            ("_3d", "3-D core.gn.plan B=1024 T=100 64^3", bench3),
+            ("_arm2", "2-link arm core.gn.plan B=1024 T=40 128x128",
+             problems["2-link arm"]),
+            ("_xyh", "heading robot core.gn.plan B=1024 T=100 128x128",
+             problems["heading robot"])):
+        t50, t200, per_iter[key] = plan_ms(prob)
+        print(f"[{smi}] {name} float32: 50 iterations {t50:.3f} ms, 200 "
+              f"iterations {t200:.3f} ms, ms per GN iteration "
+              f"{per_iter[key]:.4f}")
+    for name in MS_RUNS:
+        ms = cuda_ms(lambda: ms_run(name), reps=5, warmup=1)
+        print(f"[{smi}] multistart_ms_b{MS_B}_k{MS_K}_{name} {ms:.3f}")
+    return per_iter
 
 
 def main():
@@ -611,14 +924,14 @@ def main():
     check_lookup3d(dev, recs["sdf_lookup3d"])
     check_limbs(dev, recs["sdf_lookup_limbs"])
     check_golden(dev)
-    counts2, bench = main_path(dev, bench_np)
-    counts3, bench3 = path3d(dev, smi)
-    counts_limb = engines(bench)
-    recs["btd_solve"]["launches"] = counts2["btd_solve"]
-    recs["sdf_lookup"]["launches"] = counts2["sdf_lookup"]
-    recs["sdf_lookup3d"]["launches"] = counts3["sdf_lookup3d"]
-    recs["sdf_lookup_limbs"]["launches"] = counts_limb["sdf_lookup_limbs"]
-    per_iter, per_iter3 = timing(smi, bench, bench3)
+    bench = main_path(dev, bench_np)
+    bench3 = path3d(dev, smi)
+    engines(bench)
+    problems = constrained(dev, bench_np)
+    ms_run = multistart(dev)
+    for name, rec in recs.items():
+        rec["launches"] = TOTALS[name]
+    per_iter = timing(smi, bench, bench3, problems, ms_run)
     for rec in recs.values():
         print(f"[{smi}] {rec['name']}: kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms (L2 flushed); back to back kernel "
@@ -628,8 +941,8 @@ def main():
           f"{limb['warm_ms']:.4f}) beside K-LOOKUP {limb['exact_ms']:.4f} ms "
           f"(warm {limb['exact_warm_ms']:.4f}) on the same points; limb "
           f"split {limb['split_ms']:.4f} ms per call")
-    print(f"[{smi}] gn_iter_ms_b1024 {per_iter:.4f}")
-    print(f"[{smi}] gn_iter_ms_b1024_3d {per_iter3:.4f}")
+    for key, ms in per_iter.items():
+        print(f"[{smi}] gn_iter_ms_b1024{key} {ms:.4f}")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms")}

@@ -1,12 +1,18 @@
-"""Factor evaluations of the GPMP2 factor graph (main-path subset).
+"""Factor evaluations of the GPMP2 factor graph.
 
-Port of ``dgpmp2_tpu/core/factors.py``: the CV-GP prior, start/goal priors
-and the hinge obstacle factor.  Every factor returns ``(r, H)`` with
-``H = -∂r/∂x``, so a Gauss-Newton step solves
-``(Σ HᵀΛH + δI) dθ = Σ HᵀΛ r``, ``θ ← θ + dθ``.
+Port of ``dgpmp2_tpu/core/factors.py``: the CV-GP prior, start/goal priors,
+the hinge obstacle factor, GP interpolation between support states, and the
+nonholonomic, velocity-limit, self-collision, joint-limit and workspace-goal
+factors.  Every factor returns ``(r, H)`` with ``H = -∂r/∂x``, so a
+Gauss-Newton step solves ``(Σ HᵀΛH + δI) dθ = Σ HᵀΛ r``, ``θ ← θ + dθ``.
+The nonholonomic Jacobian keeps the JAX package's consistent sign (the
+original dGPMP2 factor flips the sign of its θ/velocity entries).
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from dgpmp2_tpu_torch.ops import sdf as sdf_ops
@@ -82,3 +88,116 @@ def hinge_from_lookup(d, grad, jac_fk, radii, eps):
     r = torch.where(active, eps_tot - d, zero)
     h_c = torch.where(active[..., None], grad, zero)
     return r, torch.sum(h_c[..., None] * jac_fk, dim=-2)
+
+
+@functools.lru_cache(maxsize=None)
+def gp_interp_coeffs(dof: int, dt: float, num_inter: int, dtype: torch.dtype,
+                     device: torch.device | str):
+    """Interpolation matrices Λ(τ_k), Ψ(τ_k) for τ_k = dt·k/(nip+1).
+
+    CV-prior closed forms with ``Q_s = S(s) ⊗ Q_c`` (S the 2×2 kernel
+    [[s³/3, s²/2], [s²/2, s]]) and ``Φ(s) = [[1, s], [0, 1]] ⊗ I``:
+    ``Ψ(τ) = Q_τ Φ(Δ-τ)ᵀ Q_Δ⁻¹`` (Q_c cancels), ``Λ(τ) = Φ(τ) - Ψ(τ) Φ(Δ)``.
+    Computed in float64 numpy, then cast, once per dtype and device.
+    Returns (lam, psi) each (num_inter, D, D) with D = 2·dof.
+    """
+    def s_mat(s):
+        return np.array([[s**3 / 3.0, s**2 / 2.0], [s**2 / 2.0, s]])
+
+    def phi2(s):
+        return np.array([[1.0, s], [0.0, 1.0]])
+
+    lam2, psi2 = [], []
+    q_d_inv = np.linalg.inv(s_mat(dt))
+    for k in range(1, num_inter + 1):
+        tau = dt * k / (num_inter + 1)
+        psi = s_mat(tau) @ phi2(dt - tau).T @ q_d_inv
+        lam2.append(phi2(tau) - psi @ phi2(dt))
+        psi2.append(psi)
+    eye = np.eye(dof)
+    lam_full = np.stack([np.kron(m, eye) for m in lam2])
+    psi_full = np.stack([np.kron(m, eye) for m in psi2])
+    return (torch.tensor(lam_full, dtype=dtype, device=device),
+            torch.tensor(psi_full, dtype=dtype, device=device))
+
+
+def gp_interpolate(th: torch.Tensor, lam: torch.Tensor, psi: torch.Tensor):
+    """Interpolated states x(τ_k) = Λ_k x_i + Ψ_k x_{i+1} of every GP
+    segment: th (..., T+1, D), lam/psi (nip, D, D) -> (..., T, nip, D)."""
+    x_i = th[..., :-1, None, None, :]  # (..., T, 1, 1, D)
+    x_j = th[..., 1:, None, None, :]
+    return torch.sum(lam * x_i, dim=-1) + torch.sum(psi * x_j, dim=-1)
+
+
+def nonholonomic_residual(th: torch.Tensor):
+    """Unicycle constraint on ``[x, y, θ, vx, vy, ω]``: ``r = vy·cosθ -
+    vx·sinθ`` (..., T) and ``H = -∂r/∂x`` (..., T, 6)."""
+    theta, vx, vy = th[..., 2], th[..., 3], th[..., 4]
+    s, c = torch.sin(theta), torch.cos(theta)
+    r = vy * c - vx * s
+    zeros = torch.zeros_like(r)
+    return r, torch.stack([zeros, zeros, vy * s + vx * c, s, -c, zeros],
+                          dim=-1)
+
+
+def velocity_limit_residual(th: torch.Tensor, v_lim: torch.Tensor, dof: int):
+    """Per-axis velocity hinge ``r_k = max(0, |v_k| - v_lim_k)`` with
+    ``H_k = -sign(v_k)·e_{v_k}`` inside the hinge (active at ``|v| >=
+    v_lim``).  th (..., T, D), v_lim (..., T, dof) -> r (..., T, dof),
+    H (..., T, dof, D)."""
+    d = th.shape[-1]
+    v = th[..., dof:]
+    over = torch.abs(v) >= v_lim
+    zero = torch.zeros((), dtype=th.dtype, device=th.device)
+    r = torch.where(over, torch.abs(v) - v_lim, zero)
+    sign = torch.where(over, -torch.sign(v), zero)
+    h_v = sign[..., :, None] * torch.eye(dof, dtype=th.dtype, device=th.device)
+    return r, torch.cat([h_v.new_zeros((*h_v.shape[:-1], d - dof)), h_v],
+                        dim=-1)
+
+
+def self_collision_residual(centers, jac_fk, radii, pairs_i, pairs_j,
+                            eps_self):
+    """Sphere-sphere self-collision hinge per configured pair (i, j):
+    ``r_p = max(0, (ε_p + radius_i + radius_j) − ‖c_i − c_j‖)`` with
+    ``H = û·(J_i − J_j)`` inside the hinge (active at ``dist <= thresh``;
+    ``dist = sqrt(Σ diff² + 1e-12)``).
+
+    centers (..., L, W), jac_fk (..., L, W, D), radii (L,), pairs_i/pairs_j
+    (P,) int64 tensors, eps_self (..., P) -> r (..., P), H (..., P, D).
+    """
+    diff = centers[..., pairs_i, :] - centers[..., pairs_j, :]  # (..., P, W)
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1) + 1e-12)
+    thresh = eps_self + radii[pairs_i] + radii[pairs_j]
+    active = dist <= thresh
+    zero = torch.zeros((), dtype=dist.dtype, device=dist.device)
+    r = torch.where(active, thresh - dist, zero)
+    u = torch.where(active[..., None], diff / dist[..., None], zero)
+    jdiff = jac_fk[..., pairs_i, :, :] - jac_fk[..., pairs_j, :, :]
+    return r, torch.sum(u[..., None] * jdiff, dim=-2)
+
+
+def joint_limit_residual(th: torch.Tensor, q_min: torch.Tensor,
+                         q_max: torch.Tensor, dof: int):
+    """Per-joint position hinge ``r_k = max(0, q_k − q_max_k) + max(0,
+    q_min_k − q_k)`` (active at ``>=`` and ``<=``) with ``H_k = ∓e_{q_k}``.
+    th (..., T, D), q_min/q_max (..., T, dof) -> r (..., T, dof),
+    H (..., T, dof, D)."""
+    d = th.shape[-1]
+    q = th[..., :dof]
+    over = q >= q_max
+    under = q <= q_min
+    zero = torch.zeros((), dtype=th.dtype, device=th.device)
+    r = torch.where(over, q - q_max, zero) + torch.where(under, q_min - q, zero)
+    sign = (torch.where(over, -1.0, zero) + torch.where(under, 1.0, zero))
+    h_q = sign[..., :, None] * torch.eye(dof, dtype=th.dtype, device=th.device)
+    return r, torch.cat([h_q, h_q.new_zeros((*h_q.shape[:-1], d - dof))],
+                        dim=-1)
+
+
+def workspace_goal_residual(centers_end, jac_end, p_goal):
+    """End-effector workspace goal on the last body sphere (the tip) of the
+    terminal state: ``r = p_goal − tip(q_T)``, ``H = J_tip``.
+    centers_end (..., L, W), jac_end (..., L, W, D), p_goal (..., W) ->
+    r (..., W), H (..., W, D)."""
+    return p_goal - centers_end[..., -1, :], jac_end[..., -1, :, :]

@@ -101,8 +101,14 @@ def _converged(dth, err_delta, cfg: OptimConfig):
 
 
 def _best_score(res: graph_lib.FactorResiduals) -> torch.Tensor:
-    """GP-MSE if the interior is collision-free, else +inf."""
+    """GP-MSE if the interior is collision-free, else +inf.  Collision
+    covers the GP-interpolated checks and self-collision where enabled."""
     colliding = torch.any((res.r_obs[..., 1:-1, :] > 0).flatten(-2), dim=-1)
+    if res.r_obsi is not None:
+        colliding = colliding | torch.any((res.r_obsi > 0).flatten(-3), dim=-1)
+    if res.r_self is not None:
+        colliding = colliding | torch.any(
+            (res.r_self[..., 1:-1, :] > 0).flatten(-2), dim=-1)
     gp_mse = torch.mean(torch.sum(res.r_gp**2, dim=-1), dim=-1)
     return torch.where(colliding, torch.full_like(gp_mse, float("inf")),
                        gp_mse)
@@ -116,7 +122,9 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
 
     LM keeps one lambda per problem (accepted steps divide it by 10, rejected
     steps multiply it by 10).  ``params_fix`` supplies the fixed external
-    covariances of the ``err_ext`` trace; it defaults to ``params``.
+    covariances of the ``err_ext`` trace; it defaults to ``params``.  The JAX
+    package's ``unroll`` (a ``lax.scan`` option) has no counterpart in a
+    Python loop and is not taken.
     """
     if cfg.method not in ("gauss_newton", "lm"):
         raise ValueError(

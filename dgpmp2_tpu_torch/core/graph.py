@@ -1,25 +1,29 @@
 """Factor-graph specification and block-tridiagonal normal-equation assembly.
 
-Port of ``dgpmp2_tpu/core/graph.py`` for the main path (CV-GP prior,
-start/goal priors, hinge obstacle factors) in 2-D and 3-D workspaces.  ``AᵀKA`` is assembled directly
-as its ``D×D`` blocks,
+Port of ``dgpmp2_tpu/core/graph.py`` in 2-D and 3-D workspaces, with every
+factor of the JAX package: the CV-GP prior, start/goal priors, hinge
+obstacle factors, and the optional nonholonomic, velocity-limit,
+GP-interpolated obstacle, self-collision, joint-limit and workspace-goal
+factors.  ``AᵀKA`` is assembled directly as its ``D×D`` blocks,
 
     diag_i = Σ H_fᵀ Λ_f H_f over factors touching state i
-    off_i  = -Φᵀ Q⁻¹_i        (the only coupling: the GP factor)
+    off_i  = -Φᵀ Q⁻¹_i (+ the GP-interpolated obstacle couplings)
     rhs_i  = Σ H_fᵀ Λ_f r_f
 
-and ``A``/``K`` are never formed.  The optional factors of the JAX package
-raise ``NotImplementedError`` when enabled in a :class:`GraphSpec`.
+and ``A``/``K`` are never formed.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from dgpmp2_tpu_torch.core import factors
+from dgpmp2_tpu_torch.ops import sdf as sdf_ops
 from dgpmp2_tpu_torch.robots import RobotModel
 
 
@@ -46,13 +50,24 @@ def _pad_time(x, before, after, vec=False):
     return F.pad(x, pad + [before, after])
 
 
-_OPTIONAL = ("non_holonomic", "use_vel_limits", "use_gp_inter",
-             "use_self_collision", "use_joint_limits", "use_workspace_goal")
+@functools.lru_cache(maxsize=None)
+def pair_index(self_pairs: Tuple[Tuple[int, int], ...],
+               device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pairs_i, pairs_j) int64 index tensors of ``self_pairs``, made once
+    per device."""
+    pairs = torch.tensor(self_pairs, dtype=torch.int64,
+                         device=device).reshape(-1, 2)
+    return pairs[:, 0], pairs[:, 1]
 
 
 @dataclasses.dataclass(frozen=True)
 class GraphSpec:
-    """Static problem dimensions and options (as the JAX package's)."""
+    """Static problem dimensions and options (as the JAX package's).
+
+    ``use_gp_inter`` adds ``num_inter`` obstacle checks per GP segment at the
+    CV-GP posterior mean; ``self_pairs`` are the (sphere_i, sphere_j) pairs
+    of the self-collision factor (``robots.self_collision_pairs``).
+    """
 
     dof: int = 2
     state_dim: int = 4
@@ -65,17 +80,15 @@ class GraphSpec:
     non_holonomic: bool = False
     use_vel_limits: bool = False
     use_gp_inter: bool = False
+    num_inter: int = 3
     use_self_collision: bool = False
+    self_pairs: Tuple[Tuple[int, int], ...] = ()
     use_joint_limits: bool = False
     use_workspace_goal: bool = False
 
-    def __post_init__(self):
-        enabled = [f for f in _OPTIONAL if getattr(self, f)]
-        if enabled:
-            raise NotImplementedError(
-                f"GraphSpec options {enabled} are not ported to "
-                "dgpmp2_tpu_torch yet (ROADMAP.md, queue 1 item 9)"
-            )
+    @property
+    def num_self_pairs(self) -> int:
+        return len(self.self_pairs)
 
     @property
     def num_traj_states(self) -> int:
@@ -92,8 +105,21 @@ class GraphSpec:
     @property
     def M(self) -> int:
         """Total residual dimension, the error normaliser."""
-        return (self.state_dim * (self.num_gp_factors + 2)
-                + self.num_traj_states * self.nlinks)
+        m = self.state_dim * (self.num_gp_factors + 2)
+        m += self.num_traj_states * self.nlinks
+        if self.non_holonomic:
+            m += self.num_traj_states
+        if self.use_vel_limits:
+            m += self.dof * self.num_traj_states
+        if self.use_joint_limits:
+            m += self.dof * self.num_traj_states
+        if self.use_workspace_goal:
+            m += 2  # wksp_dim rows at the terminal state
+        if self.use_self_collision:
+            m += self.num_self_pairs * self.num_traj_states
+        if self.use_gp_inter:
+            m += self.num_gp_factors * self.num_inter * self.nlinks
+        return m
 
     @property
     def N(self) -> int:
@@ -126,11 +152,15 @@ class GraphSpec:
 
 @dataclasses.dataclass
 class GraphParams:
-    """Per-problem factor parameters (B = batch, T = total_time_step).
+    """Per-problem factor parameters (B = batch, T = total_time_step,
+    L = nlinks, P = self-collision pairs, W = workspace dim).
 
     start, goal (B, D); q_inv (B, T, D, D); ks_inv, kg_inv (B, D, D);
-    obs_inv (B, T+1, L, L); eps (B, T+1, L).  The optional fields of the JAX
-    package stay ``None`` until their factors are ported.
+    obs_inv (B, T+1, L, L); eps (B, T+1, L); and, ``None`` unless their
+    factor is enabled: dyn_inv (B, T+1); vel_inv (B, T+1, dof, dof) with
+    v_lim (B, T+1, dof); self_inv, self_eps (B, T+1, P); jl_inv
+    (B, T+1, dof, dof) with q_min, q_max (B, T+1, dof); wg_inv (B, W, W) with
+    p_goal (B, W).
     """
 
     start: torch.Tensor
@@ -156,7 +186,11 @@ class GraphParams:
 class FactorResiduals:
     """Factor residuals and Jacobians at one linearisation point.
 
-    r_gp (B, T, D), r_s/r_g (B, D), r_obs (B, T+1, L), h_obs (B, T+1, L, D).
+    r_gp (B, T, D), r_s/r_g (B, D), r_obs (B, T+1, L), h_obs (B, T+1, L, D);
+    optional: r_dyn (B, T+1), h_dyn (B, T+1, D); r_vel, r_jl (B, T+1, dof)
+    with h (B, T+1, dof, D); r_obsi (B, T, nip, L) with h_obsi
+    (B, T, nip, L, D) w.r.t. the interpolated state; r_self (B, T+1, P) with
+    h_self (B, T+1, P, D); r_wg (B, W) with h_wg (B, W, D).
     """
 
     r_gp: torch.Tensor
@@ -191,18 +225,61 @@ def select(mask: torch.Tensor, a, b):
 
 def eval_residuals(spec: GraphSpec, robot: RobotModel, params: GraphParams,
                    th: torch.Tensor, sdf: torch.Tensor) -> FactorResiduals:
-    """Evaluate every factor once at ``th`` (one SDF lookup in all)."""
+    """Evaluate every factor once at ``th`` (one SDF lookup in all: under
+    ``use_gp_inter`` it covers the support and the interpolated states)."""
     spec.validate_grid(sdf.shape)
+    dtype, dev = th.dtype, th.device
     r_gp = factors.gp_residual(th, dt=spec.dt)
     r_s = factors.prior_residual(params.start, th[..., 0, :])
     r_g = factors.prior_residual(params.goal, th[..., -1, :])
     centers, jac_fk = robot.fk(th)
-    r_obs, h_obs = factors.hinge_obstacle_residual(
-        centers, jac_fk, robot.radii_array(th.dtype, th.device), params.eps,
-        sdf, spec.res(sdf.shape[-1]), spec.x_lims, spec.y_lims, spec.z_lims,
-    )
+    radii = robot.radii_array(dtype, dev)
+    out = {}
+    if spec.use_gp_inter:
+        lam, psi = factors.gp_interp_coeffs(spec.dof, spec.dt, spec.num_inter,
+                                            dtype, dev)
+        th_tau = factors.gp_interpolate(th, lam, psi)  # (B, T, nip, D)
+        centers_i, jac_fk_i = robot.fk(th_tau)  # (B, T, nip, L, W[, D])
+        b_shape = th.shape[:-2]
+        wd = centers.shape[-1]
+        tn, t, nip, l = (spec.num_traj_states, spec.num_gp_factors,
+                         spec.num_inter, spec.nlinks)
+        pts = torch.cat([centers.reshape(*b_shape, tn * l, wd),
+                         centers_i.reshape(*b_shape, t * nip * l, wd)], dim=-2)
+        d_all, grad_all = sdf_ops.lookup_nd(
+            sdf, pts, spec.res(sdf.shape[-1]), spec.x_lims, spec.y_lims,
+            spec.z_lims)
+        r_obs, h_obs = factors.hinge_from_lookup(
+            d_all[..., :tn * l].reshape(*b_shape, tn, l),
+            grad_all[..., :tn * l, :].reshape(*b_shape, tn, l, wd),
+            jac_fk, radii, params.eps)
+        eps_i = params.eps[..., :-1, None, :]  # left-support margin
+        out["r_obsi"], out["h_obsi"] = factors.hinge_from_lookup(
+            d_all[..., tn * l:].reshape(*b_shape, t, nip, l),
+            grad_all[..., tn * l:, :].reshape(*b_shape, t, nip, l, wd),
+            jac_fk_i, radii, eps_i)
+    else:
+        r_obs, h_obs = factors.hinge_obstacle_residual(
+            centers, jac_fk, radii, params.eps, sdf, spec.res(sdf.shape[-1]),
+            spec.x_lims, spec.y_lims, spec.z_lims,
+        )
+    if spec.non_holonomic:
+        out["r_dyn"], out["h_dyn"] = factors.nonholonomic_residual(th)
+    if spec.use_vel_limits:
+        out["r_vel"], out["h_vel"] = factors.velocity_limit_residual(
+            th, params.v_lim, spec.dof)
+    if spec.use_joint_limits:
+        out["r_jl"], out["h_jl"] = factors.joint_limit_residual(
+            th, params.q_min, params.q_max, spec.dof)
+    if spec.use_self_collision:
+        pairs_i, pairs_j = pair_index(spec.self_pairs, dev)
+        out["r_self"], out["h_self"] = factors.self_collision_residual(
+            centers, jac_fk, radii, pairs_i, pairs_j, params.self_eps)
+    if spec.use_workspace_goal:
+        out["r_wg"], out["h_wg"] = factors.workspace_goal_residual(
+            centers[..., -1, :, :], jac_fk[..., -1, :, :, :], params.p_goal)
     return FactorResiduals(r_gp=r_gp, r_s=r_s, r_g=r_g, r_obs=r_obs,
-                           h_obs=h_obs)
+                           h_obs=h_obs, **out)
 
 
 @dataclasses.dataclass
@@ -252,14 +329,67 @@ def assemble_from_residuals(spec: GraphSpec, params: GraphParams,
                           vec=True)
     rhs = rhs + _pad_time(_mv(params.kg_inv, res.r_g)[..., None, :], t, 0,
                           vec=True)
-    # Obstacle factors (unary): diag += Σ_k h_k ⊗ (Λh)_k, rhs += Σ_k (Λh)_k r_k
-    h = res.h_obs
-    lam_h = torch.sum(params.obs_inv[..., :, :, None] * h[..., None, :, :],
-                      dim=-2)
-    diag = static.diag_static + torch.sum(
-        h[..., :, :, None] * lam_h[..., :, None, :], dim=-3)
-    rhs = rhs + torch.sum(lam_h * res.r_obs[..., None], dim=-2)
-    return diag, static.off, rhs
+    diag = static.diag_static
+
+    def unary_gauss(diag, rhs, h, r, lam_h):
+        """Per-state Gauss terms of a unary factor with K residual rows:
+        diag += Σ_k h_k ⊗ (Λh)_k, rhs += Σ_k (Λh)_k r_k."""
+        diag = diag + torch.sum(h[..., :, :, None] * lam_h[..., :, None, :],
+                                dim=-3)
+        return diag, rhs + torch.sum(lam_h * r[..., None], dim=-2)
+
+    def lam_full(w, h):  # full (K, K) inverse covariance times H
+        return torch.sum(w[..., :, :, None] * h[..., None, :, :], dim=-2)
+
+    diag, rhs = unary_gauss(diag, rhs, res.h_obs, res.r_obs,
+                            lam_full(params.obs_inv, res.h_obs))
+    if spec.non_holonomic:
+        h_dyn = res.h_dyn[..., None, :]  # (B, T+1, 1, D)
+        diag, rhs = unary_gauss(diag, rhs, h_dyn, res.r_dyn[..., None],
+                                params.dyn_inv[..., None, None] * h_dyn)
+    if spec.use_vel_limits:
+        diag, rhs = unary_gauss(diag, rhs, res.h_vel, res.r_vel,
+                                lam_full(params.vel_inv, res.h_vel))
+    if spec.use_joint_limits:
+        diag, rhs = unary_gauss(diag, rhs, res.h_jl, res.r_jl,
+                                lam_full(params.jl_inv, res.h_jl))
+    if spec.use_self_collision:
+        diag, rhs = unary_gauss(diag, rhs, res.h_self, res.r_self,
+                                params.self_inv[..., None] * res.h_self)
+    if spec.use_workspace_goal:  # unary at the last state
+        lam_hw = lam_full(params.wg_inv, res.h_wg)  # (B, W, D)
+        diag = diag + _pad_time(torch.sum(
+            res.h_wg[..., :, :, None] * lam_hw[..., :, None, :],
+            dim=-3)[..., None, :, :], t, 0)
+        rhs = rhs + _pad_time(torch.sum(lam_hw * res.r_wg[..., None],
+                                        dim=-2)[..., None, :], t, 0, vec=True)
+    off = static.off
+    if spec.use_gp_inter:
+        # Binary factors on (x_t, x_{t+1}): H chains through the
+        # interpolation matrices, a_L = Λᵀhᵀ and a_P = Ψᵀhᵀ.  ``off`` becomes
+        # a new tensor; the static blocks stay as they are.
+        lam_m, psi_m = factors.gp_interp_coeffs(
+            spec.dof, spec.dt, spec.num_inter, dtype, res.r_gp.device)
+        h_i = res.h_obsi  # (B, T, nip, L, D) w.r.t. the interpolated state
+        lam_t = lam_m.transpose(-1, -2)[:, None, :, :]  # (nip, 1, D, D)
+        psi_t = psi_m.transpose(-1, -2)[:, None, :, :]
+        a_l = torch.sum(lam_t * h_i[..., None, :], dim=-1)  # (B,T,nip,L,D)
+        a_p = torch.sum(psi_t * h_i[..., None, :], dim=-1)
+        w = params.obs_inv[..., :-1, None, :, :]  # left-support Λ_obs
+        lam_al = lam_full(w, a_l)
+        lam_ap = lam_full(w, a_p)
+        lam_r = torch.sum(w * res.r_obsi[..., None, :], dim=-1)  # (B,T,nip,L)
+        diag = diag + _pad_time(torch.sum(
+            a_l[..., :, None] * lam_al[..., None, :], dim=(-4, -3)), 0, 1)
+        diag = diag + _pad_time(torch.sum(
+            a_p[..., :, None] * lam_ap[..., None, :], dim=(-4, -3)), 1, 0)
+        off = off + torch.sum(a_l[..., :, None] * lam_ap[..., None, :],
+                              dim=(-4, -3))
+        rhs = rhs + _pad_time(torch.sum(a_l * lam_r[..., None], dim=(-3, -2)),
+                              0, 1, vec=True)
+        rhs = rhs + _pad_time(torch.sum(a_p * lam_r[..., None], dim=(-3, -2)),
+                              1, 0, vec=True)
+    return diag, off, rhs
 
 
 def assemble(spec: GraphSpec, robot: RobotModel, params: GraphParams,
@@ -282,6 +412,25 @@ def error_from_residuals(spec: GraphSpec, params: GraphParams,
     err = err + 0.5 * torch.sum(_mv(q_inv, res.r_gp) * res.r_gp, dim=(-2, -1))
     err = err + 0.5 * torch.sum(_mv(obs_inv, res.r_obs) * res.r_obs,
                                 dim=(-2, -1))
+    if spec.non_holonomic:
+        err = err + 0.5 * torch.sum(params.dyn_inv * res.r_dyn**2, dim=-1)
+    if spec.use_vel_limits:
+        err = err + 0.5 * torch.sum(_mv(params.vel_inv, res.r_vel) * res.r_vel,
+                                    dim=(-2, -1))
+    if spec.use_joint_limits:
+        err = err + 0.5 * torch.sum(_mv(params.jl_inv, res.r_jl) * res.r_jl,
+                                    dim=(-2, -1))
+    if spec.use_self_collision:
+        err = err + 0.5 * torch.sum(params.self_inv * res.r_self**2,
+                                    dim=(-2, -1))
+    if spec.use_workspace_goal:
+        err = err + 0.5 * torch.sum(_mv(params.wg_inv, res.r_wg) * res.r_wg,
+                                    dim=-1)
+    if spec.use_gp_inter:
+        w = obs_inv[..., :-1, None, :, :]
+        err = err + 0.5 * torch.sum(
+            torch.sum(w * res.r_obsi[..., None, :], dim=-1) * res.r_obsi,
+            dim=(-3, -2, -1))
     return err / spec.M
 
 
@@ -292,6 +441,48 @@ def graph_error(spec: GraphSpec, robot: RobotModel, params: GraphParams,
     """Total weighted factor-graph error at ``th``, normalised by M."""
     res = eval_residuals(spec, robot, params, th, sdf)
     return error_from_residuals(spec, params, res, q_inv, obs_inv)
+
+
+def unweighted_errors_from_residuals(res: FactorResiduals):
+    """Unweighted per-term errors for task losses, each (B,):
+    ``err_sg = ½‖r_start‖² + ½‖r_goal‖²``, ``err_gp = mean_t ½‖r_gp,t‖²``,
+    ``err_obs = mean_t ½‖r_obs,t‖²``."""
+    err_sg = (0.5 * torch.sum(res.r_s**2, -1)
+              + 0.5 * torch.sum(res.r_g**2, -1))
+    err_gp = torch.mean(0.5 * torch.sum(res.r_gp**2, -1), dim=-1)
+    err_obs = torch.mean(0.5 * torch.sum(res.r_obs**2, -1), dim=-1)
+    return err_sg, err_gp, err_obs
+
+
+def unweighted_errors(spec: GraphSpec, robot: RobotModel,
+                      params: GraphParams, th: torch.Tensor,
+                      sdf: torch.Tensor):
+    return unweighted_errors_from_residuals(
+        eval_residuals(spec, robot, params, th, sdf))
+
+
+def linear_error(spec: GraphSpec, robot: RobotModel, params: GraphParams,
+                 th: torch.Tensor, sdf: torch.Tensor) -> torch.Tensor:
+    """Stacked residual vector ``b`` (B, M): start prior, GP, goal prior and
+    obstacle rows, then the enabled nonholonomic, velocity, joint-limit,
+    self-collision, workspace-goal and interpolated-obstacle rows."""
+    res = eval_residuals(spec, robot, params, th, sdf)
+    batch = res.r_gp.shape[:-2]
+    parts = [res.r_s, res.r_gp.reshape(*batch, -1), res.r_g,
+             res.r_obs.reshape(*batch, -1)]
+    if spec.non_holonomic:
+        parts.append(res.r_dyn)
+    if spec.use_vel_limits:
+        parts.append(res.r_vel.reshape(*batch, -1))
+    if spec.use_joint_limits:
+        parts.append(res.r_jl.reshape(*batch, -1))
+    if spec.use_self_collision:
+        parts.append(res.r_self.reshape(*batch, -1))
+    if spec.use_workspace_goal:
+        parts.append(res.r_wg)
+    if spec.use_gp_inter:
+        parts.append(res.r_obsi.reshape(*batch, -1))
+    return torch.cat(parts, dim=-1)
 
 
 def obstacle_residuals(spec: GraphSpec, robot: RobotModel,
@@ -308,18 +499,62 @@ def obstacle_residuals(spec: GraphSpec, robot: RobotModel,
 
 def default_params(spec: GraphSpec, robot: RobotModel, start: torch.Tensor,
                    goal: torch.Tensor, qc_inv, cost_sigma, epsilon_dist, k_s,
-                   k_g, dtype: torch.dtype = torch.float32) -> GraphParams:
+                   k_g, k_d=None, k_v=None, v_x=None, v_y=None, k_self=None,
+                   eps_self=None, k_jl=None, q_min=None, q_max=None,
+                   k_wg=None, workspace_goal=None,
+                   dtype: torch.dtype = torch.float32) -> GraphParams:
     """Fixed-covariance GraphParams from the YAML scalars, on ``start``'s
     device: ``K_s⁻¹ = I/K_s²``, ``K_g⁻¹ = I/K_g²``, obstacle ``Λ = I/σ²``
-    and GP ``Q⁻¹`` expanded from ``Q_c⁻¹``.  start, goal (B, D)."""
+    and GP ``Q⁻¹`` expanded from ``Q_c⁻¹``; start, goal (B, D).
+
+    The enabled optional factors take ``k_d`` (nonholonomic), ``k_v`` with
+    per-axis limits ``v_x``/``v_y`` (or a length-dof sequence as ``v_x``),
+    ``k_self``/``eps_self``, ``k_jl`` with ``q_min``/``q_max``, and ``k_wg``
+    with the (B, W) or (W,) ``workspace_goal``.
+    """
     dev = start.device
     b = start.shape[0]
     d, tn, t, l = (spec.state_dim, spec.num_traj_states, spec.total_time_step,
                    spec.nlinks)
-    qc = torch.as_tensor(qc_inv, dtype=dtype, device=dev)
-    q_inv = factors.gp_q_inv(qc.expand(b, t, spec.dof, spec.dof), spec.dt)
+    dof = spec.dof
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
+
+    def iso(n, k):  # I/k² in dtype
+        return torch.eye(n, dtype=dtype, device=dev) / tensor(k) ** 2
+
+    qc = tensor(qc_inv)
+    q_inv = factors.gp_q_inv(qc.expand(b, t, dof, dof), spec.dt)
     eye_d = torch.eye(d, dtype=dtype, device=dev)
     obs = torch.eye(l, dtype=dtype, device=dev) / float(cost_sigma) ** 2
+    opt = {}
+    if spec.non_holonomic:
+        opt["dyn_inv"] = (1.0 / tensor(k_d) ** 2).expand(b, tn)
+    if spec.use_vel_limits:
+        opt["vel_inv"] = iso(dof, k_v).expand(b, tn, dof, dof)
+        # The YAMLs name the per-axis limits v_x/v_y (dof=2); a higher-dof
+        # robot passes a length-dof sequence as v_x (v_y ignored).
+        lims = (np.asarray(v_x, np.float64).reshape(-1)
+                if np.ndim(v_x) else np.asarray([v_x, v_y], np.float64))
+        if lims.size != dof:
+            raise ValueError(
+                f"velocity limits have {lims.size} entries for dof="
+                f"{dof}; pass a length-dof sequence as v_x"
+            )
+        opt["v_lim"] = tensor(lims).expand(b, tn, dof)
+    if spec.use_self_collision:
+        p = spec.num_self_pairs
+        opt["self_inv"] = (1.0 / tensor(k_self) ** 2).expand(b, tn, p)
+        opt["self_eps"] = tensor(eps_self).expand(b, tn, p)
+    if spec.use_workspace_goal:
+        w = robot.wksp_dim
+        opt["wg_inv"] = iso(w, k_wg).expand(b, w, w)
+        opt["p_goal"] = tensor(workspace_goal).expand(b, w)
+    if spec.use_joint_limits:
+        opt["jl_inv"] = iso(dof, k_jl).expand(b, tn, dof, dof)
+        opt["q_min"] = tensor(q_min).reshape(-1).expand(b, tn, dof)
+        opt["q_max"] = tensor(q_max).reshape(-1).expand(b, tn, dof)
     return GraphParams(
         start=start.to(dtype),
         goal=goal.to(dtype),
@@ -329,4 +564,5 @@ def default_params(spec: GraphSpec, robot: RobotModel, start: torch.Tensor,
         obs_inv=obs.expand(b, tn, l, l),
         eps=torch.full((b, tn, l), float(epsilon_dist), dtype=dtype,
                        device=dev),
+        **opt,
     )

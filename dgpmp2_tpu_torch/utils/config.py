@@ -10,7 +10,7 @@ import yaml
 
 from dgpmp2_tpu_torch.core.gn import OptimConfig
 from dgpmp2_tpu_torch.core.graph import GraphSpec
-from dgpmp2_tpu_torch.robots import make_robot
+from dgpmp2_tpu_torch.robots import make_robot, self_collision_pairs
 
 
 def _load_yaml(path):
@@ -32,14 +32,34 @@ def load_params(param_file, robot_file, env_file):
             robot_data)
 
 
+def load_params_learn(param_file, robot_file, env_file, learn_params_file):
+    """:func:`load_params` plus the learn-params dict."""
+    out = load_params(param_file, robot_file, env_file)
+    return (*out, _load_yaml(learn_params_file))
+
+
 def spec_from_params(planner_params, env_data, robot) -> GraphSpec:
-    """GraphSpec from the planner and env YAML; options that are not ported
-    raise ``NotImplementedError`` (see :class:`GraphSpec`)."""
+    """GraphSpec from the planner and env YAML.
+
+    Keys beyond the 2-D schema: ``use_self_collision`` (pairs from the
+    robot's chain geometry at ``self_collision_eps``), ``use_joint_limits``,
+    ``use_workspace_goal``, and ``z_lims`` in the env YAML (3-D).  Under
+    ``use_gp_inter``, ``total_check_step`` counts all collision checks, so
+    ``num_inter = total_check_step // total_time_step - 1`` (at least 1;
+    ``total_check_step`` defaults to 4·T).
+    """
+    t = int(planner_params["total_time_step"])
+    gp_inter = bool(planner_params.get("use_gp_inter", False))
+    self_pairs = ()
+    if planner_params.get("use_self_collision", False):
+        self_pairs = self_collision_pairs(
+            robot,
+            eps_self=float(planner_params.get("self_collision_eps", 0.05)))
     return GraphSpec(
         dof=int(planner_params["dof"]),
         state_dim=int(planner_params["state_dim"]),
         total_time_sec=float(planner_params["total_time_sec"]),
-        total_time_step=int(planner_params["total_time_step"]),
+        total_time_step=t,
         nlinks=robot.nlinks,
         x_lims=tuple(float(v) for v in env_data["x_lims"]),
         y_lims=tuple(float(v) for v in env_data["y_lims"]),
@@ -47,9 +67,12 @@ def spec_from_params(planner_params, env_data, robot) -> GraphSpec:
                 if env_data.get("z_lims") is not None else None),
         non_holonomic=bool(planner_params.get("non_holonomic", False)),
         use_vel_limits=bool(planner_params.get("use_vel_limits", False)),
-        use_gp_inter=bool(planner_params.get("use_gp_inter", False)),
+        use_gp_inter=gp_inter,
+        num_inter=max(1, int(planner_params.get("total_check_step", 4 * t))
+                      // t - 1) if gp_inter else 3,
         use_self_collision=bool(planner_params.get("use_self_collision",
                                                    False)),
+        self_pairs=self_pairs,
         use_joint_limits=bool(planner_params.get("use_joint_limits", False)),
         use_workspace_goal=bool(planner_params.get("use_workspace_goal",
                                                    False)),
@@ -70,5 +93,10 @@ def optim_from_params(optim_params) -> OptimConfig:
     )
 
 
-__all__ = ["load_params", "spec_from_params", "optim_from_params",
-           "make_robot"]
+def plan_time_budget(optim_params) -> float:
+    """The ``plan_time`` budget in seconds (``'inf'`` by default)."""
+    return float(optim_params.get("plan_time", "inf"))
+
+
+__all__ = ["load_params", "load_params_learn", "spec_from_params",
+           "optim_from_params", "plan_time_budget", "make_robot"]

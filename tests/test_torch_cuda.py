@@ -220,3 +220,143 @@ def test_gn_step_3d_on_the_card_uses_lookup3d(dev):
     want = gn.gn_step(*cpu, 0.1)
     assert float((got.cpu() - want).abs().max()) <= 1e-9 * float(
         want.abs().max())
+
+
+def _golden_ext():
+    import chip_smoke
+
+    return chip_smoke, dict(np.load(chip_smoke.GOLDEN_EXT))
+
+
+@pytest.mark.parametrize("case", ["arm2", "arm3_task", "xyh",
+                                  "gp_inter_vel"])
+def test_constrained_gn_step_on_the_card_matches_cpu(dev, case):
+    """float64: one GN step of each constrained golden case on the card (one
+    K-BTD and one K-LOOKUP launch, the GP-interpolated states included in
+    that one lookup) against the CPU plain path: 1e-9 relative."""
+    from dgpmp2_tpu_torch.core import graph
+
+    cs, g = _golden_ext()
+    out = []
+    for where in (dev, torch.device("cpu")):
+        planner, params, th0, sdf = cs.golden_ext_problem(where, case, g)
+        n_b, n_l = k_btd.launches, k_lookup.launches
+        out.append(gn.gn_step(planner.spec, planner.robot, params, th0, sdf,
+                              0.1).cpu())
+        counts = (k_btd.launches - n_b, k_lookup.launches - n_l)
+        assert counts == ((1, 1) if where == dev else (0, 0))
+    assert float((out[0] - out[1]).abs().max()) <= 1e-9 * float(
+        out[1].abs().max())
+    # float32: the residuals on the card against the CPU's (the lookups are
+    # bit-equal; FK's sin/cos may differ by an ulp).
+    res = []
+    for where in (dev, torch.device("cpu")):
+        planner, params, th0, sdf = cs.golden_ext_problem(where, case, g,
+                                                          torch.float32)
+        res.append(graph.eval_residuals(planner.spec, planner.robot, params,
+                                        th0, sdf))
+    for f in ("r_gp", "r_obs", "h_obs", "r_dyn", "r_vel", "r_obsi", "r_self",
+              "r_jl", "r_wg"):
+        a, b = getattr(res[0], f), getattr(res[1], f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert float((a.cpu() - b).abs().max()) <= 1e-4 * max(
+                1.0, float(b.abs().max())), f
+
+
+@pytest.mark.parametrize("staged", [False, True])
+def test_multistart_on_the_card_matches_cpu(dev, staged):
+    """float64, restart 0 plus three numpy-made extra seeds (no random draw
+    reaches the result): the same selection on the card and on the CPU,
+    with exact launch counts."""
+    import chip_smoke
+    from dgpmp2_tpu_torch.core import multistart
+
+    imgs, start, goal = chip_smoke.bench_inputs(4)
+    rng = np.random.default_rng(8)
+    extra = rng.normal(0.0, 0.3, (3, 4, 101, 4))
+    extra[:, :, [0, -1]] = 0.0
+    cfg = gn.OptimConfig(reg=0.1, max_iters=5)
+    kw = dict(prune_iters=2, keep=2) if staged else {}
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        bench = chip_smoke.port_problem(imgs, start, goal, where,
+                                        torch.float64)
+        seeds = torch.tensor(extra, device=where) + bench[3]
+        n_b, n_l = k_btd.launches, k_lookup.launches
+        outs.append(multistart.plan_multistart(
+            *bench, cfg, torch.Generator(where).manual_seed(0), restarts=1,
+            extra_seeds=seeds, **kw))
+        if where == dev:
+            assert (k_btd.launches - n_b, k_lookup.launches - n_l) == (
+                (5, 9) if staged else (5, 7))
+    got, want = outs
+    assert torch.equal(got.k_best.cpu(), want.k_best)
+    assert torch.equal(got.contact_free.cpu(), want.contact_free)
+    assert torch.equal(got.iters.cpu(), want.iters)
+    assert float((got.th.cpu() - want.th).abs().max()) <= 1e-9 * float(
+        want.th.abs().max())
+
+
+def test_plan_batch_lm_on_the_card_matches_cpu(dev):
+    """GPMP2Planner.plan_batch (LM, float64) on the card: one K-BTD and two
+    K-LOOKUP launches per host iteration plus the initial lookup, and the
+    CPU's trajectories to 1e-9 relative."""
+    import chip_smoke
+    from dgpmp2_tpu_torch.planner import GPMP2Planner
+    from dgpmp2_tpu_torch.robots import make_robot
+
+    lims, pp, gp, obs, _, rd = chip_smoke.load_yamls("gpmp2_2d_params.yaml")
+    imgs, start, goal = chip_smoke.bench_inputs(4)
+    optim = {"method": "lm", "max_iters": 6, "tol_delta": 1e-3}
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        planner = GPMP2Planner(gp, obs, pp, lims, make_robot(rd), device=where)
+        sdf = chip_smoke.occupancy_sdf(imgs, where, torch.float64)
+        th0 = chip_smoke.seeds(planner.spec, start, goal, where, torch.float64)
+        n_b, n_l = k_btd.launches, k_lookup.launches
+        outs.append(planner.plan_batch(start, goal, th0, sdf, optim))
+        if where == dev:
+            n = len(outs[-1][3])
+            assert (k_btd.launches - n_b, k_lookup.launches - n_l) == (
+                n, 2 * n + 1)
+    (th_k, *_rest_k), (th_c, *_rest_c) = outs
+    assert float((th_k.cpu() - th_c).abs().max()) <= 1e-9 * float(
+        th_c.abs().max())
+    np.testing.assert_array_equal(_rest_k[3], _rest_c[3])
+
+
+def test_perturbed_inits_with_a_card_generator(dev):
+    """Draws from a CUDA generator: restart 0 is the base and every seed
+    keeps both boundary states."""
+    from dgpmp2_tpu_torch.core import multistart
+
+    th0 = torch.randn((3, 21, 6), dtype=torch.float64, device=dev)
+    seeds = multistart.perturbed_inits(
+        th0, torch.Generator(dev).manual_seed(1), 5, 1.5, 10.0)
+    assert seeds.shape == (5, 3, 21, 6) and seeds.device == th0.device
+    assert torch.equal(seeds[0], th0)
+    # sin(hπ) at the last state is 1e-16, not 0: the ends hold to rounding.
+    ends = seeds[:, :, [0, -1]] - th0[None, :, [0, -1]]
+    assert float(ends.abs().max()) <= 1e-12
+    assert float((seeds[1:] - th0).abs().max()) > 0.0
+
+
+def test_a_four_link_arm_raises_on_the_card(dev):
+    """K-BTD takes D in (4, 6): a 4-link arm (D=8) raises on the card, with
+    no plain fallback."""
+    from dgpmp2_tpu_torch.core import graph
+    from dgpmp2_tpu_torch.robots import PlanarArmNLink
+
+    arm = PlanarArmNLink(link_lengths=(1.0, 1.0, 1.0, 1.0))
+    spec = graph.GraphSpec(dof=4, state_dim=8, total_time_step=10,
+                           nlinks=arm.nlinks)
+    start = torch.zeros((2, 8), dtype=torch.float64, device=dev)
+    params = graph.default_params(spec, arm, start, start + 0.5,
+                                  qc_inv=np.eye(4), cost_sigma=0.1,
+                                  epsilon_dist=0.2, k_s=0.01, k_g=0.01,
+                                  dtype=torch.float64)
+    th = torch.zeros((2, 11, 8), dtype=torch.float64, device=dev)
+    sdf = torch.ones((2, 16, 16), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError, match="D="):
+        gn.gn_step(spec, arm, params, th, sdf, 0.1)

@@ -3,6 +3,8 @@
 Float64 on the CPU; every input is made with numpy from a seed.  Tolerance
 1e-12: the same closed forms in the same order, rounding differences only.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +12,7 @@ import torch
 
 from dgpmp2_tpu.core import factors as jf
 from dgpmp2_tpu.robots import PointRobot2D as JPointRobot2D
+from dgpmp2_tpu.robots import make_robot as j_make_robot
 from dgpmp2_tpu.utils.trajectory import straight_line_traj as j_straight
 
 from dgpmp2_tpu_torch.core import factors as tf
@@ -88,6 +91,9 @@ def test_straight_line_traj():
     {"type": "point_robot", "dof": 3},
 ])
 def test_make_robot_refuses_what_is_not_ported(data):
+    """Every robot type is ported now: these schemas, once refused, build
+    the JAX package's robot (same class name and fields)."""
     assert make_robot({"type": "point_robot", "dof": 2}) == PointRobot2D()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_robot(data)
+    got, want = make_robot(data), j_make_robot(data)
+    assert type(got).__name__ == type(want).__name__
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)

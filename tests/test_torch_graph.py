@@ -97,8 +97,11 @@ def test_default_params_match_the_converted_ones(problems):
     {"z_lims": (-5.0, 5.0), "use_vel_limits": True},
 ])
 def test_spec_options_not_ported_raise(option):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgraph.GraphSpec(**option)
+    """Every option once refused is ported now: the spec constructs and its
+    residual dimension M equals the JAX package's."""
+    spec_t = tgraph.GraphSpec(**option, self_pairs=((0, 0),))
+    spec_j = jgraph.GraphSpec(**option, self_pairs=((0, 0),))
+    assert spec_t.M == spec_j.M and spec_t.num_self_pairs == 1
 
 
 def test_validate_grid_raises_like_jax():

@@ -155,6 +155,6 @@ def test_validate_grid_checks_z_like_jax():
             spec_t, PointRobot3D(), None,
             torch.zeros((1, spec_t.num_traj_states, 6), dtype=F64),
             torch.zeros((1, 12, 16, 16), dtype=F64))
-    # The optional factors still raise with z_lims set.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgraph.GraphSpec(dof=3, state_dim=6, z_lims=lims, use_gp_inter=True)
+    # The optional factors construct with z_lims set, as in the JAX package.
+    kw = dict(dof=3, state_dim=6, z_lims=lims, use_gp_inter=True)
+    assert tgraph.GraphSpec(**kw).M == jgraph.GraphSpec(**kw).M

@@ -36,7 +36,9 @@ def test_import_leaves_jax_unloaded():
         "dgpmp2_tpu_torch.utils.config, dgpmp2_tpu_torch.ops.cuda.btd_solve, "
         "dgpmp2_tpu_torch.ops.cuda.sdf_lookup, dgpmp2_tpu_torch.ops.cuda._build, "
         "dgpmp2_tpu_torch.ops.cuda.sdf_lookup3d, "
-        "dgpmp2_tpu_torch.ops.cuda.sdf_lookup_limbs\n"
+        "dgpmp2_tpu_torch.ops.cuda.sdf_lookup_limbs, "
+        "dgpmp2_tpu_torch.core.multistart, dgpmp2_tpu_torch.utils.angles, "
+        "dgpmp2_tpu_torch.utils.mat_utils\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'dgpmp2_tpu')]\n"
         "assert not bad, bad\n"

@@ -10,6 +10,19 @@ rebuild each problem from the stored inputs and compare their plan with it.
 * ``tests/goldens/torch_port_plan3d_small.npz``: the 3-D path at B=4,
   PointRobot3D in 16^3 voxel worlds with one carved 4^3 box each (uint8
   occupancy), starts near (-4,-4,-4) and goals near (4,4,4).
+* ``tests/goldens/torch_port_plan_ext_small.npz``: the constrained robots
+  and factors at B=4 each, in 64x64 worlds with one obstacle each: the
+  2-link arm from ``gpmp2_arm_params.yaml`` + ``robot_arm.yaml``
+  (self-collision, joint limits), the 3-link arm with a workspace goal,
+  self-collision and joint limits, the heading robot from
+  ``gpmp2_xyh_params.yaml`` (nonholonomic), and the 2-D point robot with GP
+  interpolation (3 checks per segment) and velocity limits.  The
+  task-space arm runs LM: its first GN steps swing the arm by tens of
+  radians, so GN amplifies rounding by ~40x per iteration.  Each case
+  ``<c>`` stores ``<c>_config`` (JSON: robot, planner, gp, obs and env
+  dicts in the YAML schema, method, reg, iters), its occupancy images, start, goal,
+  seeds ``th0`` and, for the task-space arm, ``workspace_goal``; each is
+  planned through ``DiffGPMP2Planner.make_params`` and ``gn.plan``.
 
 Each stores its config scalars and, after ITERS fixed-damping GN iterations
 of ``dgpmp2_tpu.core.gn.plan`` (standard engine, gather lookups), ``th``,
@@ -19,6 +32,7 @@ of ``dgpmp2_tpu.core.gn.plan`` (standard engine, gather lookups), ``th``,
 """
 from __future__ import annotations
 
+import json
 import os
 import sys
 from pathlib import Path
@@ -35,12 +49,18 @@ import numpy as np  # noqa: E402
 
 from dgpmp2_tpu.core import gn, graph  # noqa: E402
 from dgpmp2_tpu.ops import sdf as sdf_ops  # noqa: E402
-from dgpmp2_tpu.robots import PointRobot2D, PointRobot3D  # noqa: E402
+from dgpmp2_tpu.planner import DiffGPMP2Planner  # noqa: E402
+from dgpmp2_tpu.robots import (PointRobot2D, PointRobot3D,  # noqa: E402
+                               make_robot)
+from dgpmp2_tpu.utils.config import load_params  # noqa: E402
 from dgpmp2_tpu.utils.trajectory import straight_line_traj  # noqa: E402
 
 GOLDENS = Path(__file__).resolve().parents[1] / "tests" / "goldens"
 OUT = GOLDENS / "torch_port_plan_small.npz"
 OUT3D = GOLDENS / "torch_port_plan3d_small.npz"
+OUT_EXT = GOLDENS / "torch_port_plan_ext_small.npz"
+CONFIGS = Path(__file__).resolve().parents[1] / "dgpmp2_tpu" / "configs"
+B_EXT, IM_EXT = 4, 64
 B, T, IMSIZE, ITERS = 8, 100, 128, 5
 B3D, VOX, BOX = 4, 16, 4
 CONFIG = dict(total_time_sec=10.0, reg=0.1, cost_sigma=0.05, epsilon_dist=0.4,
@@ -103,6 +123,105 @@ def golden(out_path, spec, robot, occupancy, start, goal, sdf, qc_inv):
     print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes)")
 
 
+def ext_cases(rng):
+    """The constrained cases as (name, config, extra inputs): configs in the
+    YAML schema, from the repo's YAMLs where they exist."""
+    env = {"x_lims": [-5.0, 5.0], "y_lims": [-5.0, 5.0]}
+    _, pp_arm, gp_arm, obs_arm, _, robot_arm = load_params(
+        CONFIGS / "gpmp2_arm_params.yaml", CONFIGS / "robot_arm.yaml",
+        CONFIGS / "env_2d_params.yaml")
+    _, pp_xyh, gp_xyh, obs_xyh, _, _ = load_params(
+        CONFIGS / "gpmp2_xyh_params.yaml", CONFIGS / "robot_2d.yaml",
+        CONFIGS / "env_2d_params.yaml")
+    _, pp_2d, gp_2d, obs_2d, _, robot_2d = load_params(
+        CONFIGS / "gpmp2_2d_params.yaml", CONFIGS / "robot_2d.yaml",
+        CONFIGS / "env_2d_params.yaml")
+    b = B_EXT
+
+    def states(dof, lo, hi):
+        x = np.zeros((b, 2 * dof))
+        x[:, :dof] = rng.uniform(lo, hi, (b, dof))
+        return x
+
+    arm_start = states(2, -0.5, 0.5)
+    arm_start[:, 0] += -2.0
+    arm_goal = states(2, -0.5, 0.5)
+    arm_goal[:, 0] += 1.6
+    task_start = states(3, -0.4, 0.4)
+    xyh_start, xyh_goal = states(3, -4.5, -3.5), states(3, 3.5, 4.5)
+    xyh_start[:, 2] = xyh_goal[:, 2] = 0.785
+    return [
+        ("arm2", dict(robot=robot_arm, planner=pp_arm, gp=gp_arm,
+                      obs=obs_arm, env=env), arm_start, arm_goal, None),
+        ("arm3_task", dict(
+            robot={"type": "planar_arm", "link_lengths": [1.8, 1.4, 1.2],
+                   "spheres_per_link": 2, "sphere_radius": [0.25]},
+            planner=dict(pp_arm, dof=3, state_dim=6, total_time_step=30,
+                         use_workspace_goal=True),
+            gp=dict(gp_arm, Q_c_inv=np.eye(3), K_g=100.0, q_min=[-2.4] * 3,
+                    q_max=[2.4] * 3),
+            obs=dict(obs_arm, epsilon_dist=0.25), env=env, method="lm"),
+         task_start, task_start, rng.uniform(2.1, 3.1, (b, 2))),
+        ("xyh", dict(robot={"type": "point_robot", "dof": 3,
+                            "sphere_radius": [0.4]},
+                     planner=pp_xyh, gp=gp_xyh, obs=obs_xyh, env=env),
+         xyh_start, xyh_goal, None),
+        ("gp_inter_vel", dict(
+            robot=robot_2d,
+            planner=dict(pp_2d, total_time_step=50, use_gp_inter=True,
+                         total_check_step=200, use_vel_limits=True),
+            gp=dict(gp_2d, v_x=0.7, v_y=0.7), obs=obs_2d, env=env),
+         states(2, -4.5, -3.5), states(2, 3.5, 4.5), None),
+    ]
+
+
+def golden_ext(out_path):
+    """Plan each constrained case ITERS GN iterations in float64 through the
+    YAML-schema planner and save inputs, config and outputs."""
+    rng = np.random.default_rng(0)
+    arrays = {}
+    for name, cfg, start, goal, wg in ext_cases(rng):
+        imgs = np.ones((B_EXT, IM_EXT, IM_EXT), np.uint8)
+        for i in range(B_EXT):
+            r, c = rng.integers(10, 44, 2)
+            imgs[i, r:r + 10, c:c + 10] = 0
+        cfg = json.loads(json.dumps(
+            dict(cfg, reg=CONFIG["reg"], iters=ITERS,
+                 method=cfg.get("method", "gauss_newton")),
+            default=lambda a: np.asarray(a).tolist()))
+        robot = make_robot(cfg["robot"])
+        planner = DiffGPMP2Planner(
+            cfg["gp"], cfg["obs"], cfg["planner"],
+            {"method": cfg["method"], "reg": cfg["reg"], "max_iters": ITERS},
+            cfg["env"], robot,
+            dtype=jnp.float64)
+        spec = planner.spec
+        sdf = sdf_ops.sdf_from_occupancy(jnp.asarray(imgs, jnp.float64),
+                                         res=10.0 / IM_EXT)
+        params = planner.make_params(start, goal, workspace_goal=wg)
+        th0 = straight_line_traj(jnp.asarray(start[:, :spec.dof]),
+                                 jnp.asarray(goal[:, :spec.dof]),
+                                 spec.total_time_sec, spec.total_time_step)
+        opt = gn.OptimConfig(method=cfg["method"], reg=cfg["reg"],
+                             max_iters=ITERS, tol_delta=0.0,
+                             engine="standard")
+        out = gn.plan(spec, robot, params, th0, sdf, opt)
+        arrays.update({
+            f"{name}_config": np.asarray(json.dumps(cfg)),
+            f"{name}_images": imgs, f"{name}_start": start,
+            f"{name}_goal": goal, f"{name}_th0": np.asarray(th0),
+            f"{name}_th": np.asarray(out.th),
+            f"{name}_err_init": np.asarray(out.err_init),
+            f"{name}_err_per_iter": np.asarray(out.err_per_iter),
+            f"{name}_err_ext_per_iter": np.asarray(out.err_ext_per_iter),
+        })
+        if wg is not None:
+            arrays[f"{name}_workspace_goal"] = wg
+    np.savez_compressed(out_path, cases=np.asarray(
+        [n for n, *_ in ext_cases(np.random.default_rng(0))]), **arrays)
+    print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes)")
+
+
 def main():
     imgs, start, goal = bench_inputs(B)
     spec = graph.GraphSpec(total_time_step=T,
@@ -120,6 +239,7 @@ def main():
     sdf = sdf_ops.sdf_from_occupancy_3d(jnp.asarray(vox, jnp.float64),
                                         res=10.0 / VOX)
     golden(OUT3D, spec, PointRobot3D(), vox, start, goal, sdf, np.eye(3))
+    golden_ext(OUT_EXT)
 
 
 if __name__ == "__main__":

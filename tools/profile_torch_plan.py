@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
 """Where the time of one GN iteration of the PyTorch port goes, on a GPU.
 
-    python3 tools/profile_torch_plan.py [--iters 20] [--out build/profile] [--plan3d]
+    python3 tools/profile_torch_plan.py [--iters 20] [--out build/profile]
+        [--problem 2d|3d|arm2|xyh|task|gp_inter]
 
-At the bench problem (B=1024, T=100, 128x128, float32), or with
-``--plan3d`` at the 3-D one (B=1024 PointRobot3D, T=100, 64^3 voxels):
+At one of ``chip_smoke.py``'s B=1024 float32 problems: the 2-D bench problem
+(default; T=100, 128x128), the 3-D one (PointRobot3D, 64^3 voxels), the
+2-link arm (T=40, self-collision, joint limits), the heading robot (D=6,
+nonholonomic), the task-space 3-link arm (workspace goal, LM) or the bench
+problem with GP interpolation and velocity limits:
 
 * each layer of one iteration timed alone with CUDA events (median of 20):
   residuals with the lookup, assembly, damping, the solve, and the
@@ -18,6 +22,7 @@ Needs a CUDA device; imports no JAX.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 import time
@@ -67,25 +72,38 @@ def layer_times(bench, reg=0.1):
     return {k: cs.cuda_ms(fn) for k, fn in layers.items()}
 
 
+# --problem -> the name of a constrained path of chip_smoke.py.
+CONSTRAINED = {"arm2": "2-link arm", "xyh": "heading robot",
+               "task": "task-space 3-link arm",
+               "gp_inter": "GP interpolation + velocity limits"}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--out", default="build/profile")
-    ap.add_argument("--plan3d", action="store_true",
-                    help="profile the 3-D problem instead of the 2-D one")
+    ap.add_argument("--problem", default="2d",
+                    choices=["2d", "3d", *CONSTRAINED])
     args = ap.parse_args()
     smi = cs.device_info()
     dev = torch.device("cuda", 0)
-    inputs = (cs.bench3d_inputs(cs.B, dev) if args.plan3d
-              else cs.bench_inputs(cs.B))
-    bench = cs.port_problem(*inputs, dev, torch.float32)
+    cfg = gn.OptimConfig(reg=0.1, max_iters=args.iters, tol_delta=0.0)
+    if args.problem in CONSTRAINED:
+        planner, *inputs = cs.constrained_problems(
+            dev, cs.bench_inputs(cs.B))[CONSTRAINED[args.problem]]
+        bench = cs.problem_of(planner, *inputs)
+        cfg = dataclasses.replace(planner.cfg, max_iters=args.iters,
+                                  tol_delta=0.0)
+    else:
+        inputs = (cs.bench3d_inputs(cs.B, dev) if args.problem == "3d"
+                  else cs.bench_inputs(cs.B))
+        bench = cs.port_problem(*inputs, dev, torch.float32)
     spec, robot, params, th0, sdf = bench
 
     print(f"[{smi}] layer times, ms (median of 20, one layer alone):")
     for k, v in layer_times(bench).items():
         print(f"  {k:18s} {v:.4f}")
 
-    cfg = gn.OptimConfig(reg=0.1, max_iters=args.iters, tol_delta=0.0)
     gn.plan(spec, robot, params, th0, sdf, cfg)  # warm-up
     torch.cuda.synchronize()
     from torch.profiler import ProfilerActivity, profile
@@ -108,8 +126,8 @@ def main():
           f"operations ({n_kernels / args.iters:.1f} per iteration)")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     os.makedirs(args.out, exist_ok=True)
-    name = "plan3d_trace.json" if args.plan3d else "plan_trace.json"
-    prof.export_chrome_trace(os.path.join(args.out, name))
+    prof.export_chrome_trace(os.path.join(args.out,
+                                          f"plan_{args.problem}_trace.json"))
 
 
 if __name__ == "__main__":
