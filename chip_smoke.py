@@ -8,9 +8,14 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build the four CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes: K-BTD and K-LOOKUP at B=1024 problems, T=100, 128x128
-   SDFs (K-LOOKUP also with far out-of-grid points); K-LOOKUP3D at B=1024,
-   64^3 voxels, P=101; K-LOOKUP-LIMB at B=1024, 128x128, P=101, L=1..3;
+   paths' shapes: K-BTD at D = 2, 4, 6, 8 in float32 and float64 on random
+   SPD systems of B=1024, T=101 and of the edge shapes B in {1, 1000, 4096}
+   x T in {1, 2, 41}, then on the bench problem's own system, then timed at
+   the paths' shapes (2-D, 3-D, multistart pool, plan_batch, 4-link arm)
+   beside its bound and ``torch.linalg.solve`` on the dense Λ; K-LOOKUP at
+   B=1024, T=100, 128x128 SDFs (also with far out-of-grid points);
+   K-LOOKUP3D at B=1024, 64^3 voxels, P=101; K-LOOKUP-LIMB at B=1024,
+   128x128, P=101, L=1..3;
 4. float64 plans on the small goldens that the JAX package wrote
    (``tests/goldens/torch_port_plan_small.npz``, ``..._plan3d_small.npz``,
    and ``..._plan_ext_small.npz``: the 2-link arm, the task-space 3-link
@@ -26,23 +31,26 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
 8. the constrained robots at B=1024 in float32 through
    ``DiffGPMP2Planner`` built from the YAMLs: the 2-link arm (self-collision,
    joint limits), the heading robot (nonholonomic, D=6), the task-space
-   3-link arm (workspace goal, self-collision, joint limits, D=6) and the
-   bench problem with GP interpolation and velocity limits; then
+   3-link arm (workspace goal, self-collision, joint limits, D=6), the
+   bench problem with GP interpolation and velocity limits and the 4-link
+   arm (D=8); then
    ``GPMP2Planner.plan_batch`` (LM, float64) on B=256 bench problems;
 9. multistart: the ``benchmarks/bench_multistart.py`` problem (B=256, K=16)
    through ``GPMP2Planner.plan_multistart``, full pool and staged, for four
    seeds of the perturbation draws;
-10. timing with CUDA events: ms per GN iteration in 2-D, 3-D, for the arm
-    and the heading robot, ms per multistart batch, and each kernel beside
-    its plain version.
+10. timing with CUDA events: ms per GN iteration in 2-D, 3-D, for the two
+    arms and the heading robot, ms per multistart batch, and each kernel
+    beside its plain version and its bound.
 
 Every path phase sets all kernel launch counters to 0 just before it and
-reads them just after.  The last two lines are JSON: the kernels' record,
-then the device record.  Imports no JAX.
+reads them just after.  The last two lines are JSON: the kernels' record
+(launches summed over the paths, times, bounds, library times), then the
+device record.  Imports no JAX.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -89,7 +97,45 @@ def build():
     t0 = time.perf_counter()
     _build.library()
     print(f"build_seconds {time.perf_counter() - t0:.2f}")
-    print(_build.build_log)
+    rows = ptxas_summary(_build.build_log)
+    for name, regs, spill_st, spill_ld, smem in rows:
+        print(f"ptxas {kernel_name(name)}: {regs} registers, spill stores "
+              f"{spill_st} B, spill loads {spill_ld} B, shared {smem} B")
+    n_btd = sum("btd_solve_kernel" in r[0] for r in rows)
+    if n_btd != 8:
+        raise AssertionError(f"ptxas reported {n_btd} K-BTD kernels, not 8")
+
+
+def kernel_name(mangled):
+    """``btd_solve_kernel<float, 4>``-style name of a mangled kernel."""
+    for m in re.finditer(r"(?=(\d+)([a-z_]\w*))", mangled):
+        n, ident = int(m[1]), m[2][:int(m[1])]
+        if len(ident) == n and ident.endswith("_kernel"):
+            args = re.match(r"I(.*?)E", m[2][n:])
+            if not args:
+                return ident
+            args = re.sub(r"Li(\d+)", r",\1", args[1])
+            args = args.replace("f", "float,").replace("d", "double,")
+            return f"{ident}<{', '.join(a for a in args.split(',') if a)}>"
+    return mangled
+
+
+def ptxas_summary(log):
+    """(kernel, registers, spill store bytes, spill load bytes, shared
+    bytes) of each kernel in nvcc's ``-Xptxas -v`` output."""
+    rows, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name = m[1]
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spill = (int(m[1]), int(m[2]))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((name, int(m[1]), *spill,
+                         int(smem[1]) if smem else 0))
+            name, spill = None, (0, 0)
+    return rows
 
 
 _FLUSH = []
@@ -268,29 +314,118 @@ def spd_system(rng, b, t, d, dtype, dev):
     return [torch.tensor(a, dtype=dtype, device=dev) for a in (diag, off, rhs)]
 
 
-def check_btd(dev, record, bench):
+BTD_D = (2, 4, 6, 8)
+# Ragged and edge shapes: a lone problem, a batch that leaves the last warp
+# partly empty, the multistart pool; one block solve, one Schur step, the
+# arm's T.
+BTD_EDGES = tuple((b, t) for b in (1, 1000, 4096) for t in (1, 2, 41))
+# K-BTD timed at the shapes of the paths: (label, B, T+1, D, dtype).
+BTD_TIMED = (("2-D", B, T + 1, 4, torch.float32),
+             ("3-D and heading robot", B, T + 1, 6, torch.float32),
+             ("multistart pool", 4 * B, T + 1, 4, torch.float32),
+             ("plan_batch", 256, T + 1, 4, torch.float64),
+             ("4-link arm", B, 41, 8, torch.float32))
+# NVIDIA's H100 SXM data sheet: HBM3 rate, and the dense rates outside the
+# tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s).
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def bound(nbytes, flops, dtype):
+    """(ms, "bytes" or "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations over
+    the peak rate of their type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def btd_bound(b, t, d, dtype):
+    """K-BTD reads diag, off and rhs once and writes x once; per step and
+    problem it does the Schur product (2D³ + 2D²), Gauss-Jordan on the
+    D x (2D+1) rows (D²(3D+1)) and, in the back sweep, a matvec (2D²)."""
+    sz = torch.finfo(dtype).bits // 8
+    nbytes = sz * (b * t * d * d + b * (t - 1) * d * d + 2 * b * t * d)
+    flops = b * (t * (2 * d ** 3 + 2 * d * d + d * d * (3 * d + 1))
+                 + (t - 1) * 2 * d * d)
+    return bound(nbytes, flops, dtype)
+
+
+def dense_lambda(diag, off):
+    """The dense (B, T·D, T·D) Λ of the block-tridiagonal storage."""
+    b, t, d, _ = diag.shape
+    lam = diag.new_zeros((b, t, d, t, d))
+    i = torch.arange(t, device=diag.device)
+    lam[:, i, :, i, :] = diag.transpose(0, 1)
+    lam[:, i[:-1], :, i[1:], :] = off.transpose(0, 1)
+    lam[:, i[1:], :, i[:-1], :] = off.transpose(-1, -2).transpose(0, 1)
+    return lam.reshape(b, t * d, t * d)
+
+
+def btd_err(k, diag, off, rhs):
+    from dgpmp2_tpu_torch.ops import tridiag
+
+    x_k = k.launch(diag, off, rhs)
+    x_p = tridiag.btd_solve(diag, off, rhs)
+    return rel_err(x_k, x_p), float((x_k - x_p).abs().max())
+
+
+def check_btd(dev, record, bench, smi):
+    """K-BTD against its plain version at every D it takes, at the paths'
+    B=1024, T=101 and at the edge shapes; on the bench problem's own
+    system; then timed at the paths' shapes beside its bound, its plain
+    version and torch.linalg.solve on the dense Λ."""
     from dgpmp2_tpu_torch.ops import tridiag
     from dgpmp2_tpu_torch.ops.cuda import btd_solve as k
 
     rng = np.random.default_rng(1)
-    # Tolerances on well-conditioned systems: the kernel and cuSOLVER's
-    # batched Cholesky round in different orders, and both stay within a
-    # few hundred ulp of the exact solution.
+    # Tolerances on well-conditioned systems: the kernel (Gauss-Jordan on
+    # each pivot) and cuSOLVER's batched Cholesky round in different orders,
+    # and both stay within a few hundred ulp of the exact solution.
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
-        for d in (4, 6):
-            diag, off, rhs = spd_system(rng, B, T + 1, d, dtype, dev)
-            x_k = k.launch(diag, off, rhs)
-            x_p = tridiag.btd_solve(diag, off, rhs)
-            err = rel_err(x_k, x_p)
+        for d in BTD_D:
+            err, abs_err = btd_err(k, *spd_system(rng, B, T + 1, d, dtype,
+                                                  dev))
+            edge = max(btd_err(k, *spd_system(rng, b, t, d, dtype, dev))[0]
+                       for b, t in BTD_EDGES)
             print(f"K-BTD random SPD {dtype} D={d}: max rel err vs plain "
-                  f"{err:.3e} (tol {tol:g})")
-            if not err <= tol:
-                raise AssertionError(f"K-BTD {dtype} D={d}: {err} > {tol}")
+                  f"{err:.3e} at B={B} T={T + 1}, {edge:.3e} over B, T in "
+                  f"{BTD_EDGES} (tol {tol:g})")
+            if not (err <= tol and edge <= tol):
+                raise AssertionError(f"K-BTD {dtype} D={d}: {err}, {edge}")
             if dtype == torch.float32 and d == 4:
-                record["max_abs_err"] = float((x_k - x_p).abs().max())
-                kernel_ms(record, lambda: k.launch(diag, off, rhs),
-                          lambda: tridiag.btd_solve(diag, off, rhs))
+                record["max_abs_err"] = abs_err
     check_btd_bench_system("bench system", bench)
+    for label, b, t, d, dtype in BTD_TIMED:
+        diag, off, rhs = spd_system(rng, b, t, d, dtype, dev)
+
+        def kern():
+            return k.launch(diag, off, rhs)
+
+        def plain():
+            return tridiag.btd_solve(diag, off, rhs)
+
+        rec = {}
+        if label == "2-D":
+            kernel_ms(rec, kern, plain)
+        else:
+            rec.update(ms=cuda_ms(kern, flush=True),
+                       warm_ms=cuda_ms(kern, inner=20),
+                       plain_ms=cuda_ms(plain, reps=3, flush=True))
+        rec["bound_ms"], rec["bound_by"] = btd_bound(b, t, d, dtype)
+        lam, r = dense_lambda(diag, off), rhs.reshape(b, t * d, 1)
+        rec["library_ms"] = cuda_ms(lambda: torch.linalg.solve(lam, r),
+                                    reps=3, warmup=1)
+        del lam
+        print(f"[{smi}] K-BTD {label} B={b} T={t} D={d} {dtype}: kernel "
+              f"{rec['ms']:.4f} ms (L2 flushed; back to back "
+              f"{rec['warm_ms']:.4f}), bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), share of bound "
+              f"{rec['bound_ms'] / rec['ms']:.4f}; plain {rec['plain_ms']:.4f}"
+              f" ms; torch.linalg.solve on the dense (B, T·D, T·D) Λ "
+              f"{rec['library_ms']:.4f} ms")
+        if label == "2-D":
+            record.update(rec)
 
 
 def check_btd_bench_system(name, bench):
@@ -348,6 +483,18 @@ def lookup_points(rng, p, ndim):
     return pts
 
 
+def lookup_bound(points, ndim, taps, tap_bytes, dtype):
+    """bound_ms, bound_by and library_ms of a lookup of ``points`` points:
+    each reads its coordinates and its ``taps`` SDF taps and writes the
+    value and the gradient (a few flops a point: bytes bound it).  No
+    single PyTorch call returns the value and its gradient, so there is no
+    library time."""
+    sz = torch.finfo(dtype).bits // 8
+    nbytes = points * (ndim * sz + taps * tap_bytes + (1 + ndim) * sz)
+    ms, by = bound(nbytes, points * 2 * (1 + ndim) * taps, dtype)
+    return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
+
 def check_lookup(dev, record):
     from dgpmp2_tpu_torch.ops import sdf as sdf_ops
     from dgpmp2_tpu_torch.ops.cuda import sdf_lookup as k
@@ -376,6 +523,7 @@ def check_lookup(dev, record):
                           lambda: k.launch(sdf, p_t, res, LIMS, LIMS, mode),
                           lambda: sdf_ops.bilinear_lookup(sdf, p_t, res, LIMS,
                                                           LIMS, mode))
+                record.update(lookup_bound(B * (T + 1), 2, 4, 4, dtype))
 
 
 def trajectory_points(rng, b, p, noise=0.1):
@@ -411,6 +559,7 @@ def check_lookup3d(dev, record):
                 record["max_abs_err"] = err
                 kernel_ms(record, lambda: k.launch(*args),
                           lambda: sdf_ops.trilinear_lookup(*args))
+                record.update(lookup_bound(B * (T + 1), 3, 8, 4, dtype))
         del sdf
 
 
@@ -444,6 +593,7 @@ def check_limbs(dev, record):
               f"plain {rec['plain_ms']:.4f} ms")
         if n_limbs == 1:
             record.update(rec, max_abs_err=err)
+            record.update(lookup_bound(B * (T + 1), 2, 4, 2, torch.float32))
     def exact_launch():
         return k_exact.launch(sdf, p_t, res, LIMS, LIMS)
 
@@ -735,6 +885,17 @@ def constrained_problems(dev, bench_np):
                 pp=dict(use_gp_inter=True, total_check_step=4 * T,
                         use_vel_limits=True)),
         start2, goal2, None, sdf)
+    # 4-link arm (D=8): the arm YAMLs' weights (T=40, self-collision, joint
+    # limits ±2.8) with four links of 1.2, 1.0, 0.8 and 0.6 m.
+    out["4-link arm"] = (
+        planner(arm_yamls,
+                {"type": "planar_arm", "link_lengths": [1.2, 1.0, 0.8, 0.6],
+                 "spheres_per_link": 2, "sphere_radius": [0.25]},
+                pp=dict(dof=4, state_dim=8),
+                gp=dict(Q_c_inv=np.eye(4), q_min=[-2.8] * 4,
+                        q_max=[2.8] * 4)),
+        joint_states(rng, B, 4, (-2.0, 0.0, 0.0, 0.0), 0.4),
+        joint_states(rng, B, 4, (1.6, 0.0, 0.0, 0.0), 0.4), None, sdf)
     return out
 
 
@@ -885,7 +1046,9 @@ def timing(smi, bench, bench3, problems, ms_run):
             ("_arm2", "2-link arm core.gn.plan B=1024 T=40 128x128",
              problems["2-link arm"]),
             ("_xyh", "heading robot core.gn.plan B=1024 T=100 128x128",
-             problems["heading robot"])):
+             problems["heading robot"]),
+            ("_arm4", "4-link arm core.gn.plan B=1024 T=40 128x128",
+             problems["4-link arm"])):
         t50, t200, per_iter[key] = plan_ms(prob)
         print(f"[{smi}] {name} float32: 50 iterations {t50:.3f} ms, 200 "
               f"iterations {t200:.3f} ms, ms per GN iteration "
@@ -919,7 +1082,7 @@ def main():
     }
     for name, rec in recs.items():
         rec.update(name=name, route="cuda")
-    check_btd(dev, recs["btd_solve"], bench)
+    check_btd(dev, recs["btd_solve"], bench, smi)
     check_lookup(dev, recs["sdf_lookup"])
     check_lookup3d(dev, recs["sdf_lookup3d"])
     check_limbs(dev, recs["sdf_lookup_limbs"])
@@ -935,7 +1098,9 @@ def main():
     for rec in recs.values():
         print(f"[{smi}] {rec['name']}: kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms (L2 flushed); back to back kernel "
-              f"{rec['warm_ms']:.4f} ms, plain {rec['plain_warm_ms']:.4f} ms")
+              f"{rec['warm_ms']:.4f} ms, plain {rec['plain_warm_ms']:.4f} ms;"
+              f" bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
+              f"of bound {rec['bound_ms'] / rec['ms']:.4f}")
     limb = recs["sdf_lookup_limbs"]
     print(f"[{smi}] K-LOOKUP-LIMB L=1 {limb['ms']:.4f} ms (warm "
           f"{limb['warm_ms']:.4f}) beside K-LOOKUP {limb['exact_ms']:.4f} ms "
@@ -945,7 +1110,8 @@ def main():
         print(f"[{smi}] gn_iter_ms_b1024{key} {ms:.4f}")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms")}
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")}
         for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,203 +1,312 @@
 // K-BTD: batched symmetric block-tridiagonal solve  Λ x = r  by block Thomas.
 //
-// Replaces the TPU kernels dgpmp2_tpu/ops/pallas/btd_solve.py `_make_kernel`
-// (standard engine, via `btd_solve_pallas`) and
-// dgpmp2_tpu/ops/pallas/btd_stream.py `_make_fwd_kernel`/`_make_bwd_kernel`
-// (stream engine).  Same math as dgpmp2_tpu/ops/tridiag.py `btd_factor` +
-// `btd_solve_factored`:
+// Replaces the TPU kernels dgpmp2_tpu/ops/pallas/btd_solve.py:111
+// `_make_kernel` (standard engine, via `btd_solve_pallas`) and
+// dgpmp2_tpu/ops/pallas/btd_stream.py:117,189 `_make_fwd_kernel` /
+// `_make_bwd_kernel` (stream engine).  The plain version is
+// dgpmp2_tpu_torch/ops/tridiag.py `btd_solve`.  The recurrence, with
+// U_t = Λ[t, t+1] and C_t the Schur pivots:
 //
-//   L_0 = chol(D_0),  y_0 = r_0
-//   for i >= 1:  X = C_{i-1}^{-1} U_{i-1},  C_i = D_i - U_{i-1}^T X,
-//                L_i = chol(C_i),           y_i = r_i - X^T y_{i-1}
-//   x_{T-1} = C_{T-1}^{-1} y_{T-1},  x_i = C_i^{-1} (y_i - U_i x_{i+1})
+//   C_0 = D_0,  y_0 = r_0
+//   C_t = D_t - U_{t-1}^T X_{t-1},   y_t = r_t - U_{t-1}^T z_{t-1}
+//   [X_t | z_t] = C_t^{-1} [U_t | y_t]           (forward sweep, stored)
+//   x_{T-1} = z_{T-1},  x_t = z_t - X_t x_{t+1}  (back sweep: one matvec)
+//
+// X_t is the transpose of the plain version's gain G_t = U_t^T C_t^{-1}.
 //
 // Layout: the public contract, row-major diag (B, T, D, D), off (B, T-1, D, D),
-// rhs (B, T, D) and x (B, T, D); no transpose to a batch-contiguous layout.
-// Scratch: chol (B, T, D*D) holds the pivot factors L_i; the forward-sweep
-// vectors y_i are kept in the output x and overwritten by the back sweep.
+// rhs (B, T, D) and x (B, T, D), each 16-byte aligned.  Only the lower
+// triangle of each diag block is read, as the TPU kernels' and the plain
+// version's Cholesky read it: a system assembled in float32 is symmetric only
+// to rounding (1e-9 relative on the bench problem), and reading both
+// triangles would solve a system 1e-6 away in float64.  Scratch: gain
+// (B, T-1, D, D) holds X_t; z_t is kept in x and overwritten by the back
+// sweep.
 //
-// What bounds it on an H100: latency.  One thread owns one problem and walks
-// its T steps in order, each step a chain of dependent D x D operations
-// (about 3 D^3 flops); at B = 1024 that is 1024 threads on a card with 132
-// SMs, so most of the card is idle and the time is T times the latency of one
-// step.  Bytes are small (about 0.5 MB of diag/off/rhs at B = 1024, T = 101,
-// D = 4) and stay in L2.  Each thread reads its own contiguous D*D block per
-// step, so every sector it touches is used in full even without coalescing.
+// What bounds it on an H100.  The bytes are diag + off + rhs read once and x
+// written once: 16.4 MB at B = 1024, T = 101, D = 4 in float32 (4.9 us at
+// 3.35 TB/s) and 34.6 MB at D = 6 (10.3 us); the operations, ~(5 D^3 + 5 D^2)
+// per step and problem, are 41 MFLOP at D = 4 (0.6 us at 67 TFLOP/s).  So the
+// bound is memory, but the kernel is latency-bound: each problem is a chain of
+// T dependent steps, each step a chain of D dependent pivots.
 //
-// What the design does about it: keeps the D x D algebra unrolled in registers
-// (D is a template parameter, instantiated for 4 and 6), keeps the T loop in
-// the thread so there is one launch per solve, and touches device memory only
-// for inputs, the pivot factors and x.  Filling the card (several threads per
-// problem, or a cyclic-reduction split of T) is left to a later change.
+// What the design does about it:
+// - A lane group per problem.  G = 2, 4, 8, 8 lanes of one warp for D = 2, 4,
+//   6, 8; lane r owns row r of every D x D block and element r of every vector
+//   (lanes r >= D, and the groups past the batch, carry identity rows and store
+//   nothing).  The D x D algebra runs across the group through
+//   __shfl_sync(..., width = G), which spreads one step's serial chain over D
+//   lanes and keeps a lane's state small: 34 values at D = 8 (a row of C_t,
+//   of [U_t | y_t], of X_{t-1} and a column of U_{t-1}), no spill in float64.
+// - Gauss-Jordan on the augmented rows [C_t | U_t y_t] in place of a Cholesky
+//   and two triangular solves: pivot j and row j are broadcast from lane j, the
+//   pivot's reciprocal is taken once (__frcp_rn / __drcp_rn, no divide and no
+//   square root), and every other row is updated in parallel.  One step is D
+//   dependent pivots, not 3 D, and leaves X_t and z_t in the RHS columns.
+// - The back sweep is one matvec per step: no triangular solve, no division.
+// - Fill the card: one warp per block, 32 / G problems per warp, so B = 1024 is
+//   128 blocks at D = 4 and 256 at D = 6, 8 over the 132 SMs.
+// - Loads off the critical path: a ring of kStages steps in shared memory,
+//   filled by cp.async.  Lane r copies its row of diag[t] and off[t] as 8- or
+//   16-byte pieces, its columns of off[t] and diag[t] and rhs[t][r] (the back
+//   sweep: its row of X_t and z_t[r]) kStages - 1 steps ahead of the
+//   arithmetic, so no load waits behind the previous pivot.  Each lane reads
+//   back only what it copied itself, so the ring needs no barrier.
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 namespace {
 
-template <typename T>
-__device__ __forceinline__ T dsqrt(T v);
+constexpr int kWarp = 32;
+constexpr int kStages = 4;
+
+template <int D>
+__host__ __device__ constexpr int group_lanes() {
+  return D <= 2 ? 2 : D <= 4 ? 4 : 8;
+}
+
+__device__ __forceinline__ float recip(float v) { return __frcp_rn(v); }
+__device__ __forceinline__ double recip(double v) { return __drcp_rn(v); }
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(BYTES)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Widest piece (4, 8 or 16 bytes) that tiles a row of N elements of T; rows
+// start at multiples of their own size, so the pieces stay aligned.
+template <typename T, int N>
+__host__ __device__ constexpr int piece_bytes() {
+  return (N * sizeof(T)) % 16 == 0 ? 16 : (N * sizeof(T)) % 8 == 0 ? 8 : 4;
+}
+
+template <int BYTES>
+struct Piece;
 template <>
-__device__ __forceinline__ float dsqrt<float>(float v) { return sqrtf(v); }
+struct Piece<4> {
+  using type = float;
+};
 template <>
-__device__ __forceinline__ double dsqrt<double>(double v) { return sqrt(v); }
+struct Piece<8> {
+  using type = float2;
+};
+template <>
+struct Piece<16> {
+  using type = float4;
+};
 
-// Lower Cholesky of the lower triangle of c, as in tridiag._chol_unrolled.
-template <typename T, int D>
-__device__ __forceinline__ void cholesky(const T (&c)[D][D], T (&l)[D][D]) {
+template <typename T, int N>
+__device__ __forceinline__ void cp_row(T* dst, const T* src) {
+  constexpr int V = piece_bytes<T, N>();
 #pragma unroll
-  for (int j = 0; j < D; ++j) {
-    T s = c[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) s -= l[j][k] * l[j][k];
-    const T ljj = dsqrt<T>(s);
-    const T inv = T(1) / ljj;
-    l[j][j] = ljj;
-#pragma unroll
-    for (int i = j + 1; i < D; ++i) {
-      T t = c[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) t -= l[i][k] * l[j][k];
-      l[i][j] = t * inv;
-    }
-#pragma unroll
-    for (int i = 0; i < j; ++i) l[i][j] = T(0);
-  }
+  for (int i = 0; i < static_cast<int>(N * sizeof(T)) / V; ++i)
+    cp_async<V>(reinterpret_cast<char*>(dst) + i * V,
+                reinterpret_cast<const char*>(src) + i * V);
 }
 
-// Solve (L L^T) v = b in place.
-template <typename T, int D>
-__device__ __forceinline__ void chol_solve(const T (&l)[D][D], T (&v)[D]) {
+template <typename T, int N>
+__device__ __forceinline__ void store_row(T* dst, const T (&v)[N]) {
+  constexpr int V = piece_bytes<T, N>();
+  constexpr int PER = V / static_cast<int>(sizeof(T));
+  using W = typename Piece<V>::type;
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    T s = v[i];
+  for (int i = 0; i < N / PER; ++i) {
+    W w;
+    T* e = reinterpret_cast<T*>(&w);
 #pragma unroll
-    for (int k = 0; k < i; ++k) s -= l[i][k] * v[k];
-    v[i] = s / l[i][i];
-  }
-#pragma unroll
-  for (int i = D - 1; i >= 0; --i) {
-    T s = v[i];
-#pragma unroll
-    for (int k = i + 1; k < D; ++k) s -= l[k][i] * v[k];
-    v[i] = s / l[i][i];
+    for (int q = 0; q < PER; ++q) e[q] = v[i * PER + q];
+    reinterpret_cast<W*>(dst)[i] = w;
   }
 }
 
 template <typename T, int D>
-__device__ __forceinline__ void load_mat(const T* __restrict__ p, T (&m)[D][D]) {
-#pragma unroll
-  for (int i = 0; i < D; ++i)
-#pragma unroll
-    for (int j = 0; j < D; ++j) m[i][j] = p[i * D + j];
-}
-
-template <typename T, int D>
-__global__ void btd_solve_kernel(const T* __restrict__ diag,
-                                 const T* __restrict__ off,
-                                 const T* __restrict__ rhs, T* __restrict__ x,
-                                 T* __restrict__ chol, int batch, int steps) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
+__global__ void __launch_bounds__(kWarp)
+    btd_solve_kernel(const T* __restrict__ diag, const T* __restrict__ off,
+                     const T* __restrict__ rhs, T* __restrict__ x,
+                     T* __restrict__ gain, int batch, int steps) {
+  constexpr int G = group_lanes<D>();
   constexpr int DD = D * D;
-  const T* dg = diag + static_cast<size_t>(b) * steps * DD;
-  const T* of = off + static_cast<size_t>(b) * (steps - 1) * DD;
-  const T* r = rhs + static_cast<size_t>(b) * steps * D;
-  T* xb = x + static_cast<size_t>(b) * steps * D;
-  T* lb = chol + static_cast<size_t>(b) * steps * DD;
+  constexpr int SZ = static_cast<int>(sizeof(T));
+  constexpr int P = 16 / SZ;  // elements per 16 B
+  constexpr int DP = (D + P - 1) / P * P;
+  // One lane's slot of a ring stage: a row of diag, a row of off, a column
+  // of off, a column of diag, an element of rhs (the back sweep: a row of
+  // X_t, z_t[r]).
+  constexpr int SLOT = 4 * DP + P;
+  __shared__ __align__(16) T ring[kStages][kWarp][SLOT];
 
-  T c[D][D], l[D][D], u[D][D], xm[D][D], y[D];
+  const int lane = threadIdx.x;
+  const int r = lane % G;
+  const int b = blockIdx.x * (kWarp / G) + lane / G;
+  const bool valid = b < batch && r < D;
+  const size_t bb = valid ? static_cast<size_t>(b) : 0;
+  const int rr = valid ? r : 0;
+  const T* dg = diag + bb * steps * DD + rr * D;
+  const T* dg_col = diag + bb * steps * DD + rr;
+  const T* of_row = off + bb * (steps - 1) * DD + rr * D;
+  const T* of_col = off + bb * (steps - 1) * DD + rr;
+  const T* rv = rhs + bb * steps * D + rr;
+  T* xb = x + bb * steps * D + rr;
+  T* gn = gain + bb * (steps - 1) * DD + rr * D;
 
-  // Factorisation + forward sweep.
-  load_mat<T, D>(dg, c);
-  cholesky<T, D>(c, l);
+  auto prefetch_fwd = [&](int t) {
+    if (valid && t < steps) {
+      T* s = ring[t % kStages][lane];
+      cp_row<T, D>(s, dg + static_cast<size_t>(t) * DD);
 #pragma unroll
-  for (int i = 0; i < D; ++i) {
-    y[i] = r[i];
-    xb[i] = y[i];
+      for (int k = 0; k < D; ++k)
+        cp_async<SZ>(s + 3 * DP + k,
+                     dg_col + static_cast<size_t>(t) * DD + k * D);
+      if (t < steps - 1) {
+        cp_row<T, D>(s + DP, of_row + static_cast<size_t>(t) * DD);
 #pragma unroll
-    for (int j = 0; j < D; ++j) lb[i * D + j] = l[i][j];
-  }
-  for (int t = 1; t < steps; ++t) {
-    load_mat<T, D>(of + (t - 1) * DD, u);
-    // X = C_{t-1}^{-1} U_{t-1}, one column at a time.
+        for (int k = 0; k < D; ++k)
+          cp_async<SZ>(s + 2 * DP + k,
+                       of_col + static_cast<size_t>(t) * DD + k * D);
+      }
+      cp_async<SZ>(s + 4 * DP, rv + static_cast<size_t>(t) * D);
+    }
+    cp_commit();
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) prefetch_fwd(s);
+
+  T xp[D];   // row r of X_{t-1}
+  T ucp[D];  // column r of U_{t-1}
+  T zp = T(0);
+#pragma unroll
+  for (int j = 0; j < D; ++j) xp[j] = ucp[j] = T(0);
+
+  for (int t = 0; t < steps; ++t) {
+    prefetch_fwd(t + kStages - 1);
+    cp_wait<kStages - 1>();
+    const T* s = ring[t % kStages][lane];
+    const bool has_next = t < steps - 1;
+    T c[D], bm[D + 1];
 #pragma unroll
     for (int j = 0; j < D; ++j) {
-      T col[D];
-#pragma unroll
-      for (int i = 0; i < D; ++i) col[i] = u[i][j];
-      chol_solve<T, D>(l, col);
-#pragma unroll
-      for (int i = 0; i < D; ++i) xm[i][j] = col[i];
+      // The lower triangle of diag[t], as the plain version's Cholesky
+      // reads it: row r left of the diagonal, column r below it.
+      c[j] = valid ? s[j <= r ? j : 3 * DP + j] : T(j == r);
+      bm[j] = valid && has_next ? s[DP + j] : T(0);
     }
-    // C_t = D_t - X^T U (lower triangle is all the Cholesky reads).
-    load_mat<T, D>(dg + t * DD, c);
+    bm[D] = valid ? s[4 * DP] : T(0);
+    // Schur update with the previous step's X and z, broadcast row by row.
+    if (t > 0) {
 #pragma unroll
-    for (int i = 0; i < D; ++i)
+      for (int k = 0; k < D; ++k) {
+        bm[D] -= ucp[k] * __shfl_sync(0xffffffffu, zp, k, G);
 #pragma unroll
-      for (int j = 0; j <= i; ++j) {
-        T s = c[i][j];
-#pragma unroll
-        for (int k = 0; k < D; ++k) s -= xm[k][i] * u[k][j];
-        c[i][j] = s;
+        for (int j = 0; j < D; ++j)
+          c[j] -= ucp[k] * __shfl_sync(0xffffffffu, xp[j], k, G);
       }
-    cholesky<T, D>(c, l);
-    // y_t = r_t - X^T y_{t-1}
-    T yn[D];
+    }
+    // Gauss-Jordan: C_t becomes I, [U_t | y_t] becomes [X_t | z_t].
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      T s = r[t * D + i];
+    for (int j = 0; j < D; ++j) {
+      const T inv = recip(__shfl_sync(0xffffffffu, c[j], j, G));
+      const bool me = r == j;
+      const T f = me ? T(0) : c[j] * inv;
 #pragma unroll
-      for (int k = 0; k < D; ++k) s -= xm[k][i] * y[k];
-      yn[i] = s;
+      for (int k = j + 1; k < D; ++k) {
+        const T pk = __shfl_sync(0xffffffffu, c[k], j, G);
+        c[k] = me ? pk * inv : c[k] - f * pk;
+      }
+#pragma unroll
+      for (int m = 0; m <= D; ++m) {
+        const T pm = __shfl_sync(0xffffffffu, bm[m], j, G);
+        bm[m] = me ? pm * inv : bm[m] - f * pm;
+      }
     }
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      y[i] = yn[i];
-      xb[t * D + i] = y[i];
-#pragma unroll
-      for (int j = 0; j < D; ++j) lb[t * DD + i * D + j] = l[i][j];
+    for (int j = 0; j < D; ++j) {
+      xp[j] = bm[j];
+      ucp[j] = valid && has_next ? s[2 * DP + j] : T(0);
+    }
+    zp = bm[D];
+    if (valid) {
+      xb[static_cast<size_t>(t) * D] = zp;
+      if (has_next) store_row<T, D>(gn + static_cast<size_t>(t) * DD, xp);
     }
   }
 
-  // Back substitution; l still holds L_{T-1} and y holds y_{T-1}.
-  chol_solve<T, D>(l, y);
-#pragma unroll
-  for (int i = 0; i < D; ++i) xb[(steps - 1) * D + i] = y[i];
-  for (int t = steps - 2; t >= 0; --t) {
-    load_mat<T, D>(of + t * DD, u);
-    load_mat<T, D>(lb + t * DD, l);
-    T v[D];
-#pragma unroll
-    for (int i = 0; i < D; ++i) {
-      T s = xb[t * D + i];
-#pragma unroll
-      for (int k = 0; k < D; ++k) s -= u[i][k] * y[k];
-      v[i] = s;
+  // Back sweep from x_{T-1} = z_{T-1}; the ring now carries X_t and z_t,
+  // which this lane wrote itself: the fence orders those stores before the
+  // asynchronous copies that read them back.
+  cp_wait<0>();
+  __threadfence_block();
+  const int nb = steps - 1;
+  auto prefetch_bwd = [&](int i) {  // i-th back step: t = nb - 1 - i
+    if (valid && i < nb) {
+      const size_t t = static_cast<size_t>(nb - 1 - i);
+      T* s = ring[i % kStages][lane];
+      cp_row<T, D>(s, gn + t * DD);
+      cp_async<SZ>(s + DP, xb + t * D);
     }
-    chol_solve<T, D>(l, v);
+    cp_commit();
+  };
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      y[i] = v[i];
-      xb[t * D + i] = v[i];
+  for (int i = 0; i < kStages - 1; ++i) prefetch_bwd(i);
+  T xn = zp;
+  for (int i = 0; i < nb; ++i) {
+    prefetch_bwd(i + kStages - 1);
+    cp_wait<kStages - 1>();
+    const T* s = ring[i % kStages][lane];
+    T acc0 = valid ? s[DP] : T(0), acc1 = T(0);
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      const T xk = __shfl_sync(0xffffffffu, xn, k, G);
+      const T g = valid ? s[k] : T(0);
+      if (k % 2 == 0)
+        acc0 -= g * xk;
+      else
+        acc1 -= g * xk;
     }
+    xn = acc0 + acc1;
+    if (valid) xb[static_cast<size_t>(nb - 1 - i) * D] = xn;
   }
 }
 
-constexpr int kThreads = 128;
+template <typename T, int D>
+void launch_d(const T* diag, const T* off, const T* rhs, T* x, T* gain,
+              int batch, int steps, cudaStream_t s) {
+  constexpr int per_warp = kWarp / group_lanes<D>();
+  const dim3 grid((batch + per_warp - 1) / per_warp);
+  btd_solve_kernel<T, D><<<grid, kWarp, 0, s>>>(diag, off, rhs, x, gain,
+                                                batch, steps);
+}
 
 template <typename T>
-int launch(const T* diag, const T* off, const T* rhs, T* x, T* chol, int batch,
-           int steps, int d, void* stream) {
+int launch(const T* diag, const T* off, const T* rhs, T* x, T* gain,
+           int batch, int steps, int d, void* stream) {
   if (batch <= 0 || steps <= 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid((batch + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
+    case 2:
+      launch_d<T, 2>(diag, off, rhs, x, gain, batch, steps, s);
+      break;
     case 4:
-      btd_solve_kernel<T, 4><<<grid, kThreads, 0, s>>>(diag, off, rhs, x, chol,
-                                                       batch, steps);
+      launch_d<T, 4>(diag, off, rhs, x, gain, batch, steps, s);
       break;
     case 6:
-      btd_solve_kernel<T, 6><<<grid, kThreads, 0, s>>>(diag, off, rhs, x, chol,
-                                                       batch, steps);
+      launch_d<T, 6>(diag, off, rhs, x, gain, batch, steps, s);
+      break;
+    case 8:
+      launch_d<T, 8>(diag, off, rhs, x, gain, batch, steps, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -208,13 +317,13 @@ int launch(const T* diag, const T* off, const T* rhs, T* x, T* chol, int batch,
 }  // namespace
 
 extern "C" int dgpmp2_btd_solve_f32(const float* diag, const float* off,
-                                    const float* rhs, float* x, float* chol,
+                                    const float* rhs, float* x, float* gain,
                                     int batch, int steps, int d, void* stream) {
-  return launch<float>(diag, off, rhs, x, chol, batch, steps, d, stream);
+  return launch<float>(diag, off, rhs, x, gain, batch, steps, d, stream);
 }
 
 extern "C" int dgpmp2_btd_solve_f64(const double* diag, const double* off,
-                                    const double* rhs, double* x, double* chol,
+                                    const double* rhs, double* x, double* gain,
                                     int batch, int steps, int d, void* stream) {
-  return launch<double>(diag, off, rhs, x, chol, batch, steps, d, stream);
+  return launch<double>(diag, off, rhs, x, gain, batch, steps, d, stream);
 }

@@ -1,10 +1,13 @@
 """Build the CUDA kernels of ``dgpmp2_tpu_torch/csrc`` and bind them.
 
-At first use, every ``csrc/*.cu`` is compiled by one ``nvcc`` call for
-``sm_90a`` into a shared library with a plain C interface, under
-``dgpmp2_tpu_torch/build/``, and loaded with ``ctypes``.  The library's file
-name carries a hash of the sources and flags, so an edited source rebuilds.
-Nothing is built or loaded when this module is imported.
+At first use, every ``csrc/*.cu`` is compiled for ``sm_90a`` by its own
+``nvcc`` process, all started together, and the objects are linked into one
+shared library with a plain C interface under ``dgpmp2_tpu_torch/build/``,
+loaded with ``ctypes``.  The library's file name carries a hash of the
+sources and flags, so an edited source rebuilds; nvcc's ``-Xptxas -v``
+report is kept beside it (``*.so.log``) and read back into ``build_log``
+when the library is reused.  Nothing is built or loaded when this module is
+imported.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises, naming the
 command and its stderr.
@@ -22,10 +25,9 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 SRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "build"
 
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,7 +49,7 @@ _SIGNATURES = {
 }
 
 _lib = None
-build_log = ""  # nvcc's stderr of the last compile (ptxas register counts)
+build_log = ""  # nvcc's stderr of the library's compile (ptxas register counts)
 
 
 def find_nvcc() -> str:
@@ -78,27 +80,51 @@ def _library_path() -> Path:
 
 def _compile(out: Path) -> None:
     global build_log
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    cu = [s for s in _sources() if s.suffix == ".cu"]
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{s.stem}.o") for s in cu]
+    tmp = out.with_name(f"{tag}.so.tmp")
+    nvcc = find_nvcc()
+    steps = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+             for s, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in steps]
+    logs = [p.communicate()[1] for p in procs]
+    failed = [(c, p.returncode, e) for c, p, e in zip(steps, procs, logs)
+              if p.returncode != 0]
+    try:
+        if not failed:
+            link = [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed = [(link, proc.returncode, proc.stderr)]
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    if failed:
+        cmd, rc, err = failed[0]
         raise RuntimeError(
-            f"kernel build failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stderr}"
-        )
+            f"kernel build failed (exit {rc}): {' '.join(cmd)}\n{err}")
+    build_log = "".join(logs)
+    _log_path(out).write_text(build_log)
     os.replace(tmp, out)
-    build_log = proc.stderr
+
+
+def _log_path(lib: Path) -> Path:
+    return lib.with_name(f"{lib.name}.log")
 
 
 def library() -> ctypes.CDLL:
     """The kernel library, compiled on first use and loaded once per process."""
-    global _lib
+    global _lib, build_log
     if _lib is None:
         path = _library_path()
         if not path.is_file():
             _compile(path)
+        elif _log_path(path).is_file():
+            build_log = _log_path(path).read_text()
         lib = ctypes.CDLL(str(path))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

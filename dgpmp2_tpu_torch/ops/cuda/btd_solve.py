@@ -14,7 +14,7 @@ import torch
 from dgpmp2_tpu_torch.ops import tridiag
 from dgpmp2_tpu_torch.ops.cuda import _build
 
-SUPPORTED_D = (4, 6)
+SUPPORTED_D = (2, 4, 6, 8)
 launches = 0
 
 
@@ -22,8 +22,9 @@ def launch(diag: torch.Tensor, off: torch.Tensor,
            rhs: torch.Tensor) -> torch.Tensor:
     """One kernel launch: x with ``Λ x = rhs``, on the current CUDA stream.
 
-    diag (B, T, D, D), off (B, T-1, D, D), rhs (B, T, D); contiguous CUDA
-    tensors of one dtype, float32 or float64; D in ``SUPPORTED_D``.
+    diag (B, T, D, D), off (B, T-1, D, D), rhs (B, T, D); contiguous,
+    16-byte aligned CUDA tensors of one dtype, float32 or float64; D in
+    ``SUPPORTED_D``.
     """
     global launches
     _check(diag, off, rhs)
@@ -32,11 +33,13 @@ def launch(diag: torch.Tensor, off: torch.Tensor,
     fn = (lib.dgpmp2_btd_solve_f32 if diag.dtype == torch.float32
           else lib.dgpmp2_btd_solve_f64)
     x = torch.empty_like(rhs)
-    chol = torch.empty((b, t, d * d), dtype=diag.dtype, device=diag.device)
+    # X_t = C_t⁻¹ U_t of the forward sweep, read back by the back sweep.
+    gain = torch.empty((b, t - 1, d, d), dtype=diag.dtype,
+                       device=diag.device)
     with torch.cuda.device(diag.device):
         stream = torch.cuda.current_stream(diag.device).cuda_stream
         rc = fn(diag.data_ptr(), off.data_ptr(), rhs.data_ptr(), x.data_ptr(),
-                chol.data_ptr(), b, t, d, stream)
+                gain.data_ptr(), b, t, d, stream)
     _build.check(rc, "btd_solve kernel")
     launches += 1
     return x
@@ -60,6 +63,14 @@ def _check(diag, off, rhs):
             raise ValueError(f"btd_solve kernel needs float32 or float64 of one dtype; {name} is {a.dtype}")
         if not a.is_contiguous():
             raise ValueError(f"btd_solve kernel needs contiguous inputs; {name} is not")
+        if a.numel() and a.data_ptr() % 16:
+            raise ValueError(f"btd_solve kernel needs 16-byte aligned inputs; {name} is not")
+
+
+def _ready(a: torch.Tensor) -> torch.Tensor:
+    """``a`` contiguous and 16-byte aligned (a copy of a view that is not)."""
+    a = a.contiguous()
+    return a.clone() if a.numel() and a.data_ptr() % 16 else a
 
 
 class _BTDSolveKernel(torch.autograd.Function):
@@ -75,12 +86,11 @@ class _BTDSolveKernel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, x_bar):
         diag, off, x = ctx.saved_tensors
-        lam = launch(diag, off, x_bar.contiguous())
+        lam = launch(diag, off, _ready(x_bar))
         return tridiag.solve_adjoint(lam, x)
 
 
 def btd_solve_cuda(diag: torch.Tensor, off: torch.Tensor,
                    rhs: torch.Tensor) -> torch.Tensor:
     """Differentiable K-BTD solve of CUDA tensors (see :func:`launch`)."""
-    return _BTDSolveKernel.apply(diag.contiguous(), off.contiguous(),
-                                 rhs.contiguous())
+    return _BTDSolveKernel.apply(_ready(diag), _ready(off), _ready(rhs))

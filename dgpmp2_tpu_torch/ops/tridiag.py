@@ -10,7 +10,12 @@ Storage convention (as in the JAX package):
 
 :func:`btd_solve` is the plain version of the CUDA kernel K-BTD
 (``ops/cuda/btd_solve.py``); :func:`btd_solve_auto` sends CUDA tensors to the
-kernel and CPU tensors here.  Both differentiate with the implicit adjoint of
+kernel and CPU tensors here.  The kernel runs the same block elimination in
+another form: it keeps ``X_t = C_t⁻¹ U_t = G_tᵀ`` and ``z_t = C_t⁻¹ y_t``
+from the forward sweep (each pivot block solved by Gauss-Jordan), so its
+back sweep is ``x_{T-1} = z_{T-1}``, ``x_t = z_t − X_t x_{t+1}``.  Both
+read only the lower triangle of each ``diag`` block, as the Cholesky here
+does.  Both differentiate with the implicit adjoint of
 a linear solve: with ``x = Λ⁻¹ r`` and cotangent ``x̄``,
 ``λ = Λ⁻¹ x̄``, ``r̄ = λ``, ``diag̅_i = -λ_i x_iᵀ`` and
 ``off̅_i = -(λ_i x_{i+1}ᵀ + x_i λ_{i+1}ᵀ)``.

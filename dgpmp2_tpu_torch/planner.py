@@ -29,14 +29,15 @@ class DiffGPMP2Planner:
     """Differentiable batched GPMP2 planner.
 
     Args mirror the JAX package's constructor (YAML dicts plus a robot and
-    the optional learn-params dict), with an explicit ``device`` on which
-    every tensor is made.
+    the optional learn-params dict), with the ``device`` on which every
+    tensor is made: the card (``cuda``) unless ``device="cpu"`` is given.
+    There is no fallback: without a card the first tensor made raises.
     """
 
     def __init__(self, gp_params, obs_params, planner_params, optim_params,
                  env_params, robot, learn_params=None,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self.robot = robot
         self.spec = config_lib.spec_from_params(planner_params, env_params,
                                                 robot)
@@ -46,7 +47,7 @@ class DiffGPMP2Planner:
         self.obs_params = obs_params
         self.learn_params = learn_params
         self.dtype = dtype
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
         self.dynamics_mode = (
             learn_params["dgpmp2"]["dynamics_mode"] if learn_params else None
         )
@@ -153,11 +154,11 @@ class GPMP2Planner:
     an iteration loop with a convergence exit, a wall-clock ``plan_time``
     budget, and for ``method='lm'`` the 10×/÷10 lambda schedule with
     trust-region diagonal damping and step rejection.  Runs in float64 by
-    default, as the JAX package does."""
+    default, as the JAX package does, on the card unless ``device="cpu"``."""
 
     def __init__(self, gp_params, obs_params, planner_params, env_params,
                  robot, dtype: torch.dtype = torch.float64,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         self._diff = DiffGPMP2Planner(
             gp_params, obs_params, planner_params,
             {"method": "gauss_newton", "reg": 0.0, "max_iters": 100},

@@ -34,7 +34,7 @@ def _spd(rng, b, t, d, dtype, dev):
     return [torch.tensor(a, dtype=dtype, device=dev) for a in (diag, off, rhs)]
 
 
-@pytest.mark.parametrize("d", [4, 6])
+@pytest.mark.parametrize("d", [2, 4, 6, 8])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.float64, 1e-10)])
 def test_btd_kernel_matches_plain(dev, d, dtype, tol):
@@ -44,15 +44,57 @@ def test_btd_kernel_matches_plain(dev, d, dtype, tol):
     assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= tol
 
 
-def test_btd_kernel_gradient_matches_plain(dev):
-    ins = _spd(np.random.default_rng(0), 5, 9, 4, torch.float64, dev)
+@pytest.mark.parametrize("b,t", [(1, 1), (1, 2), (3, 2), (7, 1), (13, 5),
+                                 (1000, 3)])
+@pytest.mark.parametrize("d", [2, 4, 6, 8])
+def test_btd_kernel_ragged_shapes_match_plain(dev, b, t, d):
+    """Batches that leave the last warp's lane groups partly empty, and the
+    shortest chains (T = 1 is one block solve, T = 2 one Schur step)."""
+    diag, off, rhs = _spd(np.random.default_rng(b + t), b, t, d,
+                          torch.float64, dev)
+    x_k = k_btd.launch(diag, off, rhs)
+    x_p = tridiag.btd_solve(diag, off, rhs)
+    assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("d", [4, 8])
+def test_btd_kernel_gradient_matches_plain(dev, d):
+    ins = _spd(np.random.default_rng(0), 5, 9, d, torch.float64, dev)
     a = [x.clone().requires_grad_(True) for x in ins]
     b = [x.clone().requires_grad_(True) for x in ins]
     xbar = torch.randn(ins[2].shape, dtype=torch.float64, device=dev)
+    n = k_btd.launches
     tridiag.btd_solve_auto(*a).backward(xbar)
+    assert k_btd.launches - n == 2
     tridiag.btd_solve(*b).backward(xbar)
     for u, v in zip(a, b):
         assert float((u.grad - v.grad).abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("d", [4, 8])
+def test_btd_kernel_reads_the_lower_triangle_of_diag(dev, d):
+    """As the plain version's Cholesky (and the TPU kernels): noise above the
+    diagonal of the diag blocks does not change the solution."""
+    diag, off, rhs = _spd(np.random.default_rng(11), 6, 7, d, torch.float64,
+                          dev)
+    noisy = diag + torch.triu(torch.randn_like(diag), diagonal=1)
+    x_k = k_btd.launch(noisy, off, rhs)
+    x_p = tridiag.btd_solve(diag, off, rhs)
+    assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-10
+
+
+def test_btd_kernel_takes_a_view_off_the_16_byte_grid(dev):
+    """An input that starts off the 16-byte grid is copied, not refused,
+    by the differentiable entry point; ``launch`` itself refuses it."""
+    diag, off, rhs = _spd(np.random.default_rng(9), 4, 6, 4, torch.float32,
+                          dev)
+    rhs_odd = torch.cat([rhs.new_zeros(1), rhs.reshape(-1)])[1:].view_as(rhs)
+    assert rhs_odd.data_ptr() % 16
+    x_k = tridiag.btd_solve_auto(diag, off, rhs_odd)
+    x_p = tridiag.btd_solve(diag, off, rhs)
+    assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-4
+    with pytest.raises(ValueError, match="aligned"):
+        k_btd.launch(diag, off, rhs_odd)
 
 
 @pytest.mark.parametrize("mode", tsdf.OOB_MODES)
@@ -342,21 +384,36 @@ def test_perturbed_inits_with_a_card_generator(dev):
     assert float((seeds[1:] - th0).abs().max()) > 0.0
 
 
-def test_a_four_link_arm_raises_on_the_card(dev):
-    """K-BTD takes D in (4, 6): a 4-link arm (D=8) raises on the card, with
-    no plain fallback."""
+def test_a_four_link_arm_on_the_card_matches_cpu(dev):
+    """A 4-link arm (D=8): one float64 GN step on the card (one K-BTD
+    launch) against the CPU plain path, 1e-9 relative."""
     from dgpmp2_tpu_torch.core import graph
     from dgpmp2_tpu_torch.robots import PlanarArmNLink
 
-    arm = PlanarArmNLink(link_lengths=(1.0, 1.0, 1.0, 1.0))
+    arm = PlanarArmNLink(link_lengths=(1.2, 1.0, 0.8, 0.6))
     spec = graph.GraphSpec(dof=4, state_dim=8, total_time_step=10,
                            nlinks=arm.nlinks)
-    start = torch.zeros((2, 8), dtype=torch.float64, device=dev)
-    params = graph.default_params(spec, arm, start, start + 0.5,
-                                  qc_inv=np.eye(4), cost_sigma=0.1,
-                                  epsilon_dist=0.2, k_s=0.01, k_g=0.01,
-                                  dtype=torch.float64)
-    th = torch.zeros((2, 11, 8), dtype=torch.float64, device=dev)
-    sdf = torch.ones((2, 16, 16), dtype=torch.float64, device=dev)
-    with pytest.raises(ValueError, match="D="):
-        gn.gn_step(spec, arm, params, th, sdf, 0.1)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        start = torch.zeros((2, 8), dtype=torch.float64, device=where)
+        params = graph.default_params(spec, arm, start, start + 0.5,
+                                      qc_inv=np.eye(4), cost_sigma=0.1,
+                                      epsilon_dist=0.2, k_s=0.01, k_g=0.01,
+                                      dtype=torch.float64)
+        th = torch.linspace(0.0, 0.5, 11, dtype=torch.float64,
+                            device=where)[None, :, None].expand(2, 11, 8)
+        sdf = torch.tensor(np.random.default_rng(10).uniform(
+            -0.5, 2.0, (2, 16, 16)), dtype=torch.float64, device=where)
+        n = k_btd.launches
+        out.append(gn.gn_step(spec, arm, params, th.contiguous(), sdf,
+                              0.1).cpu())
+        assert k_btd.launches - n == (where == dev)
+    assert float((out[0] - out[1]).abs().max()) <= 1e-9 * float(
+        out[1].abs().max())
+
+
+def test_btd_kernel_refuses_d_10(dev):
+    """D above 8 raises on the card, naming the supported set."""
+    x = torch.zeros((2, 5, 10, 10), device=dev)
+    with pytest.raises(ValueError, match=r"D in \(2, 4, 6, 8\); got D=10"):
+        tridiag.btd_solve_auto(x, x[:, 1:].contiguous(), x[..., 0])

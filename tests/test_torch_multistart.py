@@ -243,7 +243,8 @@ def test_gpmp2_planner_plan_multistart_with_one_restart_matches_jax():
                                          T + 1, axis=1)], -1)
     lims = {"x_lims": env["x_lims"], "y_lims": env["y_lims"]}
     optim = {"reg": 0.1, "max_iters": 5}
-    got = GPMP2Planner(gp, obs, pp, lims, tr.make_robot(rd)).plan_multistart(
+    got = GPMP2Planner(gp, obs, pp, lims, tr.make_robot(rd),
+                       device="cpu").plan_multistart(
         start, goal, th0, sdf, optim, restarts=1, seed=3)
     want = JGPMP2Planner(gp, obs, pp, lims, jr.make_robot(rd)).plan_multistart(
         start, goal, th0, sdf, optim, restarts=1, seed=3)

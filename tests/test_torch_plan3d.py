@@ -106,7 +106,8 @@ def test_planner_from_3d_yamls_matches_jax():
     env, pp, gp, obs, opt, robot_data = tconfig.load_params(*YAMLS)
     env_p = {k: env[k] for k in ("x_lims", "y_lims", "z_lims")}
     planner = DiffGPMP2Planner(gp, obs, pp, opt, env_p,
-                               make_robot(robot_data), dtype=F64)
+                               make_robot(robot_data), dtype=F64,
+                               device="cpu")
     j_env, j_pp, j_gp, j_obs, j_opt, j_rd = jconfig.load_params(*YAMLS)
     j_planner = JPlanner(j_gp, j_obs, j_pp, j_opt, env_p,
                          jconfig.make_robot(j_rd), dtype=jnp.float64)

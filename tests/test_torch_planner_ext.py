@@ -84,7 +84,7 @@ def planners(kind, optim=None):
     pp, gp, obs, opt, rd, lims = yaml_setup(kind)
     opt = dict(opt, **(optim or {}))
     return (DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(rd),
-                             dtype=F64),
+                             dtype=F64, device="cpu"),
             JPlanner(gp, obs, pp, opt, lims, j_make_robot(rd),
                      dtype=jnp.float64))
 
@@ -135,7 +135,8 @@ def test_make_params_with_a_workspace_goal_matches_jax():
     gp = dict(gp, Q_c_inv=np.eye(3), q_min=[-2.4] * 3, q_max=[2.4] * 3)
     rd = {"type": "planar_arm", "link_lengths": [1.8, 1.4, 1.2],
           "sphere_radius": [0.25]}
-    t = DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(rd), dtype=F64)
+    t = DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(rd), dtype=F64,
+                         device="cpu")
     j = JPlanner(gp, obs, pp, opt, lims, j_make_robot(rd), dtype=jnp.float64)
     assert t.spec.self_pairs == j.spec.self_pairs and t.spec.M == j.spec.M
     start = np.zeros((B, 6))
@@ -186,7 +187,7 @@ def test_gpmp2_planner_matches_jax(kind, method):
     problem, and plan_batch with per-problem LM lambdas and the host
     convergence exit."""
     pp, gp, obs, _, rd, lims = yaml_setup(kind)
-    t = GPMP2Planner(gp, obs, pp, lims, make_robot(rd))
+    t = GPMP2Planner(gp, obs, pp, lims, make_robot(rd), device="cpu")
     j = JGPMP2Planner(gp, obs, pp, lims, j_make_robot(rd))
     assert t.dtype == F64 and t.spec.M == j.spec.M
     th0, start, goal, sdf = problem(kind, seed=4)
@@ -220,8 +221,8 @@ def test_plan_batch_stops_at_its_time_budget_like_jax():
     th0, start, goal, sdf = problem("gp_inter_vel", seed=5)
     optim = {"method": "gauss_newton", "max_iters": 50, "tol_delta": 0.0,
              "plan_time": 0.0}
-    got = GPMP2Planner(gp, obs, pp, lims, make_robot(rd)).plan_batch(
-        start, goal, th0, sdf, optim)
+    got = GPMP2Planner(gp, obs, pp, lims, make_robot(rd),
+                       device="cpu").plan_batch(start, goal, th0, sdf, optim)
     want = JGPMP2Planner(gp, obs, pp, lims, j_make_robot(rd)).plan_batch(
         start, goal, th0, sdf, optim)
     assert len(got[3]) == len(want[3]) == 1
@@ -260,7 +261,8 @@ def golden_ref():
         {"method": "gauss_newton", "reg": float(g["reg"]), "max_iters": 100,
          "tol_err": 1e-3, "tol_delta": 1e-4},
         {"x_lims": g["x_lims"].tolist(), "y_lims": g["y_lims"].tolist()},
-        PointRobot2D(sphere_radii=(float(g["sphere_radius"]),)), dtype=F64)
+        PointRobot2D(sphere_radii=(float(g["sphere_radius"]),)), dtype=F64,
+        device="cpu")
     tsdf.set_oob_mode("reference")
     yield g, planner
     tsdf.set_oob_mode("intended")
@@ -320,7 +322,7 @@ def test_config_helpers_match_jax():
         assert tconfig.plan_time_budget(opt) == jconfig.plan_time_budget(opt)
     pp, gp, obs, opt, rd, lims = yaml_setup("arm")
     planner = DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(rd),
-                               learn_params=got[-1])
+                               learn_params=got[-1], device="cpu")
     assert planner.dynamics_mode == "diag_identity"
     assert planner.learn_params is got[-1]
     for check in (1, 8, 9, 48):
@@ -366,8 +368,8 @@ def test_angles_and_mat_utils_match_jax():
     assert float(angles.normalize_angle(3 * np.pi / 2)) == pytest.approx(
         -np.pi / 2)
     np.testing.assert_array_equal(
-        np_(mat_utils.isotropic_matrix(2.5, 3, F64)),
+        np_(mat_utils.isotropic_matrix(2.5, 3, F64, "cpu")),
         np_(jmat.isotropic_matrix(2.5, 3, jnp.float64)))
     sig = torch.tensor(0.3, dtype=F64, requires_grad=True)
-    mat_utils.isotropic_matrix(sig, 4, F64).sum().backward()
+    mat_utils.isotropic_matrix(sig, 4, F64, "cpu").sum().backward()
     assert float(sig.grad) == 4.0

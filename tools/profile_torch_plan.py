@@ -2,13 +2,14 @@
 """Where the time of one GN iteration of the PyTorch port goes, on a GPU.
 
     python3 tools/profile_torch_plan.py [--iters 20] [--out build/profile]
-        [--problem 2d|3d|arm2|xyh|task|gp_inter]
+        [--problem 2d|3d|arm2|xyh|task|gp_inter|arm4]
 
 At one of ``chip_smoke.py``'s B=1024 float32 problems: the 2-D bench problem
 (default; T=100, 128x128), the 3-D one (PointRobot3D, 64^3 voxels), the
 2-link arm (T=40, self-collision, joint limits), the heading robot (D=6,
-nonholonomic), the task-space 3-link arm (workspace goal, LM) or the bench
-problem with GP interpolation and velocity limits:
+nonholonomic), the task-space 3-link arm (workspace goal, LM), the bench
+problem with GP interpolation and velocity limits, or the 4-link arm (D=8,
+T=40):
 
 * each layer of one iteration timed alone with CUDA events (median of 20):
   residuals with the lookup, assembly, damping, the solve, and the
@@ -75,7 +76,8 @@ def layer_times(bench, reg=0.1):
 # --problem -> the name of a constrained path of chip_smoke.py.
 CONSTRAINED = {"arm2": "2-link arm", "xyh": "heading robot",
                "task": "task-space 3-link arm",
-               "gp_inter": "GP interpolation + velocity limits"}
+               "gp_inter": "GP interpolation + velocity limits",
+               "arm4": "4-link arm"}
 
 
 def main():
@@ -124,6 +126,11 @@ def main():
           f"{wall_ms:.3f} ms, device busy {dev_us / 1e3:.3f} ms "
           f"({dev_us / 1e3 / wall_ms:.3f} of wall), {n_kernels} device "
           f"operations ({n_kernels / args.iters:.1f} per iteration)")
+    btd = [e for e in kernels if "btd_solve_kernel" in e.key]
+    btd_us = sum(e.self_device_time_total for e in btd)
+    btd_n = sum(e.count for e in btd)
+    print(f"[{smi}] K-BTD: {btd_n} launches, {btd_us / 1e3 / max(btd_n, 1):.4f}"
+          f" ms per launch, {btd_us / max(dev_us, 1e-9):.3f} of device time")
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out,
