@@ -8,14 +8,22 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build the four CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc;
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes: K-BTD at D = 2, 4, 6, 8 in float32 and float64 on random
-   SPD systems of B=1024, T=101 and of the edge shapes B in {1, 1000, 4096}
-   x T in {1, 2, 41}, then on the bench problem's own system, then timed at
-   the paths' shapes (2-D, 3-D, multistart pool, plan_batch, 4-link arm)
-   beside its bound and ``torch.linalg.solve`` on the dense Λ; K-LOOKUP at
-   B=1024, T=100, 128x128 SDFs (also with far out-of-grid points);
-   K-LOOKUP3D at B=1024, 64^3 voxels, P=101; K-LOOKUP-LIMB at B=1024,
-   128x128, P=101, L=1..3;
+   paths' shapes: K-BTD at D = 2, 4, 6, 8 (B=1024, T=101) and 10, 12, 14,
+   16 (B=1024, T=41) in float32 and float64 on random SPD systems and at
+   the edge shapes B in {1, 1000, 4096} x T in {1, 2, 41}, then on the bench
+   problem's own system, then timed at the paths' shapes (2-D, 3-D,
+   multistart pool, plan_batch, 4-link arm) beside its bound and
+   ``torch.linalg.solve`` on the dense Λ; K-LOOKUP (B=1024, P=101, 128x128,
+   far out-of-grid points too) and K-LOOKUP3D (B=1024, 64^3 voxels, P=101)
+   bit-equal in both dtypes and OOB modes, also at edge shapes of their
+   128-point tiles, at the paths' shapes of more than one wave of blocks
+   (P = 246, 401, the B=4096 multistart pool), on the points each path's
+   residuals hand to the lookup, and on a view off the 16-byte grid;
+   K-LOOKUP timed on the bench plan's own points; K-LOOKUP-LIMB at B=1024,
+   128x128, P=101, L=1..3.  Every kernel's ``ms`` is its device-only time
+   (``torch.profiler``, L2 flushed), beside a CUDA-graph replay, CUDA
+   events around one call (host-inclusive), the host µs per ``launch()``
+   call, its bound and its plain version;
 4. float64 plans on the small goldens that the JAX package wrote
    (``tests/goldens/torch_port_plan_small.npz``, ``..._plan3d_small.npz``,
    and ``..._plan_ext_small.npz``: the 2-link arm, the task-space 3-link
@@ -32,15 +40,17 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
    ``DiffGPMP2Planner`` built from the YAMLs: the 2-link arm (self-collision,
    joint limits), the heading robot (nonholonomic, D=6), the task-space
    3-link arm (workspace goal, self-collision, joint limits, D=6), the
-   bench problem with GP interpolation and velocity limits and the 4-link
-   arm (D=8); then
+   bench problem with GP interpolation and velocity limits, the 4-link arm
+   (D=8) and the 5-link arm (D=10, 20 iterations); then
    ``GPMP2Planner.plan_batch`` (LM, float64) on B=256 bench problems;
 9. multistart: the ``benchmarks/bench_multistart.py`` problem (B=256, K=16)
    through ``GPMP2Planner.plan_multistart``, full pool and staged, for four
    seeds of the perturbation draws;
-10. timing with CUDA events: ms per GN iteration in 2-D, 3-D, for the two
-    arms and the heading robot, ms per multistart batch, and each kernel
-    beside its plain version and its bound.
+10. timing with CUDA events: ms per GN iteration in 2-D, 3-D, for the
+    2- and 4-link arms and the heading robot, ms per multistart batch, and
+    each kernel's times from phase 3.
+
+Every time printed carries the card's name and power limit.
 
 Every path phase sets all kernel launch counters to 0 just before it and
 reads them just after.  The last two lines are JSON: the kernels' record
@@ -102,8 +112,9 @@ def build():
         print(f"ptxas {kernel_name(name)}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B, shared {smem} B")
     n_btd = sum("btd_solve_kernel" in r[0] for r in rows)
-    if n_btd != 8:
-        raise AssertionError(f"ptxas reported {n_btd} K-BTD kernels, not 8")
+    if n_btd != 2 * len(BTD_D):
+        raise AssertionError(f"ptxas reported {n_btd} K-BTD kernels, not "
+                             f"{2 * len(BTD_D)}")
 
 
 def kernel_name(mangled):
@@ -141,21 +152,28 @@ def ptxas_summary(log):
 _FLUSH = []
 
 
+def flush_l2():
+    """Overwrite a 256 MiB buffer, so that the 50 MB L2 holds none of the
+    next kernel's inputs, as in the GN loop, where other work runs between
+    two launches of a kernel."""
+    if not _FLUSH:
+        _FLUSH.append(torch.empty(1 << 26, device="cuda"))
+    _FLUSH[0].zero_()
+
+
 def cuda_ms(fn, reps=20, warmup=3, inner=1, flush=False):
     """Median milliseconds of one call of ``fn``: CUDA events around
     ``inner`` back-to-back calls, over ``reps`` runs after ``warmup``
-    untimed ones.  ``flush`` overwrites a 256 MiB buffer before each run so
-    that the 50 MB L2 holds none of ``fn``'s inputs, as in the GN loop,
-    where other work runs between two launches of a kernel."""
-    if flush and not _FLUSH:
-        _FLUSH.append(torch.empty(1 << 26, device="cuda"))
+    untimed ones, the L2 flushed before each run with ``flush``.  The
+    window holds the host's work of the call as well: for a kernel whose
+    wrapper takes longer than the kernel, it is host-inclusive."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         if flush:
-            _FLUSH[0].zero_()
+            flush_l2()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -167,14 +185,125 @@ def cuda_ms(fn, reps=20, warmup=3, inner=1, flush=False):
     return statistics.median(times)
 
 
-def kernel_ms(record, kernel, plain):
-    """A kernel's and its plain version's ms into ``record``: L2 flushed
-    before each timed call (``ms``, ``plain_ms``), and back to back over
-    20 calls with a warm L2 (``warm_ms``, ``plain_warm_ms``)."""
-    record["ms"] = cuda_ms(kernel, flush=True)
-    record["plain_ms"] = cuda_ms(plain, reps=5, flush=True)
-    record["warm_ms"] = cuda_ms(kernel, inner=20)
-    record["plain_warm_ms"] = cuda_ms(plain, reps=5, inner=20)
+def device_ms(fn, kernel, reps=20):
+    """Device-only ms of one launch: ``torch.profiler``'s self device time
+    of the kernels whose name holds ``kernel``, over ``reps`` calls of
+    ``fn`` (one launch each), each after the L2 flush, divided by their
+    launch count.  The profiler may drop a few launches' records; a window
+    that shows fewer than ``reps`` is taken again, up to three times, and
+    the last one used if it shows any.  Raises if none shows a launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    for _ in range(3):
+        flush_l2()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush_l2()
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.key]
+        n = sum(e.count for e in rows)
+        if n == reps:
+            break
+    if n == 0:
+        raise RuntimeError(f"the profiler saw no launch of {kernel}")
+    if n != reps:
+        print(f"device_ms: the profiler saw {n} of {reps} launches of "
+              f"{kernel}; the time is their mean")
+    return sum(e.self_device_time_total for e in rows) / n / 1e3
+
+
+def graph_ms(fn, n=100, reps=5):
+    """ms of one launch from the replay of a CUDA graph of ``n`` captured
+    back-to-back calls of ``fn`` (warm L2, no host work in the window):
+    the cross-check of :func:`device_ms`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    ms = cuda_ms(graph.replay, reps=reps, warmup=1) / n
+    del graph
+    return ms
+
+
+def host_us(fn, n=1000):
+    """Host µs per call of ``fn``: ``time.perf_counter`` over ``n`` calls
+    with no synchronize in between."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def kernel_ms(record, kernel, plain, name, plain_reps=5):
+    """A kernel's times into ``record``: ``ms`` device-only (profiler, L2
+    flushed), ``graph_ms`` (CUDA graph, warm L2), ``event_ms`` (CUDA events
+    around one call after the flush: host-inclusive), ``host_us`` per
+    wrapper call, and, unless ``plain`` is None, ``plain_ms`` of its plain
+    version (events, flushed)."""
+    record["ms"] = device_ms(kernel, name)
+    record["graph_ms"] = graph_ms(kernel)
+    record["event_ms"] = cuda_ms(kernel, flush=True)
+    record["host_us"] = host_us(kernel)
+    if plain is not None:
+        record["plain_ms"] = cuda_ms(plain, reps=plain_reps, flush=True)
+
+
+def profile_plan(bench, cfg):
+    """``gn.plan(*bench, cfg)`` once under ``torch.profiler``, after a
+    warm-up: the profiler, and a record of the wall ms, the device-busy ms,
+    the device operations and, for each of the port's kernels that ran,
+    its launches, device µs per launch and share of the device time."""
+    from dgpmp2_tpu_torch.core import gn
+    from torch.profiler import ProfilerActivity, profile
+
+    gn.plan(*bench, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        gn.plan(*bench, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # Kernel rows only: an op's row repeats the device time of its kernels.
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in rows)
+    rec = {"wall_ms": wall, "busy_ms": busy / 1e3,
+           "ops": sum(e.count for e in rows)}
+    for name in KERNELS:
+        mine = [e for e in rows if f"{name}_kernel" in e.key]
+        n = sum(e.count for e in mine)
+        if n:
+            us = sum(e.self_device_time_total for e in mine)
+            rec[name] = {"launches": n, "us": us / n,
+                         "share": us / max(busy, 1e-9)}
+    return prof, rec
+
+
+def times_line(rec):
+    """One line of a kernel's times from :func:`kernel_ms` and its bound."""
+    return (f"device-only {rec['ms']:.4f} ms (profiler, L2 flushed), CUDA "
+            f"graph {rec['graph_ms']:.4f} ms (warm L2), host-inclusive "
+            f"events {rec['event_ms']:.4f} ms, host {rec['host_us']:.1f} µs "
+            f"per launch() call; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}), share of bound "
+            f"{rec['bound_ms'] / rec['ms']:.4f}; plain {rec['plain_ms']:.4f} "
+            f"ms")
 
 
 def rel_err(a, b):
@@ -314,7 +443,7 @@ def spd_system(rng, b, t, d, dtype, dev):
     return [torch.tensor(a, dtype=dtype, device=dev) for a in (diag, off, rhs)]
 
 
-BTD_D = (2, 4, 6, 8)
+BTD_D = (2, 4, 6, 8, 10, 12, 14, 16)
 # Ragged and edge shapes: a lone problem, a batch that leaves the last warp
 # partly empty, the multistart pool; one block solve, one Schur step, the
 # arm's T.
@@ -384,12 +513,13 @@ def check_btd(dev, record, bench, smi):
     # and both stay within a few hundred ulp of the exact solution.
     for dtype, tol in ((torch.float32, 1e-4), (torch.float64, 1e-10)):
         for d in BTD_D:
-            err, abs_err = btd_err(k, *spd_system(rng, B, T + 1, d, dtype,
-                                                  dev))
-            edge = max(btd_err(k, *spd_system(rng, b, t, d, dtype, dev))[0]
-                       for b, t in BTD_EDGES)
+            # D > 8 (arms of 5+ links) at the arms' T = 41.
+            t = T + 1 if d <= 8 else 41
+            err, abs_err = btd_err(k, *spd_system(rng, B, t, d, dtype, dev))
+            edge = max(btd_err(k, *spd_system(rng, b, te, d, dtype, dev))[0]
+                       for b, te in BTD_EDGES)
             print(f"K-BTD random SPD {dtype} D={d}: max rel err vs plain "
-                  f"{err:.3e} at B={B} T={T + 1}, {edge:.3e} over B, T in "
+                  f"{err:.3e} at B={B} T={t}, {edge:.3e} over B, T in "
                   f"{BTD_EDGES} (tol {tol:g})")
             if not (err <= tol and edge <= tol):
                 raise AssertionError(f"K-BTD {dtype} D={d}: {err}, {edge}")
@@ -406,24 +536,16 @@ def check_btd(dev, record, bench, smi):
             return tridiag.btd_solve(diag, off, rhs)
 
         rec = {}
-        if label == "2-D":
-            kernel_ms(rec, kern, plain)
-        else:
-            rec.update(ms=cuda_ms(kern, flush=True),
-                       warm_ms=cuda_ms(kern, inner=20),
-                       plain_ms=cuda_ms(plain, reps=3, flush=True))
+        kernel_ms(rec, kern, plain, "btd_solve_kernel",
+                  plain_reps=5 if label == "2-D" else 3)
         rec["bound_ms"], rec["bound_by"] = btd_bound(b, t, d, dtype)
         lam, r = dense_lambda(diag, off), rhs.reshape(b, t * d, 1)
         rec["library_ms"] = cuda_ms(lambda: torch.linalg.solve(lam, r),
                                     reps=3, warmup=1)
         del lam
-        print(f"[{smi}] K-BTD {label} B={b} T={t} D={d} {dtype}: kernel "
-              f"{rec['ms']:.4f} ms (L2 flushed; back to back "
-              f"{rec['warm_ms']:.4f}), bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}), share of bound "
-              f"{rec['bound_ms'] / rec['ms']:.4f}; plain {rec['plain_ms']:.4f}"
-              f" ms; torch.linalg.solve on the dense (B, T·D, T·D) Λ "
-              f"{rec['library_ms']:.4f} ms")
+        print(f"[{smi}] K-BTD {label} B={b} T={t} D={d} {dtype}: "
+              f"{times_line(rec)}; torch.linalg.solve on the dense (B, T·D, T·D) "
+              f"Λ {rec['library_ms']:.4f} ms")
         if label == "2-D":
             record.update(rec)
 
@@ -455,31 +577,41 @@ def check_btd_bench_system(name, bench):
         raise AssertionError(f"K-BTD {name}: {e_k}, {e_p}, {e64}")
 
 
-# Lookup tolerances: d blends taps of values of order 1, so reordered
-# float32 rounding would stay below 1e-5; the gradient divides by res
-# (0.078 or 0.156) and so carries ~13x that, well inside 1e-3.  The kernels
-# round as their plain versions do (no fused multiply-add), so the errors
-# read 0 or close to it; the corner choice itself rounds identically.
-LOOKUP_TOLS = ((torch.float32, 1e-5, 1e-3), (torch.float64, 1e-12, 1e-10))
+# Lookup tolerances.  K-LOOKUP and K-LOOKUP3D round as their plain
+# versions do (correctly rounded coordinates, no fused multiply-add), so
+# they are held bit-equal: tolerance 0.  K-LOOKUP-LIMB: d blends taps of
+# values of order 1, so reordered float32 rounding would stay below 1e-5;
+# the gradient divides by res (0.078) and so carries ~13x that, well inside
+# 1e-3.
+EXACT = (0.0, 0.0)
+LIMB_TOLS = (1e-5, 1e-3)
+LOOKUP_DTYPES = (torch.float32, torch.float64)
+# Shapes that exercise the lookup kernels' tiles of 128 points: B·P below
+# one tile, exactly one tile, a ragged tail, P = 1, B = 1, P = 401; then the
+# paths' shapes of more than one wave of blocks: the 2-link arm, GP
+# interpolation and the multistart pool.
+LOOKUP_EDGES = ((1, 50), (2, 64), (3, 101), (1024, 1), (1, 1), (7, 401),
+                (1024, 246), (1024, 401), (4096, 101))
 
 
-def compare(name, got, want, tol_d, tol_g):
-    ed = float((got[0] - want[0]).abs().max())
-    eg = float((got[1] - want[1]).abs().max())
-    print(f"{name}: max abs err d {ed:.3e} (tol {tol_d:g}), grad {eg:.3e} "
-          f"(tol {tol_g:g})")
+def compare(name, got, want, tol_d, tol_g, quiet=False):
+    ed = float((got[0] - want[0]).abs().max()) if got[0].numel() else 0.0
+    eg = float((got[1] - want[1]).abs().max()) if got[1].numel() else 0.0
+    if not quiet:
+        print(f"{name}: max abs err d {ed:.3e} (tol {tol_d:g}), grad "
+              f"{eg:.3e} (tol {tol_g:g})")
     if not (ed <= tol_d and eg <= tol_g):
         raise AssertionError(f"{name}: {ed}, {eg}")
     return max(ed, eg)
 
 
-def lookup_points(rng, p, ndim):
-    """(B, p, ndim) query points: random in the world, one in ten outside
+def lookup_points(rng, p, ndim, b=B):
+    """(b, p, ndim) query points: random in the world, one in ten outside
     it, some exactly on its border."""
-    pts = rng.uniform(-4.99, 4.99, (B, p, ndim))
-    pts[:, ::10] = rng.uniform(-7.0, 7.0, (B, len(range(0, p, 10)), ndim))
-    pts[:, 1, 0] = -5.0
-    pts[:, 2, 1] = 5.0
+    pts = rng.uniform(-4.99, 4.99, (b, p, ndim))
+    pts[:, ::10] = rng.uniform(-7.0, 7.0, (b, len(range(0, p, 10)), ndim))
+    pts[:, 1 % p, 0] = -5.0
+    pts[:, 2 % p, 1] = 5.0
     return pts
 
 
@@ -495,7 +627,136 @@ def lookup_bound(points, ndim, taps, tap_bytes, dtype):
     return {"bound_ms": ms, "bound_by": by, "library_ms": None}
 
 
-def check_lookup(dev, record):
+def check_lookup_edges(name, k, entry, plain, ndim, dev, rng):
+    """A lookup kernel against its plain version, bit-equal, at
+    LOOKUP_EDGES in both dtypes and both OOB modes (points inside, outside
+    and far outside the grid), and on points that start off the 16-byte
+    grid, through ``entry`` (the differentiable call) and ``launch``."""
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+
+    # A 16 x 12 x 20 voxel grid at res 0.5 spans z 8 m, y 6 m, x 10 m.
+    grid, res, lims = (((32, 32), 10.0 / 32, (LIMS, LIMS)) if ndim == 2 else
+                       ((16, 12, 20), 0.5, (LIMS, (-3.0, 3.0), (-4.0, 4.0))))
+    worst = 0.0
+    for dtype in LOOKUP_DTYPES:
+        for b, p in LOOKUP_EDGES:
+            sdf = torch.tensor(rng.standard_normal((b, *grid)), dtype=dtype,
+                               device=dev)
+            pts = lookup_points(rng, p, ndim, b)
+            pts[0, 0] = 1e10
+            pts_t = torch.tensor(pts, dtype=dtype, device=dev)
+            for mode in sdf_ops.OOB_MODES:
+                args = (sdf, pts_t, res, *lims, mode)
+                worst = max(worst, compare(
+                    f"{name} {dtype} {mode} B={b} P={p}", k.launch(*args),
+                    plain(*args), *EXACT, quiet=True))
+        flat = torch.tensor(rng.uniform(-4.9, 4.9, 3 * 101 * ndim + 1),
+                            dtype=dtype, device=dev)
+        odd = flat[1:].view(3, 101, ndim)
+        assert odd.data_ptr() % 16
+        sdf = torch.tensor(rng.standard_normal((3, *grid)), dtype=dtype,
+                           device=dev)
+        want = plain(sdf, odd, res, *lims, "intended")
+        for call in (entry, k.launch):
+            worst = max(worst, compare(
+                f"{name} {dtype} misaligned view",
+                call(sdf, odd, res, *lims, "intended"), want, *EXACT,
+                quiet=True))
+    print(f"{name} at (B, P) in {LOOKUP_EDGES} and on a view off the 16-byte "
+          f"grid, float32 and float64, both OOB modes: max abs err "
+          f"{worst:.3e} (tol 0)")
+
+
+def path_lookups(dev):
+    """name -> (sdf, points, res, x_lims, y_lims[, z_lims]): the lookup that
+    each path's ``graph.eval_residuals`` makes at its straight-line seed
+    (2-D bench, 2-link arm P=246, GP interpolation P=401, multistart pool
+    B=4096, ``plan_batch`` float64 B=256, 3-D bench), recorded at
+    ``ops.sdf.lookup_nd``; then uniform random 2-D points, 3-D
+    ``trajectory_points`` and one point of each (the fixed cost of a
+    launch)."""
+    from dgpmp2_tpu_torch.core import graph
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+
+    seen = []
+    entry = sdf_ops.lookup_nd
+
+    def record(sdf, points, res, x_lims, y_lims, z_lims=None):
+        lims = (tuple(x_lims), tuple(y_lims))
+        if z_lims is not None:
+            lims += (tuple(z_lims),)
+        seen.append((sdf.contiguous(), points.contiguous(), float(res),
+                     *lims))
+        return entry(sdf, points, res, x_lims, y_lims, z_lims)
+
+    bench_np = bench_inputs(B)
+    problems = {"2-D bench plan points": lambda: port_problem(
+        *bench_np, dev, torch.float32)}
+    constrained = constrained_problems(dev, bench_np)
+    for name, key in (("2-link arm P=246", "2-link arm"),
+                      ("GP interpolation P=401",
+                       "GP interpolation + velocity limits")):
+        problems[name] = lambda key=key: problem_of(*constrained[key])
+    problems["multistart pool B=4096"] = lambda: port_problem(
+        *bench_inputs(4 * B), dev, torch.float32)
+    problems["plan_batch float64 B=256"] = lambda: port_problem(
+        *bench_inputs(256), dev, torch.float64)
+    problems["3-D bench plan points"] = lambda: port_problem(
+        *bench3d_inputs(B, dev), dev, torch.float32)
+    out = {}
+    sdf_ops.lookup_nd = record
+    try:
+        for name, make in problems.items():
+            graph.eval_residuals(*make())
+            out[name] = seen.pop()
+            seen.clear()
+    finally:
+        sdf_ops.lookup_nd = entry
+    rng = np.random.default_rng(2)
+    sdf2, _, res2, xl, yl = out["2-D bench plan points"]
+    pts = torch.tensor(lookup_points(rng, T + 1, 2, B), dtype=torch.float32,
+                       device=dev)
+    out["2-D uniform random points"] = (sdf2, pts, res2, xl, yl)
+    sdf3 = out["3-D bench plan points"][0]
+    pts3 = torch.tensor(trajectory_points(rng, B, T + 1), dtype=torch.float32,
+                        device=dev)
+    out["3-D trajectory_points"] = (sdf3, pts3, 10.0 / VOX, LIMS, LIMS, LIMS)
+    out["2-D one point"] = (sdf2[:1], pts[:1, :1].contiguous(), res2, xl, yl)
+    out["3-D one point"] = (sdf3[:1], pts3[:1, :1].contiguous(), 10.0 / VOX,
+                            LIMS, LIMS, LIMS)
+    return out
+
+
+def check_path_lookups(dev):
+    """K-LOOKUP and K-LOOKUP3D bit-equal to their plain versions on the
+    lookup each path makes (:func:`path_lookups`), in both OOB modes, in the
+    path's dtype and the other one."""
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup, sdf_lookup3d
+
+    worst = 0.0
+    lookups = path_lookups(dev)
+    for name, (sdf, pts, *rest) in lookups.items():
+        k, plain = ((sdf_lookup, sdf_ops.bilinear_lookup) if len(rest) == 3
+                    else (sdf_lookup3d, sdf_ops.trilinear_lookup))
+        other = (torch.float64 if sdf.dtype == torch.float32
+                 else torch.float32)
+        for s, p in ((sdf, pts), (sdf.to(other), pts.to(other))):
+            for mode in sdf_ops.OOB_MODES:
+                args = (s, p, *rest, mode)
+                worst = max(worst, compare(f"{name} {s.dtype} {mode}",
+                                           k.launch(*args), plain(*args),
+                                           *EXACT, quiet=True))
+    print(f"K-LOOKUP and K-LOOKUP3D on each path's own lookup "
+          f"({', '.join(lookups)}), float32 and float64, both OOB modes: "
+          f"max abs err {worst:.3e} (tol 0)")
+
+
+def check_lookup(dev, record, bench, smi):
+    """K-LOOKUP bit-equal to its plain version on random SDFs at B=1024,
+    P=101 (far out-of-grid points too) and at the edge shapes; timed on the
+    bench plan's own points (the FK centres of its straight-line seed) and
+    on uniform random points."""
     from dgpmp2_tpu_torch.ops import sdf as sdf_ops
     from dgpmp2_tpu_torch.ops.cuda import sdf_lookup as k
 
@@ -507,23 +768,33 @@ def check_lookup(dev, record):
     pts[:, 3] = (1e10, 0.3)
     pts[:, 4] = (-0.7, -1e10)
     pts[:, 5] = (1e10, 1e10)
-    for dtype, tol_d, tol_g in LOOKUP_TOLS:
+    for dtype in LOOKUP_DTYPES:
         sdf = torch.tensor(rng.standard_normal((B, IMSIZE, IMSIZE)),
                            dtype=dtype, device=dev)
         p_t = torch.tensor(pts, dtype=dtype, device=dev)
         for mode in sdf_ops.OOB_MODES:
-            err = compare(
-                f"K-LOOKUP {dtype} {mode}",
-                k.launch(sdf, p_t, res, LIMS, LIMS, mode),
-                sdf_ops.bilinear_lookup(sdf, p_t, res, LIMS, LIMS, mode),
-                tol_d, tol_g)
-            if dtype == torch.float32 and mode == "intended":
-                record["max_abs_err"] = err
-                kernel_ms(record,
-                          lambda: k.launch(sdf, p_t, res, LIMS, LIMS, mode),
-                          lambda: sdf_ops.bilinear_lookup(sdf, p_t, res, LIMS,
-                                                          LIMS, mode))
-                record.update(lookup_bound(B * (T + 1), 2, 4, 4, dtype))
+            compare(f"K-LOOKUP {dtype} {mode}",
+                    k.launch(sdf, p_t, res, LIMS, LIMS, mode),
+                    sdf_ops.bilinear_lookup(sdf, p_t, res, LIMS, LIMS, mode),
+                    *EXACT)
+    check_lookup_edges("K-LOOKUP", k, k.bilinear_lookup_cuda,
+                       sdf_ops.bilinear_lookup, 2, dev, rng)
+    spec, robot, _, th0, bench_sdf = bench
+    bench_sdf = bench_sdf.contiguous()
+    centres = robot.fk(th0)[0].reshape(B, -1, 2).contiguous()
+    for label, p_t in (("the bench plan's points", centres),
+                       ("uniform random points", p_t)):
+        args = (bench_sdf, p_t.float(), res, LIMS, LIMS, "intended")
+        rec = {}
+        err = compare(f"K-LOOKUP on {label}", k.launch(*args),
+                      sdf_ops.bilinear_lookup(*args), *EXACT)
+        kernel_ms(rec, lambda: k.launch(*args),
+                  lambda: sdf_ops.bilinear_lookup(*args), "sdf_lookup_kernel")
+        rec.update(lookup_bound(B * (T + 1), 2, 4, 4, torch.float32))
+        print(f"[{smi}] K-LOOKUP B={B} P={T + 1} float32 on {label}: "
+              f"{times_line(rec)}")
+        if not record.get("ms"):
+            record.update(rec, max_abs_err=err)
 
 
 def trajectory_points(rng, b, p, noise=0.1):
@@ -535,35 +806,48 @@ def trajectory_points(rng, b, p, noise=0.1):
     return s + t * (g - s) + noise * rng.standard_normal((b, p, 3))
 
 
-def check_lookup3d(dev, record):
+def check_lookup3d(dev, record, smi):
+    """K-LOOKUP3D bit-equal to its plain version at B=1024, 64^3, P=101 on
+    trajectory points (corners, faces and far points too) and at the edge
+    shapes; timed on the trajectory points."""
     from dgpmp2_tpu_torch.ops import sdf as sdf_ops
     from dgpmp2_tpu_torch.ops.cuda import sdf_lookup3d as k
 
     rng = np.random.default_rng(3)
     res = 10.0 / VOX
     p = T + 1
-    pts = trajectory_points(rng, B, p)
+    clean = trajectory_points(rng, B, p)
+    pts = clean.copy()
     pts[:, ::10] = rng.uniform(-7.0, 7.0, (B, len(range(0, p, 10)), 3))
     pts[:, 1] = (-5.0, 5.0, 5.0)  # a corner of the world
     pts[:, 2, 2] = 5.0  # a face
     pts[:, 3] = (1e10, -1e10, 0.2)  # far outside the grid
-    for dtype, tol_d, tol_g in LOOKUP_TOLS:
+    for dtype in LOOKUP_DTYPES:
         sdf = torch.randn((B, VOX, VOX, VOX), dtype=dtype, device=dev,
                           generator=torch.Generator(dev).manual_seed(3))
         p_t = torch.tensor(pts, dtype=dtype, device=dev)
         for mode in sdf_ops.OOB_MODES:
             args = (sdf, p_t, res, LIMS, LIMS, LIMS, mode)
-            err = compare(f"K-LOOKUP3D {dtype} {mode}", k.launch(*args),
-                          sdf_ops.trilinear_lookup(*args), tol_d, tol_g)
-            if dtype == torch.float32 and mode == "intended":
-                record["max_abs_err"] = err
-                kernel_ms(record, lambda: k.launch(*args),
-                          lambda: sdf_ops.trilinear_lookup(*args))
-                record.update(lookup_bound(B * (T + 1), 3, 8, 4, dtype))
-        del sdf
+            compare(f"K-LOOKUP3D {dtype} {mode}", k.launch(*args),
+                    sdf_ops.trilinear_lookup(*args), *EXACT)
+        if dtype == torch.float32:
+            args = (sdf, torch.tensor(clean, dtype=dtype, device=dev), res,
+                    LIMS, LIMS, LIMS, "intended")
+            err = compare("K-LOOKUP3D on trajectory points", k.launch(*args),
+                          sdf_ops.trilinear_lookup(*args), *EXACT)
+            kernel_ms(record, lambda: k.launch(*args),
+                      lambda: sdf_ops.trilinear_lookup(*args),
+                      "sdf_lookup3d_kernel")
+            record.update(lookup_bound(B * p, 3, 8, 4, dtype),
+                          max_abs_err=err)
+            print(f"[{smi}] K-LOOKUP3D B={B} P={p} 64^3 float32 on "
+                  f"trajectory points: {times_line(record)}")
+        del sdf, args
+    check_lookup_edges("K-LOOKUP3D", k, k.trilinear_lookup_cuda,
+                       sdf_ops.trilinear_lookup, 3, dev, rng)
 
 
-def check_limbs(dev, record):
+def check_limbs(dev, record, smi):
     """K-LOOKUP-LIMB against its plain version at L = 1, 2, 3 (both read the
     same limbs), and at L = 1 timed beside K-LOOKUP on the float32 SDF."""
     from dgpmp2_tpu_torch.ops import sdf as sdf_ops
@@ -576,30 +860,29 @@ def check_limbs(dev, record):
     sdf = torch.tensor(rng.standard_normal((B, IMSIZE, IMSIZE)),
                        dtype=torch.float32, device=dev)
     p_t = torch.tensor(pts, dtype=torch.float32, device=dev)
-    tol_d, tol_g = LOOKUP_TOLS[0][1:]
     exact = sdf_ops.bilinear_lookup(sdf, p_t, res, LIMS, LIMS, "intended")
     for n_limbs in (3, 2, 1):
         limbs = sdf_ops.limb_split(sdf, n_limbs)
         args = (limbs, p_t, res, LIMS, LIMS)
         got = k.launch(*args)
         err = compare(f"K-LOOKUP-LIMB L={n_limbs}", got,
-                      sdf_ops.bilinear_lookup_limbs(*args), tol_d, tol_g)
-        rec = {}
-        kernel_ms(rec, lambda: k.launch(*args),
-                  lambda: sdf_ops.bilinear_lookup_limbs(*args))
+                      sdf_ops.bilinear_lookup_limbs(*args), *LIMB_TOLS)
         print(f"  L={n_limbs}: max abs err d against the exact float32 "
-              f"lookup {float((got[0] - exact[0]).abs().max()):.3e}; "
-              f"kernel {rec['ms']:.4f} ms (warm {rec['warm_ms']:.4f}), "
-              f"plain {rec['plain_ms']:.4f} ms")
-        if n_limbs == 1:
-            record.update(rec, max_abs_err=err)
-            record.update(lookup_bound(B * (T + 1), 2, 4, 2, torch.float32))
-    def exact_launch():
-        return k_exact.launch(sdf, p_t, res, LIMS, LIMS)
-
-    record["exact_ms"] = cuda_ms(exact_launch, flush=True)
-    record["exact_warm_ms"] = cuda_ms(exact_launch, inner=20)
-    record["split_ms"] = cuda_ms(lambda: sdf_ops.limb_split(sdf, 1))
+              f"lookup {float((got[0] - exact[0]).abs().max()):.3e}")
+    rec = record
+    kernel_ms(rec, lambda: k.launch(*args),
+              lambda: sdf_ops.bilinear_lookup_limbs(*args),
+              "sdf_lookup_limbs_kernel")
+    rec.update(lookup_bound(B * (T + 1), 2, 4, 2, torch.float32),
+               max_abs_err=err)
+    rec["exact_ms"] = device_ms(
+        lambda: k_exact.launch(sdf, p_t, res, LIMS, LIMS),
+        "sdf_lookup_kernel")
+    rec["split_ms"] = cuda_ms(lambda: sdf_ops.limb_split(sdf, 1))
+    print(f"[{smi}] K-LOOKUP-LIMB L=1 B={B} P={T + 1} on uniform random "
+          f"points: {times_line(rec)}; K-LOOKUP device-only "
+          f"{rec['exact_ms']:.4f} ms on the same points; limb split "
+          f"{rec['split_ms']:.4f} ms per call")
 
 
 def check_golden(dev):
@@ -896,6 +1179,18 @@ def constrained_problems(dev, bench_np):
                         q_max=[2.8] * 4)),
         joint_states(rng, B, 4, (-2.0, 0.0, 0.0, 0.0), 0.4),
         joint_states(rng, B, 4, (1.6, 0.0, 0.0, 0.0), 0.4), None, sdf)
+    # 5-link arm (D=10), as the 4-link one with links of 1.0, 0.9, 0.8, 0.6
+    # and 0.5 m, 20 GN iterations.
+    out["5-link arm"] = (
+        planner(arm_yamls,
+                {"type": "planar_arm",
+                 "link_lengths": [1.0, 0.9, 0.8, 0.6, 0.5],
+                 "spheres_per_link": 2, "sphere_radius": [0.25]},
+                pp=dict(dof=5, state_dim=10),
+                gp=dict(Q_c_inv=np.eye(5), q_min=[-2.8] * 5, q_max=[2.8] * 5),
+                opt=dict(max_iters=20)),
+        joint_states(rng, B, 5, (-2.0, 0.0, 0.0, 0.0, 0.0), 0.4),
+        joint_states(rng, B, 5, (1.6, 0.0, 0.0, 0.0, 0.0), 0.4), None, sdf)
     return out
 
 
@@ -1083,9 +1378,10 @@ def main():
     for name, rec in recs.items():
         rec.update(name=name, route="cuda")
     check_btd(dev, recs["btd_solve"], bench, smi)
-    check_lookup(dev, recs["sdf_lookup"])
-    check_lookup3d(dev, recs["sdf_lookup3d"])
-    check_limbs(dev, recs["sdf_lookup_limbs"])
+    check_lookup(dev, recs["sdf_lookup"], bench, smi)
+    check_lookup3d(dev, recs["sdf_lookup3d"], smi)
+    check_limbs(dev, recs["sdf_lookup_limbs"], smi)
+    check_path_lookups(dev)
     check_golden(dev)
     bench = main_path(dev, bench_np)
     bench3 = path3d(dev, smi)
@@ -1096,16 +1392,7 @@ def main():
         rec["launches"] = TOTALS[name]
     per_iter = timing(smi, bench, bench3, problems, ms_run)
     for rec in recs.values():
-        print(f"[{smi}] {rec['name']}: kernel {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms (L2 flushed); back to back kernel "
-              f"{rec['warm_ms']:.4f} ms, plain {rec['plain_warm_ms']:.4f} ms;"
-              f" bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), share "
-              f"of bound {rec['bound_ms'] / rec['ms']:.4f}")
-    limb = recs["sdf_lookup_limbs"]
-    print(f"[{smi}] K-LOOKUP-LIMB L=1 {limb['ms']:.4f} ms (warm "
-          f"{limb['warm_ms']:.4f}) beside K-LOOKUP {limb['exact_ms']:.4f} ms "
-          f"(warm {limb['exact_warm_ms']:.4f}) on the same points; limb "
-          f"split {limb['split_ms']:.4f} ms per call")
+        print(f"[{smi}] {rec['name']}: {times_line(rec)}")
     for key, ms in per_iter.items():
         print(f"[{smi}] gn_iter_ms_b1024{key} {ms:.4f}")
     print(json.dumps({"kernels": [

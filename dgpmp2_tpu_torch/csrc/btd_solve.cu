@@ -31,13 +31,14 @@
 // T dependent steps, each step a chain of D dependent pivots.
 //
 // What the design does about it:
-// - A lane group per problem.  G = 2, 4, 8, 8 lanes of one warp for D = 2, 4,
-//   6, 8; lane r owns row r of every D x D block and element r of every vector
+// - A lane group per problem.  G = 2, 4, 8, 8 and 16 lanes of one warp for
+//   D = 2, 4, 6, 8 and 10-16; lane r owns row r of every D x D block and element r of every vector
 //   (lanes r >= D, and the groups past the batch, carry identity rows and store
 //   nothing).  The D x D algebra runs across the group through
 //   __shfl_sync(..., width = G), which spreads one step's serial chain over D
-//   lanes and keeps a lane's state small: 34 values at D = 8 (a row of C_t,
-//   of [U_t | y_t], of X_{t-1} and a column of U_{t-1}), no spill in float64.
+//   lanes and keeps a lane's state small: 4 D + 2 values (a row of C_t, of
+//   [U_t | y_t], of X_{t-1} and a column of U_{t-1}), 34 at D = 8 and 66 at
+//   D = 16.
 // - Gauss-Jordan on the augmented rows [C_t | U_t y_t] in place of a Cholesky
 //   and two triangular solves: pivot j and row j are broadcast from lane j, the
 //   pivot's reciprocal is taken once (__frcp_rn / __drcp_rn, no divide and no
@@ -45,13 +46,16 @@
 //   dependent pivots, not 3 D, and leaves X_t and z_t in the RHS columns.
 // - The back sweep is one matvec per step: no triangular solve, no division.
 // - Fill the card: one warp per block, 32 / G problems per warp, so B = 1024 is
-//   128 blocks at D = 4 and 256 at D = 6, 8 over the 132 SMs.
+//   128 blocks at D = 4, 256 at D = 6, 8 and 512 at D = 10-16 over the 132
+//   SMs.
 // - Loads off the critical path: a ring of kStages steps in shared memory,
 //   filled by cp.async.  Lane r copies its row of diag[t] and off[t] as 8- or
 //   16-byte pieces, its columns of off[t] and diag[t] and rhs[t][r] (the back
 //   sweep: its row of X_t and z_t[r]) kStages - 1 steps ahead of the
 //   arithmetic, so no load waits behind the previous pivot.  Each lane reads
-//   back only what it copied itself, so the ring needs no barrier.
+//   back only what it copied itself, so the ring needs no barrier.  The ring
+//   stays in static shared memory (48 KB): in float64 at D = 12-16 it has 3
+//   or 2 stages in place of 4 (ring_stages).
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -60,10 +64,29 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kStages = 4;
+constexpr int kStaticSmem = 48 * 1024;  // bytes of static shared memory
 
 template <int D>
 __host__ __device__ constexpr int group_lanes() {
-  return D <= 2 ? 2 : D <= 4 ? 4 : 8;
+  return D <= 2 ? 2 : D <= 4 ? 4 : D <= 8 ? 8 : 16;
+}
+
+// Elements of one lane's slot of a ring stage: a row of diag, a row of off,
+// a column of off, a column of diag, an element of rhs (the back sweep: a
+// row of X_t, z_t[r]), each piece padded to 16 bytes.
+template <typename T, int D>
+__host__ __device__ constexpr int ring_slot() {
+  const int p = 16 / static_cast<int>(sizeof(T));
+  return 4 * ((D + p - 1) / p * p) + p;
+}
+
+// kStages, or as many stages as fit the static shared-memory limit (3 at
+// D = 12, 14 and 2 at D = 16 in float64).
+template <typename T, int D>
+__host__ __device__ constexpr int ring_stages() {
+  const int fit =
+      kStaticSmem / (kWarp * ring_slot<T, D>() * static_cast<int>(sizeof(T)));
+  return fit < kStages ? fit : kStages;
 }
 
 __device__ __forceinline__ float recip(float v) { return __frcp_rn(v); }
@@ -142,11 +165,10 @@ __global__ void __launch_bounds__(kWarp)
   constexpr int SZ = static_cast<int>(sizeof(T));
   constexpr int P = 16 / SZ;  // elements per 16 B
   constexpr int DP = (D + P - 1) / P * P;
-  // One lane's slot of a ring stage: a row of diag, a row of off, a column
-  // of off, a column of diag, an element of rhs (the back sweep: a row of
-  // X_t, z_t[r]).
-  constexpr int SLOT = 4 * DP + P;
-  __shared__ __align__(16) T ring[kStages][kWarp][SLOT];
+  constexpr int SLOT = ring_slot<T, D>();
+  constexpr int S = ring_stages<T, D>();
+  static_assert(SLOT == 4 * DP + P && S >= 2, "ring layout");
+  __shared__ __align__(16) T ring[S][kWarp][SLOT];
 
   const int lane = threadIdx.x;
   const int r = lane % G;
@@ -164,7 +186,7 @@ __global__ void __launch_bounds__(kWarp)
 
   auto prefetch_fwd = [&](int t) {
     if (valid && t < steps) {
-      T* s = ring[t % kStages][lane];
+      T* s = ring[t % S][lane];
       cp_row<T, D>(s, dg + static_cast<size_t>(t) * DD);
 #pragma unroll
       for (int k = 0; k < D; ++k)
@@ -183,7 +205,7 @@ __global__ void __launch_bounds__(kWarp)
   };
 
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) prefetch_fwd(s);
+  for (int s = 0; s < S - 1; ++s) prefetch_fwd(s);
 
   T xp[D];   // row r of X_{t-1}
   T ucp[D];  // column r of U_{t-1}
@@ -192,9 +214,9 @@ __global__ void __launch_bounds__(kWarp)
   for (int j = 0; j < D; ++j) xp[j] = ucp[j] = T(0);
 
   for (int t = 0; t < steps; ++t) {
-    prefetch_fwd(t + kStages - 1);
-    cp_wait<kStages - 1>();
-    const T* s = ring[t % kStages][lane];
+    prefetch_fwd(t + S - 1);
+    cp_wait<S - 1>();
+    const T* s = ring[t % S][lane];
     const bool has_next = t < steps - 1;
     T c[D], bm[D + 1];
 #pragma unroll
@@ -253,19 +275,19 @@ __global__ void __launch_bounds__(kWarp)
   auto prefetch_bwd = [&](int i) {  // i-th back step: t = nb - 1 - i
     if (valid && i < nb) {
       const size_t t = static_cast<size_t>(nb - 1 - i);
-      T* s = ring[i % kStages][lane];
+      T* s = ring[i % S][lane];
       cp_row<T, D>(s, gn + t * DD);
       cp_async<SZ>(s + DP, xb + t * D);
     }
     cp_commit();
   };
 #pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) prefetch_bwd(i);
+  for (int i = 0; i < S - 1; ++i) prefetch_bwd(i);
   T xn = zp;
   for (int i = 0; i < nb; ++i) {
-    prefetch_bwd(i + kStages - 1);
-    cp_wait<kStages - 1>();
-    const T* s = ring[i % kStages][lane];
+    prefetch_bwd(i + S - 1);
+    cp_wait<S - 1>();
+    const T* s = ring[i % S][lane];
     T acc0 = valid ? s[DP] : T(0), acc1 = T(0);
 #pragma unroll
     for (int k = 0; k < D; ++k) {
@@ -307,6 +329,18 @@ int launch(const T* diag, const T* off, const T* rhs, T* x, T* gain,
       break;
     case 8:
       launch_d<T, 8>(diag, off, rhs, x, gain, batch, steps, s);
+      break;
+    case 10:
+      launch_d<T, 10>(diag, off, rhs, x, gain, batch, steps, s);
+      break;
+    case 12:
+      launch_d<T, 12>(diag, off, rhs, x, gain, batch, steps, s);
+      break;
+    case 14:
+      launch_d<T, 14>(diag, off, rhs, x, gain, batch, steps, s);
+      break;
+    case 16:
+      launch_d<T, 16>(diag, off, rhs, x, gain, batch, steps, s);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

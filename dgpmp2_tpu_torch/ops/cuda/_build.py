@@ -36,14 +36,11 @@ _F = ctypes.c_double
 _SIGNATURES = {
     "dgpmp2_btd_solve_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "dgpmp2_btd_solve_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dgpmp2_sdf_lookup_f32": [_P, _P, _P, _P, _I, _I, _I, _I,
-                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
-    "dgpmp2_sdf_lookup_f64": [_P, _P, _P, _P, _I, _I, _I, _I,
-                              _F, _F, _F, _F, _F, _F, _F, _F, _I, _P],
-    "dgpmp2_sdf_lookup3d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                *[_F] * 11, _I, _P],
-    "dgpmp2_sdf_lookup3d_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                *[_F] * 11, _I, _P],
+    # (plan, sdf, points, out, stream); plan: ops/cuda/_tiles.LookupPlan.
+    "dgpmp2_sdf_lookup_f32": [_P] * 5,
+    "dgpmp2_sdf_lookup_f64": [_P] * 5,
+    "dgpmp2_sdf_lookup3d_f32": [_P] * 5,
+    "dgpmp2_sdf_lookup3d_f64": [_P] * 5,
     "dgpmp2_sdf_lookup_limbs": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 *[_F] * 8, _P],
 }

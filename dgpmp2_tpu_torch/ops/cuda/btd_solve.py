@@ -14,7 +14,7 @@ import torch
 from dgpmp2_tpu_torch.ops import tridiag
 from dgpmp2_tpu_torch.ops.cuda import _build
 
-SUPPORTED_D = (2, 4, 6, 8)
+SUPPORTED_D = (2, 4, 6, 8, 10, 12, 14, 16)
 launches = 0
 
 

@@ -12,56 +12,25 @@ from __future__ import annotations
 import torch
 
 from dgpmp2_tpu_torch.ops import sdf as sdf_ops
-from dgpmp2_tpu_torch.ops.cuda import _build
+from dgpmp2_tpu_torch.ops.cuda import _tiles
 
 launches = 0
 
 
 def launch(sdf: torch.Tensor, points: torch.Tensor, res: float, x_lims,
            y_lims, z_lims, oob_mode: str = "intended"):
-    """One kernel launch: ``(d (B, P), grad (B, P, 3))`` on the current stream.
+    """One kernel launch: ``(d (B, P), grad (B, P, 3))`` on the current stream,
+    two views of one buffer.
 
     sdf (B, D, H, W) and points (B, P, 3): contiguous CUDA tensors of one
     dtype, float32 or float64.
     """
     global launches
-    _check(sdf, points)
-    if oob_mode not in sdf_ops.OOB_MODES:
-        raise ValueError(oob_mode)
-    b, nz, h, w = sdf.shape
-    p = points.shape[1]
-    lib = _build.library()
-    fn = (lib.dgpmp2_sdf_lookup3d_f32 if sdf.dtype == torch.float32
-          else lib.dgpmp2_sdf_lookup3d_f64)
-    d = torch.empty((b, p), dtype=sdf.dtype, device=sdf.device)
-    grad = torch.empty((b, p, 3), dtype=sdf.dtype, device=sdf.device)
-    with torch.cuda.device(sdf.device):
-        stream = torch.cuda.current_stream(sdf.device).cuda_stream
-        rc = fn(sdf.data_ptr(), points.data_ptr(), d.data_ptr(),
-                grad.data_ptr(), b, p, nz, h, w, res, -x_lims[0] / res,
-                -y_lims[0] / res, -z_lims[0] / res, x_lims[0], x_lims[1],
-                y_lims[0], y_lims[1], z_lims[0], z_lims[1],
-                x_lims[1] - x_lims[0], int(oob_mode == "reference"), stream)
-    _build.check(rc, "sdf_lookup3d kernel")
+    out = _tiles.launch("sdf_lookup3d", sdf, points, res,
+                        (tuple(x_lims), tuple(y_lims), tuple(z_lims)),
+                        oob_mode)
     launches += 1
-    return d, grad
-
-
-def _check(sdf, points):
-    if sdf.ndim != 4 or points.ndim != 3 or points.shape[-1] != 3:
-        raise ValueError(
-            "sdf_lookup3d kernel takes sdf (B, D, H, W) and points (B, P, 3); "
-            f"got {tuple(sdf.shape)} and {tuple(points.shape)}"
-        )
-    if points.shape[0] != sdf.shape[0]:
-        raise ValueError(f"batch mismatch: sdf {tuple(sdf.shape)}, points {tuple(points.shape)}")
-    for name, a in (("sdf", sdf), ("points", points)):
-        if a.device.type != "cuda" or a.device != sdf.device:
-            raise ValueError(f"sdf_lookup3d kernel needs CUDA tensors on one device; {name} is on {a.device}")
-        if a.dtype not in (torch.float32, torch.float64) or a.dtype != sdf.dtype:
-            raise ValueError(f"sdf_lookup3d kernel needs float32 or float64 of one dtype; {name} is {a.dtype}")
-        if not a.is_contiguous():
-            raise ValueError(f"sdf_lookup3d kernel needs contiguous inputs; {name} is not")
+    return out
 
 
 class _Lookup3DKernel(torch.autograd.Function):
@@ -93,7 +62,12 @@ class _Lookup3DKernel(torch.autograd.Function):
 def trilinear_lookup_cuda(sdf: torch.Tensor, points: torch.Tensor,
                           res: float, x_lims, y_lims, z_lims,
                           oob_mode: str = "intended"):
-    """Differentiable K-LOOKUP3D of CUDA tensors (see :func:`launch`)."""
-    return _Lookup3DKernel.apply(sdf.contiguous(), points.contiguous(), res,
-                                 tuple(x_lims), tuple(y_lims), tuple(z_lims),
-                                 oob_mode)
+    """Differentiable K-LOOKUP3D of CUDA tensors (see :func:`launch`); a
+    view that is not contiguous is copied.  With no gradient to record, one
+    launch and nothing else."""
+    sdf, points = sdf.contiguous(), points.contiguous()
+    if torch.is_grad_enabled() and (sdf.requires_grad
+                                    or points.requires_grad):
+        return _Lookup3DKernel.apply(sdf, points, res, tuple(x_lims),
+                                     tuple(y_lims), tuple(z_lims), oob_mode)
+    return launch(sdf, points, res, x_lims, y_lims, z_lims, oob_mode)

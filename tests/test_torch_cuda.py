@@ -412,8 +412,138 @@ def test_a_four_link_arm_on_the_card_matches_cpu(dev):
         out[1].abs().max())
 
 
-def test_btd_kernel_refuses_d_10(dev):
-    """D above 8 raises on the card, naming the supported set."""
-    x = torch.zeros((2, 5, 10, 10), device=dev)
-    with pytest.raises(ValueError, match=r"D in \(2, 4, 6, 8\); got D=10"):
+@pytest.mark.parametrize("d", [10, 16])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+def test_btd_kernel_at_d_10_and_16_matches_plain(dev, d, dtype, tol):
+    """Arms of 5 and 8 links: 16 lanes per problem; in float64 at D=16 a
+    2-stage ring."""
+    for b, t in ((33, 21), (3, 1), (5, 2), (1000, 41)):
+        diag, off, rhs = _spd(np.random.default_rng(d + t), b, t, d, dtype,
+                              dev)
+        x_k = k_btd.launch(diag, off, rhs)
+        x_p = tridiag.btd_solve(diag, off, rhs)
+        assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= tol
+
+
+def test_btd_kernel_refuses_d_18(dev):
+    """D above 16 raises on the card, naming the supported set."""
+    x = torch.zeros((2, 5, 18, 18), device=dev)
+    with pytest.raises(ValueError, match=r"D in \(2, 4, 6, 8, 10, 12, 14, "
+                                         r"16\); got D=18"):
         tridiag.btd_solve_auto(x, x[:, 1:].contiguous(), x[..., 0])
+
+
+# Shapes that exercise the lookup kernels' tiles of 128 points: B·P below
+# one tile, exactly one, a ragged tail, P = 1, B = 1, P = 401, and the
+# paths' shapes of more than one wave of blocks (the 2-link arm, GP
+# interpolation, the multistart pool).
+TILE_SHAPES = [(1, 50), (2, 64), (3, 101), (1024, 1), (1, 1), (7, 401),
+               (1024, 246), (1024, 401), (4096, 101)]
+
+
+def _tile_case(ndim, b, p, dtype, dev, seed):
+    """(sdf, points, res, lims) with points inside, outside and far outside
+    the grid (a 16 x 12 x 20 voxel grid at res 0.5 spans z 8 m, y 6 m,
+    x 10 m)."""
+    rng = np.random.default_rng(seed)
+    grid, res, lims = (((32, 32), 10 / 32, (LIMS, LIMS)) if ndim == 2 else
+                       ((16, 12, 20), 0.5, (LIMS, (-3.0, 3.0), (-4.0, 4.0))))
+    pts = rng.uniform(-4.9, 4.9, (b, p, ndim))
+    pts[:, ::7] = rng.uniform(-7.0, 7.0, (b, len(range(0, p, 7)), ndim))
+    pts[0, -1] = 1e10
+    return (torch.tensor(rng.standard_normal((b, *grid)), dtype=dtype,
+                         device=dev),
+            torch.tensor(pts, dtype=dtype, device=dev), res, lims)
+
+
+@pytest.mark.parametrize("b,p", TILE_SHAPES)
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_lookup_kernels_are_bit_equal_to_plain_at_tile_edges(dev, b, p, ndim,
+                                                             dtype):
+    k, plain = ((k_lookup, tsdf.bilinear_lookup) if ndim == 2
+                else (k_lookup3d, tsdf.trilinear_lookup))
+    sdf, pts, res, lims = _tile_case(ndim, b, p, dtype, dev, b * p + ndim)
+    for mode in tsdf.OOB_MODES:
+        n = k.launches
+        d_k, g_k = k.launch(sdf, pts, res, *lims, mode)
+        assert k.launches - n == 1
+        d_p, g_p = plain(sdf, pts, res, *lims, mode)
+        assert torch.equal(d_k, d_p) and torch.equal(g_k, g_p)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_lookup_kernels_take_a_view_off_the_16_byte_grid(dev, ndim):
+    """Points that start off the 16-byte grid: the differentiable entry and
+    ``launch`` both take them, bit-equal to plain."""
+    k, entry, plain = ((k_lookup, k_lookup.bilinear_lookup_cuda,
+                        tsdf.bilinear_lookup) if ndim == 2 else
+                       (k_lookup3d, k_lookup3d.trilinear_lookup_cuda,
+                        tsdf.trilinear_lookup))
+    sdf, pts, res, lims = _tile_case(ndim, 3, 101, torch.float32, dev, 12)
+    flat = torch.cat([pts.new_zeros(1), pts.reshape(-1)])
+    odd = flat[1:].view_as(pts)
+    assert odd.data_ptr() % 16
+    d_k, g_k = entry(sdf, odd, res, *lims, "intended")
+    d_p, g_p = plain(sdf, pts, res, *lims, "intended")
+    assert torch.equal(d_k, d_p) and torch.equal(g_k, g_p)
+    d_k, g_k = k.launch(sdf, odd, res, *lims, "intended")
+    assert torch.equal(d_k, d_p) and torch.equal(g_k, g_p)
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_lookup_kernel_outputs_are_views_of_one_buffer(dev, ndim):
+    k = k_lookup if ndim == 2 else k_lookup3d
+    sdf, pts, res, lims = _tile_case(ndim, 5, 77, torch.float32, dev, 13)
+    d, g = k.launch(sdf, pts, res, *lims, "intended")
+    assert d.shape == (5, 77) and d.stride() == (77, 1)
+    assert g.shape == (5, 77, ndim) and g.stride() == (77 * ndim, ndim, 1)
+    assert d.untyped_storage().data_ptr() == g.untyped_storage().data_ptr()
+    assert g.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("which", ["2d", "3d"])
+def test_lookup_launches_equal_the_plan_iterations(dev, which):
+    """One lookup launch per GN iteration plus the initial one."""
+    import chip_smoke
+
+    if which == "2d":
+        imgs, start, goal = chip_smoke.bench_inputs(8)
+        k = k_lookup
+    else:
+        g = np.load(chip_smoke.GOLDEN3D)
+        imgs, start, goal = g["images"], g["start"], g["goal"]
+        k = k_lookup3d
+    bench = chip_smoke.port_problem(imgs, start, goal, dev, torch.float32)
+    n_b, n_l = k_btd.launches, k.launches
+    gn.plan(*bench, gn.OptimConfig(reg=0.1, max_iters=7, tol_delta=0.0))
+    assert (k_btd.launches - n_b, k.launches - n_l) == (7, 8)
+
+
+def test_a_five_link_arm_on_the_card_matches_cpu(dev):
+    """A 5-link arm (D=10): one float64 GN step on the card (one K-BTD
+    launch) against the CPU plain path, 1e-9 relative."""
+    from dgpmp2_tpu_torch.core import graph
+    from dgpmp2_tpu_torch.robots import PlanarArmNLink
+
+    arm = PlanarArmNLink(link_lengths=(1.0, 0.9, 0.8, 0.6, 0.5))
+    spec = graph.GraphSpec(dof=5, state_dim=10, total_time_step=10,
+                           nlinks=arm.nlinks)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        start = torch.zeros((2, 10), dtype=torch.float64, device=where)
+        params = graph.default_params(spec, arm, start, start + 0.5,
+                                      qc_inv=np.eye(5), cost_sigma=0.1,
+                                      epsilon_dist=0.2, k_s=0.01, k_g=0.01,
+                                      dtype=torch.float64)
+        th = torch.linspace(0.0, 0.5, 11, dtype=torch.float64,
+                            device=where)[None, :, None].expand(2, 11, 10)
+        sdf = torch.tensor(np.random.default_rng(10).uniform(
+            -0.5, 2.0, (2, 16, 16)), dtype=torch.float64, device=where)
+        n = k_btd.launches
+        out.append(gn.gn_step(spec, arm, params, th.contiguous(), sdf,
+                              0.1).cpu())
+        assert k_btd.launches - n == (where == dev)
+    assert float((out[0] - out[1]).abs().max()) <= 1e-9 * float(
+        out[1].abs().max())

@@ -109,6 +109,38 @@ def test_plan_from_the_yamls_matches_jax(kind):
     np.testing.assert_array_equal(np_(got.iters), np_(want.iters))
 
 
+def test_a_five_link_arm_plan_matches_jax():
+    """A 5-link arm (D=10, the smallest robot past D=8) from the arm
+    YAMLs' weights: five GN iterations, 1e-8."""
+    pp, gp, obs, opt, _, lims = yaml_setup("arm")
+    rd = {"type": "planar_arm", "link_lengths": [1.0, 0.9, 0.8, 0.6, 0.5],
+          "spheres_per_link": 2, "sphere_radius": [0.25]}
+    pp = dict(pp, dof=5, state_dim=10)
+    gp = dict(gp, Q_c_inv=np.eye(5), q_min=[-2.8] * 5, q_max=[2.8] * 5)
+    opt = dict(opt, max_iters=5)
+    planner = DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(rd),
+                               dtype=F64, device="cpu")
+    j_planner = JPlanner(gp, obs, pp, opt, lims, j_make_robot(rd),
+                         dtype=jnp.float64)
+    assert planner.spec.state_dim == 10 and planner.robot.nlinks == 10
+    _, _, _, sdf = problem("arm")
+    rng = np.random.default_rng(5)
+    start, goal = np.zeros((B, 10)), np.zeros((B, 10))
+    start[:, :5] = rng.uniform(-0.4, 0.4, (B, 5)) + (-2.0, 0, 0, 0, 0)
+    goal[:, :5] = rng.uniform(-0.4, 0.4, (B, 5)) + (1.6, 0, 0, 0, 0)
+    alpha = np.linspace(0.0, 1.0, T + 1)[None, :, None]
+    pos = start[:, None, :5] * (1 - alpha) + goal[:, None, :5] * alpha
+    vel = np.broadcast_to(((goal - start)[:, :5] / 10.0)[:, None], pos.shape)
+    args = (np.concatenate([pos, vel], -1), start, goal, sdf)
+    got, want = planner.plan(*args), j_planner.plan(*args)
+    for name in ("th", "err_init", "err_final", "err_per_iter"):
+        np.testing.assert_allclose(np_(getattr(got, name)),
+                                   np_(getattr(want, name)), rtol=1e-8,
+                                   atol=1e-8, err_msg=name)
+    np.testing.assert_array_equal(np_(got.iters), np_(want.iters))
+    assert float(np_(got.err_final).mean()) < float(np_(got.err_init).mean())
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_step_and_error_functionals_match_jax(kind):
     planner, j_planner = planners(kind)

@@ -29,7 +29,7 @@ def spd_system(seed, b=3, t=12, d=4):
     return diag, off, rhs
 
 
-@pytest.mark.parametrize("d", [2, 4, 6, 8])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 16])
 def test_btd_solve_matches_jax_f64(d):
     diag, off, rhs = spd_system(0, d=d)
     x_t = tt.btd_solve(*(torch.tensor(a) for a in (diag, off, rhs)))
@@ -56,7 +56,7 @@ def test_btd_solve_f32_matches_pallas_interpret():
     assert _rel(x_t, btd_solve_stream(*args, interpret=True, chunk=4)) < 1e-4
 
 
-@pytest.mark.parametrize("d", [2, 4, 6, 8])
+@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 16])
 def test_btd_solve_vjp_matches_jax_f64(d):
     """The implicit adjoint (diag, off and rhs cotangents): 1e-9."""
     diag, off, rhs = spd_system(2, d=d)

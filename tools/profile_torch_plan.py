@@ -2,21 +2,22 @@
 """Where the time of one GN iteration of the PyTorch port goes, on a GPU.
 
     python3 tools/profile_torch_plan.py [--iters 20] [--out build/profile]
-        [--problem 2d|3d|arm2|xyh|task|gp_inter|arm4]
+        [--problem 2d|3d|arm2|xyh|task|gp_inter|arm4|arm5]
 
 At one of ``chip_smoke.py``'s B=1024 float32 problems: the 2-D bench problem
 (default; T=100, 128x128), the 3-D one (PointRobot3D, 64^3 voxels), the
 2-link arm (T=40, self-collision, joint limits), the heading robot (D=6,
 nonholonomic), the task-space 3-link arm (workspace goal, LM), the bench
-problem with GP interpolation and velocity limits, or the 4-link arm (D=8,
-T=40):
+problem with GP interpolation and velocity limits, the 4-link arm (D=8,
+T=40) or the 5-link arm (D=10, T=40):
 
 * each layer of one iteration timed alone with CUDA events (median of 20):
   residuals with the lookup, assembly, damping, the solve, and the
   error/freeze bookkeeping;
 * ``torch.profiler`` over an ``--iters`` plan: device time by kernel, the
-  number of kernel launches per iteration, and the device's busy share of
-  the wall time.  The Chrome trace goes to ``--out``.
+  number of kernel launches per iteration, the device's busy share of the
+  wall time, and each of the port's kernels' device µs per launch in the
+  loop.  The Chrome trace goes to ``--out``.
 
 Needs a CUDA device; imports no JAX.
 """
@@ -26,7 +27,6 @@ import argparse
 import dataclasses
 import os
 import sys
-import time
 from pathlib import Path
 
 import torch
@@ -77,7 +77,7 @@ def layer_times(bench, reg=0.1):
 CONSTRAINED = {"arm2": "2-link arm", "xyh": "heading robot",
                "task": "task-space 3-link arm",
                "gp_inter": "GP interpolation + velocity limits",
-               "arm4": "4-link arm"}
+               "arm4": "4-link arm", "arm5": "5-link arm"}
 
 
 def main():
@@ -100,37 +100,25 @@ def main():
         inputs = (cs.bench3d_inputs(cs.B, dev) if args.problem == "3d"
                   else cs.bench_inputs(cs.B))
         bench = cs.port_problem(*inputs, dev, torch.float32)
-    spec, robot, params, th0, sdf = bench
 
     print(f"[{smi}] layer times, ms (median of 20, one layer alone):")
     for k, v in layer_times(bench).items():
         print(f"  {k:18s} {v:.4f}")
 
-    gn.plan(spec, robot, params, th0, sdf, cfg)  # warm-up
-    torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        gn.plan(spec, robot, params, th0, sdf, cfg)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # Kernel rows only: an op's row repeats the device time of its kernels.
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kernels)
-    n_kernels = sum(e.count for e in kernels)
+    prof, rec = cs.profile_plan(bench, cfg)
     print(f"[{smi}] profiled plan of {args.iters} iterations: wall "
-          f"{wall_ms:.3f} ms, device busy {dev_us / 1e3:.3f} ms "
-          f"({dev_us / 1e3 / wall_ms:.3f} of wall), {n_kernels} device "
-          f"operations ({n_kernels / args.iters:.1f} per iteration)")
-    btd = [e for e in kernels if "btd_solve_kernel" in e.key]
-    btd_us = sum(e.self_device_time_total for e in btd)
-    btd_n = sum(e.count for e in btd)
-    print(f"[{smi}] K-BTD: {btd_n} launches, {btd_us / 1e3 / max(btd_n, 1):.4f}"
-          f" ms per launch, {btd_us / max(dev_us, 1e-9):.3f} of device time")
+          f"{rec['wall_ms']:.3f} ms, device busy {rec['busy_ms']:.3f} ms "
+          f"({rec['busy_ms'] / rec['wall_ms']:.3f} of wall), {rec['ops']} "
+          f"device operations ({rec['ops'] / args.iters:.1f} per iteration)")
+    for label, name in (("K-BTD", "btd_solve"), ("K-LOOKUP", "sdf_lookup"),
+                        ("K-LOOKUP3D", "sdf_lookup3d"),
+                        ("K-LOOKUP-LIMB", "sdf_lookup_limbs")):
+        if name in rec:
+            k = rec[name]
+            print(f"[{smi}] {label}: {k['launches']} launches, {k['us']:.2f} "
+                  f"µs device time per launch, {k['share']:.3f} of device "
+                  f"time")
+    events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(args.out,

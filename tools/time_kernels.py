@@ -1,0 +1,153 @@
+#!/usr/bin/env python3
+"""Device-only times of the port's four CUDA kernels at the main paths'
+shapes and access patterns, on a GPU, for one checkout's kernels, so that
+an earlier commit and this one can be timed in turns in one run.
+
+    python3 tools/time_kernels.py [--repo DIR] [--label NAME] [--gn]
+        [--out build/time_kernels]
+
+The kernels come from the ``dgpmp2_tpu_torch`` package under ``--repo``
+(default: this checkout; for an earlier commit, unpack it with ``git
+archive <rev> dgpmp2_tpu_torch | tar -x -C DIR``).  Problems and timing
+helpers come from this checkout's ``chip_smoke.py``: each lookup is timed
+on the lookup a path makes (``chip_smoke.path_lookups``), K-BTD at
+``chip_smoke.BTD_TIMED``, K-LOOKUP-LIMB at L=1; each record holds
+``chip_smoke.kernel_ms``'s times (device-only, CUDA graph, host-inclusive
+events, host µs per ``launch()``), the host µs per ``ops.sdf.lookup_nd``
+call for the lookups, and the bound.  ``--gn`` adds ms per GN iteration
+of the 2-D, 3-D, 2- and 4-link arm and heading-robot plans
+(``chip_smoke.plan_ms``) and a profiled 20-iteration plan of each
+(``chip_smoke.profile_plan``).  Prints one line per record with the
+card's name and power limit and writes ``time_kernels_<label>.json`` under
+``--out``.  Imports no JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def load_chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["chip_smoke"] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def timed(cs, smi, records, rec, launch, kernel, entry=None):
+    cs.kernel_ms(rec, launch, None, kernel)
+    if entry is not None:
+        rec["entry_host_us"] = cs.host_us(entry)
+    records.append(rec)
+    print(f"[{smi}] {kernel} {rec['shape']} "
+          f"{json.dumps({k: v for k, v in rec.items() if k != 'shape'})}",
+          flush=True)
+
+
+def time_kernels(cs, dev, smi):
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+    from dgpmp2_tpu_torch.ops.cuda import (btd_solve, sdf_lookup,
+                                           sdf_lookup3d, sdf_lookup_limbs)
+
+    records = []
+    for name, args in cs.path_lookups(dev).items():
+        sdf, points = args[:2]
+        ndim = points.shape[-1]
+        k, kernel = ((sdf_lookup, "sdf_lookup_kernel") if ndim == 2
+                     else (sdf_lookup3d, "sdf_lookup3d_kernel"))
+        rec = {"shape": name, "B": points.shape[0], "P": points.shape[1],
+               "dtype": str(sdf.dtype), "grid": list(sdf.shape[1:]),
+               **cs.lookup_bound(points.shape[0] * points.shape[1], ndim,
+                                 2 ** ndim, sdf.element_size(), sdf.dtype)}
+        timed(cs, smi, records, rec,
+              lambda k=k, args=args: k.launch(*args, "intended"), kernel,
+              lambda args=args: sdf_ops.lookup_nd(*args))
+    rng = np.random.default_rng(1)
+    for label, b, t, d, dtype in cs.BTD_TIMED:
+        diag, off, rhs = cs.spd_system(rng, b, t, d, dtype, dev)
+        bound_ms, bound_by = cs.btd_bound(b, t, d, dtype)
+        rec = {"shape": label, "B": b, "T": t, "D": d, "dtype": str(dtype),
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        timed(cs, smi, records, rec,
+              lambda a=(diag, off, rhs): btd_solve.launch(*a),
+              "btd_solve_kernel")
+    sdf = torch.tensor(rng.standard_normal((cs.B, cs.IMSIZE, cs.IMSIZE)),
+                       dtype=torch.float32, device=dev)
+    pts = torch.tensor(cs.lookup_points(rng, cs.T + 1, 2),
+                       dtype=torch.float32, device=dev)
+    limbs = sdf_ops.limb_split(sdf, 1)
+    rec = {"shape": "L=1 uniform random points", "B": cs.B, "P": cs.T + 1,
+           "dtype": "torch.float32",
+           **cs.lookup_bound(cs.B * (cs.T + 1), 2, 4, 2, torch.float32)}
+    timed(cs, smi, records, rec,
+          lambda: sdf_lookup_limbs.launch(limbs, pts, 10.0 / cs.IMSIZE,
+                                          cs.LIMS, cs.LIMS),
+          "sdf_lookup_limbs_kernel")
+    return records
+
+
+def time_gn(cs, dev, smi):
+    """ms per GN iteration of five paths (``chip_smoke.plan_ms``), and a
+    profiled 20-iteration plan of each (``chip_smoke.profile_plan``)."""
+    from dgpmp2_tpu_torch.core import gn
+
+    bench_np = cs.bench_inputs(cs.B)
+    constrained = cs.constrained_problems(dev, bench_np)
+    problems = {
+        "": lambda: cs.port_problem(*bench_np, dev, torch.float32),
+        "_3d": lambda: cs.port_problem(*cs.bench3d_inputs(cs.B, dev), dev,
+                                       torch.float32),
+        "_arm2": lambda: cs.problem_of(*constrained["2-link arm"]),
+        "_xyh": lambda: cs.problem_of(*constrained["heading robot"]),
+        "_arm4": lambda: cs.problem_of(*constrained["4-link arm"]),
+    }
+    cfg = gn.OptimConfig(reg=0.1, max_iters=20, tol_delta=0.0)
+    out, prof = {}, {}
+    for key, make in problems.items():
+        bench = make()
+        t50, t200, out[key] = cs.plan_ms(bench)
+        prof[key] = cs.profile_plan(bench, cfg)[1]
+        print(f"[{smi}] gn_iter_ms_b1024{key} {out[key]:.4f} (50 iterations "
+              f"{t50:.3f} ms, 200 iterations {t200:.3f} ms); profiled 20 "
+              f"iterations {json.dumps(prof[key])}", flush=True)
+        del bench
+    return out, prof
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--repo", default=str(ROOT))
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--gn", action="store_true")
+    ap.add_argument("--out", default=str(ROOT / "build" / "time_kernels"))
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.repo).resolve()))
+    cs = load_chip_smoke()
+    smi = cs.device_info()
+    dev = torch.device("cuda", 0)
+    from dgpmp2_tpu_torch.ops.cuda import _build
+
+    print(f"kernels from {Path(_build.__file__).resolve().parents[2]}")
+    _build.library()
+    result = {"label": args.label, "card": smi,
+              "kernels": time_kernels(cs, dev, smi)}
+    if args.gn:
+        result["gn_iter_ms"], result["gn_profile"] = time_gn(cs, dev, smi)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / f"time_kernels_{args.label}.json").write_text(
+        json.dumps(result, indent=1))
+
+
+if __name__ == "__main__":
+    main()
