@@ -6,24 +6,30 @@
 Phases, in order; any failed check raises, so the exit code is non-zero:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build the four CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc;
+2. build the four CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc,
+   printing every kernel's registers and spills (34 K-BTD instances: D = 1
+   to 16 and the wide kernel of D = 17-32, in two dtypes);
 3. each kernel against its plain PyTorch version on the card, at the main
-   paths' shapes: K-BTD at D = 2, 4, 6, 8 (B=1024, T=101) and 10, 12, 14,
-   16 (B=1024, T=41) in float32 and float64 on random SPD systems and at
-   the edge shapes B in {1, 1000, 4096} x T in {1, 2, 41}, then on the bench
+   paths' shapes: K-BTD at every D from 1 to 32 (B=1024; T=101 up to D=8,
+   T=41 above) in float32 and float64 on random SPD systems and at the
+   edge shapes B in {1, 1000, 4096} x T in {1, 2, 41}, then on the bench
    problem's own system, then timed at the paths' shapes (2-D, 3-D,
    multistart pool, plan_batch, 4-link arm) beside its bound and
-   ``torch.linalg.solve`` on the dense Λ; K-LOOKUP (B=1024, P=101, 128x128,
-   far out-of-grid points too) and K-LOOKUP3D (B=1024, 64^3 voxels, P=101)
-   bit-equal in both dtypes and OOB modes, also at edge shapes of their
-   128-point tiles, at the paths' shapes of more than one wave of blocks
-   (P = 246, 401, the B=4096 multistart pool), on the points each path's
-   residuals hand to the lookup, and on a view off the 16-byte grid;
-   K-LOOKUP timed on the bench plan's own points; K-LOOKUP-LIMB at B=1024,
-   128x128, P=101, L=1..3.  Every kernel's ``ms`` is its device-only time
-   (``torch.profiler``, L2 flushed), beside a CUDA-graph replay, CUDA
-   events around one call (host-inclusive), the host µs per ``launch()``
-   call, its bound and its plain version;
+   ``torch.linalg.solve`` on the dense Λ, and at D = 18 and 32 (B=1024,
+   T=41, both dtypes) beside its bound and plain version; K-LOOKUP
+   (B=1024, P=101, 128x128, far out-of-grid points too) and K-LOOKUP3D
+   (B=1024, 64^3 voxels, P=101) bit-equal in both dtypes and OOB modes,
+   also at edge shapes of their 128-point tiles, at the paths' shapes of
+   more than one wave of blocks (P = 246, 401, the B=4096 multistart pool),
+   on the points each path's residuals hand to the lookup, and on a view
+   off the 16-byte grid; K-LOOKUP timed on the bench plan's own points;
+   K-LOOKUP-LIMB bit-equal at L = 1, 2, 3 on the 2-D bench plan's points,
+   uniform random points, the 2-link arm's P=246 and the B=4096 pool, and
+   at the tile edges, timed at L=1 on the bench plan's points beside the
+   split of the SDF into its packed limbs (once per plan).  Every kernel's
+   ``ms`` is its device-only time (``torch.profiler``, L2 flushed), beside
+   a CUDA-graph replay, CUDA events around one call (host-inclusive), the
+   host µs per ``launch()`` call, its bound and its plain version;
 4. float64 plans on the small goldens that the JAX package wrote
    (``tests/goldens/torch_port_plan_small.npz``, ``..._plan3d_small.npz``,
    and ``..._plan_ext_small.npz``: the 2-link arm, the task-space 3-link
@@ -34,26 +40,27 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
    on the card, through ``DiffGPMP2Planner.plan`` (3-D YAMLs) and
    ``core.gn.plan``, and K-BTD on its first-iteration system at D=6;
 7. the 2-D lookup engines: the bench problem under
-   ``set_lookup_method("pallas_v3_1")`` (K-LOOKUP-LIMB) and ``"pallas"``
-   (K-LOOKUP);
+   ``set_lookup_method("pallas_v3_1")`` (K-LOOKUP-LIMB: one split of the
+   SDF, one launch per lookup) and ``"pallas"`` (K-LOOKUP);
 8. the constrained robots at B=1024 in float32 through
    ``DiffGPMP2Planner`` built from the YAMLs: the 2-link arm (self-collision,
    joint limits), the heading robot (nonholonomic, D=6), the task-space
    3-link arm (workspace goal, self-collision, joint limits, D=6), the
    bench problem with GP interpolation and velocity limits, the 4-link arm
-   (D=8) and the 5-link arm (D=10, 20 iterations); then
+   (D=8), the 5-link arm (D=10, 20 iterations) and the 9-link arm (D=18,
+   20 LM iterations, every problem improved); then
    ``GPMP2Planner.plan_batch`` (LM, float64) on B=256 bench problems;
 9. multistart: the ``benchmarks/bench_multistart.py`` problem (B=256, K=16)
    through ``GPMP2Planner.plan_multistart``, full pool and staged, for four
    seeds of the perturbation draws;
-10. timing with CUDA events: ms per GN iteration in 2-D, 3-D, for the
-    2- and 4-link arms and the heading robot, ms per multistart batch, and
-    each kernel's times from phase 3.
+10. timing with CUDA events: ms per GN iteration in 2-D (also under
+    ``pallas_v3_1``), 3-D, for the 2- and 4-link arms and the heading
+    robot, ms per multistart batch, and each kernel's times from phase 3.
 
 Every time printed carries the card's name and power limit.
 
-Every path phase sets all kernel launch counters to 0 just before it and
-reads them just after.  The last two lines are JSON: the kernels' record
+Every path phase sets all kernel launch counters, and K-LOOKUP-LIMB's
+count of SDF splits, to 0 just before it and reads them just after.  The last two lines are JSON: the kernels' record
 (launches summed over the paths, times, bounds, library times), then the
 device record.  Imports no JAX.
 """
@@ -80,8 +87,11 @@ LIMS = (-5.0, 5.0)
 KERNELS = ("btd_solve", "sdf_lookup", "sdf_lookup3d", "sdf_lookup_limbs")
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def device_info() -> str:
@@ -111,17 +121,19 @@ def build():
     for name, regs, spill_st, spill_ld, smem in rows:
         print(f"ptxas {kernel_name(name)}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B, shared {smem} B")
+    # Each D of the narrow kernel and the wide kernel, in two dtypes.
+    want = 2 * (BTD_NARROW + 1)
     n_btd = sum("btd_solve_kernel" in r[0] for r in rows)
-    if n_btd != 2 * len(BTD_D):
+    if n_btd != want:
         raise AssertionError(f"ptxas reported {n_btd} K-BTD kernels, not "
-                             f"{2 * len(BTD_D)}")
+                             f"{want}")
 
 
 def kernel_name(mangled):
     """``btd_solve_kernel<float, 4>``-style name of a mangled kernel."""
     for m in re.finditer(r"(?=(\d+)([a-z_]\w*))", mangled):
         n, ident = int(m[1]), m[2][:int(m[1])]
-        if len(ident) == n and ident.endswith("_kernel"):
+        if len(ident) == n and "_kernel" in ident:
             args = re.match(r"I(.*?)E", m[2][n:])
             if not args:
                 return ident
@@ -434,16 +446,27 @@ def golden_ext_plan(dev, case, g):
 
 
 def spd_system(rng, b, t, d, dtype, dev):
-    """Block-diagonally dominant SPD system: off blocks N(0, 0.3²), diag
-    G Gᵀ/10 + 4I, so every Schur pivot stays far from singular."""
-    g = rng.standard_normal((b, t, d, d))
-    diag = g @ np.swapaxes(g, -1, -2) * 0.1 + 4.0 * np.eye(d)
-    off = 0.3 * rng.standard_normal((b, t - 1, d, d))
-    rhs = rng.standard_normal((b, t, d))
-    return [torch.tensor(a, dtype=dtype, device=dev) for a in (diag, off, rhs)]
+    """Block-diagonally dominant SPD system: off blocks N(0, s²) with
+    s = 0.3 up to D = 16 and 0.3·(16/D)^½ above (the norm of an off block
+    grows as D^½; this keeps it at D = 16's), diag G Gᵀ/10 + 4I, so every
+    Schur pivot stays far from singular.  Drawn in float64 on ``dev`` by a
+    generator seeded from ``rng`` (numpy would take minutes at B = 4096,
+    D = 32)."""
+    gen = torch.Generator(dev).manual_seed(int(rng.integers(2 ** 62)))
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, dtype=torch.float64,
+                           device=dev)
+
+    g = normal(b, t, d, d)
+    diag = g @ g.transpose(-1, -2) * 0.1 + 4.0 * torch.eye(
+        d, dtype=torch.float64, device=dev)
+    off = 0.3 * min(1.0, (16 / d) ** 0.5) * normal(b, t - 1, d, d)
+    return [a.to(dtype) for a in (diag, off, normal(b, t, d))]
 
 
-BTD_D = (2, 4, 6, 8, 10, 12, 14, 16)
+BTD_D = tuple(range(1, 33))  # every D K-BTD takes
+BTD_NARROW = 16  # D = 1-16: one instance each; D = 17-32: the wide kernel
 # Ragged and edge shapes: a lone problem, a batch that leaves the last warp
 # partly empty, the multistart pool; one block solve, one Schur step, the
 # arm's T.
@@ -454,6 +477,9 @@ BTD_TIMED = (("2-D", B, T + 1, 4, torch.float32),
              ("multistart pool", 4 * B, T + 1, 4, torch.float32),
              ("plan_batch", 256, T + 1, 4, torch.float64),
              ("4-link arm", B, 41, 8, torch.float32))
+# The wide kernel at the arms' T: a 9-link arm (D=18) and D=32.
+BTD_WIDE_TIMED = tuple((f"D={d} arm", B, 41, d, dtype) for d in (18, 32)
+                       for dtype in (torch.float32, torch.float64))
 # NVIDIA's H100 SXM data sheet: HBM3 rate, and the dense rates outside the
 # tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s).
 HBM_BYTES_PER_S = 3.35e12
@@ -526,7 +552,7 @@ def check_btd(dev, record, bench, smi):
             if dtype == torch.float32 and d == 4:
                 record["max_abs_err"] = abs_err
     check_btd_bench_system("bench system", bench)
-    for label, b, t, d, dtype in BTD_TIMED:
+    for label, b, t, d, dtype in BTD_TIMED + BTD_WIDE_TIMED:
         diag, off, rhs = spd_system(rng, b, t, d, dtype, dev)
 
         def kern():
@@ -539,13 +565,18 @@ def check_btd(dev, record, bench, smi):
         kernel_ms(rec, kern, plain, "btd_solve_kernel",
                   plain_reps=5 if label == "2-D" else 3)
         rec["bound_ms"], rec["bound_by"] = btd_bound(b, t, d, dtype)
-        lam, r = dense_lambda(diag, off), rhs.reshape(b, t * d, 1)
-        rec["library_ms"] = cuda_ms(lambda: torch.linalg.solve(lam, r),
-                                    reps=3, warmup=1)
-        del lam
-        print(f"[{smi}] K-BTD {label} B={b} T={t} D={d} {dtype}: "
-              f"{times_line(rec)}; torch.linalg.solve on the dense (B, T·D, T·D) "
-              f"Λ {rec['library_ms']:.4f} ms")
+        line = f"[{smi}] K-BTD {label} B={b} T={t} D={d} {dtype}: {times_line(rec)}"
+        if d <= 8:
+            lam, r = dense_lambda(diag, off), rhs.reshape(b, t * d, 1)
+            rec["library_ms"] = cuda_ms(lambda: torch.linalg.solve(lam, r),
+                                        reps=3, warmup=1)
+            del lam
+            line += (f"; torch.linalg.solve on the dense (B, T·D, T·D) Λ "
+                     f"{rec['library_ms']:.4f} ms")
+        else:
+            # The dense Λ would take b·(T·D)²·itemsize: 7 GB at D=32 in f32.
+            line += "; torch.linalg.solve on the dense Λ not measured"
+        print(line)
         if label == "2-D":
             record.update(rec)
 
@@ -577,14 +608,10 @@ def check_btd_bench_system(name, bench):
         raise AssertionError(f"K-BTD {name}: {e_k}, {e_p}, {e64}")
 
 
-# Lookup tolerances.  K-LOOKUP and K-LOOKUP3D round as their plain
-# versions do (correctly rounded coordinates, no fused multiply-add), so
-# they are held bit-equal: tolerance 0.  K-LOOKUP-LIMB: d blends taps of
-# values of order 1, so reordered float32 rounding would stay below 1e-5;
-# the gradient divides by res (0.078) and so carries ~13x that, well inside
-# 1e-3.
+# Lookup tolerance.  The lookup kernels round as their plain versions do
+# (correctly rounded coordinates, no fused multiply-add; K-LOOKUP-LIMB sums a
+# tap's limbs in order), so they are held bit-equal: tolerance 0.
 EXACT = (0.0, 0.0)
-LIMB_TOLS = (1e-5, 1e-3)
 LOOKUP_DTYPES = (torch.float32, torch.float64)
 # Shapes that exercise the lookup kernels' tiles of 128 points: B·P below
 # one tile, exactly one tile, a ragged tail, P = 1, B = 1, P = 401; then the
@@ -727,7 +754,7 @@ def path_lookups(dev):
     return out
 
 
-def check_path_lookups(dev):
+def check_path_lookups(lookups):
     """K-LOOKUP and K-LOOKUP3D bit-equal to their plain versions on the
     lookup each path makes (:func:`path_lookups`), in both OOB modes, in the
     path's dtype and the other one."""
@@ -735,7 +762,6 @@ def check_path_lookups(dev):
     from dgpmp2_tpu_torch.ops.cuda import sdf_lookup, sdf_lookup3d
 
     worst = 0.0
-    lookups = path_lookups(dev)
     for name, (sdf, pts, *rest) in lookups.items():
         k, plain = ((sdf_lookup, sdf_ops.bilinear_lookup) if len(rest) == 3
                     else (sdf_lookup3d, sdf_ops.trilinear_lookup))
@@ -847,42 +873,68 @@ def check_lookup3d(dev, record, smi):
                        sdf_ops.trilinear_lookup, 3, dev, rng)
 
 
-def check_limbs(dev, record, smi):
-    """K-LOOKUP-LIMB against its plain version at L = 1, 2, 3 (both read the
-    same limbs), and at L = 1 timed beside K-LOOKUP on the float32 SDF."""
+# The 2-D paths' lookups on which K-LOOKUP-LIMB is checked and timed.
+LIMB_SHAPES = ("2-D bench plan points", "2-D uniform random points",
+               "2-link arm P=246", "multistart pool B=4096")
+
+
+def check_limbs(dev, record, smi, lookups):
+    """K-LOOKUP-LIMB bit-equal to its plain version, the packed layout's
+    reader (itself bit-equal to ``bilinear_lookup_limbs`` on the (B, L, H,
+    W) limbs), at L = 1, 2, 3 on the 2-D paths' lookups (LIMB_SHAPES) and
+    at the tile edges (points far outside the grid and on its last cell
+    too); timed at L = 1 on the bench plan's points, beside K-LOOKUP on the
+    float32 SDF and the split of the SDF into its packed limbs."""
     from dgpmp2_tpu_torch.ops import sdf as sdf_ops
     from dgpmp2_tpu_torch.ops.cuda import sdf_lookup as k_exact
     from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_limbs as k
 
+    def check(name, sdf, pts, res, xl, yl):
+        worst = 0.0
+        for n_limbs in (1, 2, 3):
+            packed = k.split(sdf, n_limbs)
+            args = (packed, pts, res, xl, yl)
+            want = sdf_ops.bilinear_lookup_packed(*args)
+            worst = max(worst, compare(
+                f"{name} L={n_limbs}", k.launch(*args), want, *EXACT,
+                quiet=True), compare(
+                f"{name} L={n_limbs} plain", want,
+                sdf_ops.bilinear_lookup_limbs(sdf_ops.limb_split(
+                    sdf, n_limbs), pts, res, xl, yl), *EXACT, quiet=True))
+        return worst
+
+    worst = max(check(name, *lookups[name]) for name in LIMB_SHAPES)
     rng = np.random.default_rng(4)
-    res = 10.0 / IMSIZE
-    pts = lookup_points(rng, T + 1, 2)
-    sdf = torch.tensor(rng.standard_normal((B, IMSIZE, IMSIZE)),
-                       dtype=torch.float32, device=dev)
-    p_t = torch.tensor(pts, dtype=torch.float32, device=dev)
-    exact = sdf_ops.bilinear_lookup(sdf, p_t, res, LIMS, LIMS, "intended")
-    for n_limbs in (3, 2, 1):
-        limbs = sdf_ops.limb_split(sdf, n_limbs)
-        args = (limbs, p_t, res, LIMS, LIMS)
-        got = k.launch(*args)
-        err = compare(f"K-LOOKUP-LIMB L={n_limbs}", got,
-                      sdf_ops.bilinear_lookup_limbs(*args), *LIMB_TOLS)
-        print(f"  L={n_limbs}: max abs err d against the exact float32 "
-              f"lookup {float((got[0] - exact[0]).abs().max()):.3e}")
-    rec = record
-    kernel_ms(rec, lambda: k.launch(*args),
-              lambda: sdf_ops.bilinear_lookup_limbs(*args),
+    for b, p in LOOKUP_EDGES:
+        pts = lookup_points(rng, p, 2, b)
+        pts[0, 0] = 1e10
+        pts[-1, -1] = (5.0 - 0.1, -5.0 + 0.1)  # the grid's last cell
+        worst = max(worst, check(
+            f"edges B={b} P={p}",
+            torch.tensor(rng.standard_normal((b, 32, 32)),
+                         dtype=torch.float32, device=dev),
+            torch.tensor(pts, dtype=torch.float32, device=dev), 10.0 / 32,
+            LIMS, LIMS))
+    print(f"K-LOOKUP-LIMB at L = 1, 2, 3 on {', '.join(LIMB_SHAPES)} and at "
+          f"(B, P) in {LOOKUP_EDGES}: max abs err {worst:.3e} (tol 0), "
+          f"against the packed reader and bilinear_lookup_limbs")
+    sdf, pts, res, xl, yl = lookups["2-D bench plan points"]
+    packed = k.split(sdf, 1)
+    args = (packed, pts, res, xl, yl)
+    kernel_ms(record, lambda: k.launch(*args),
+              lambda: sdf_ops.bilinear_lookup_packed(*args),
               "sdf_lookup_limbs_kernel")
-    rec.update(lookup_bound(B * (T + 1), 2, 4, 2, torch.float32),
-               max_abs_err=err)
-    rec["exact_ms"] = device_ms(
-        lambda: k_exact.launch(sdf, p_t, res, LIMS, LIMS),
-        "sdf_lookup_kernel")
-    rec["split_ms"] = cuda_ms(lambda: sdf_ops.limb_split(sdf, 1))
-    print(f"[{smi}] K-LOOKUP-LIMB L=1 B={B} P={T + 1} on uniform random "
-          f"points: {times_line(rec)}; K-LOOKUP device-only "
-          f"{rec['exact_ms']:.4f} ms on the same points; limb split "
-          f"{rec['split_ms']:.4f} ms per call")
+    record.update(lookup_bound(pts.shape[0] * pts.shape[1], 2, 4, 2,
+                               torch.float32), max_abs_err=worst)
+    record["exact_ms"] = device_ms(
+        lambda: k_exact.launch(sdf, pts, res, xl, yl), "sdf_lookup_kernel")
+    splits = {n: cuda_ms(lambda n=n: k.split(sdf, n), reps=5)
+              for n in (1, 2, 3)}
+    print(f"[{smi}] K-LOOKUP-LIMB L=1 B={pts.shape[0]} P={pts.shape[1]} on "
+          f"the bench plan's points: {times_line(record)}; K-LOOKUP "
+          f"device-only {record['exact_ms']:.4f} ms on the same points; split "
+          f"into the packed limbs, once per plan: "
+          + ", ".join(f"L={n} {ms:.4f} ms" for n, ms in splits.items()))
 
 
 def check_golden(dev):
@@ -902,9 +954,9 @@ def check_golden(dev):
             raise AssertionError(f"{name} mismatch: {bad}")
 
 
-def check_plan(name, out, n_iter, dof=2, t=T):
+def check_plan(name, out, n_iter, dof=2, t=T, share=0.95):
     """Shapes (B, t+1, 2·dof) and (n_iter, B), finite trajectories, and
-    ``err_final < err_init`` on at least 95 % of the problems."""
+    ``err_final < err_init`` on at least ``share`` of the problems."""
     shapes = (tuple(out.th.shape), tuple(out.err_per_iter.shape))
     if shapes != ((B, t + 1, 2 * dof), (n_iter, B)):
         raise AssertionError(f"{name}: shapes {shapes}")
@@ -913,12 +965,13 @@ def check_plan(name, out, n_iter, dof=2, t=T):
     print(f"{name}: finite {finite}, err_final < err_init on "
           f"{better:.4f} of problems, mean err {float(out.err_init.mean()):.4g}"
           f" -> {float(out.err_final.mean()):.4g}, iterations {n_iter}")
-    if not (finite and better >= 0.95):
+    if not (finite and better >= share):
         raise AssertionError(f"{name}: finite={finite} improved={better}")
 
 
 def counters():
-    """The kernel wrappers' modules, by kernel name."""
+    """The kernel wrappers' modules, by kernel name (K-LOOKUP-LIMB's also
+    counts its SDF splits)."""
     from dgpmp2_tpu_torch.ops.cuda import (btd_solve, sdf_lookup,
                                            sdf_lookup3d, sdf_lookup_limbs)
 
@@ -931,23 +984,27 @@ TOTALS = dict.fromkeys(KERNELS, 0)
 
 
 def drive(name, run, want):
-    """Run one path with every launch counter set to 0 just before and read
-    just after; the counts must equal ``want`` (absent kernels: 0), or
-    ``want(out)`` where the count depends on the path's output."""
+    """Run one path with every launch counter, and K-LOOKUP-LIMB's count of
+    SDF splits ("limb_splits"), set to 0 just before and read just after;
+    the counts must equal ``want`` (absent keys: 0), or ``want(out)`` where
+    the count depends on the path's output."""
     mods = counters()
+    limbs = mods["sdf_lookup_limbs"]
     torch.cuda.synchronize()
     for m in mods.values():
         m.launches = 0
+    limbs.splits = 0
     out = run()
     torch.cuda.synchronize()
     counts = {k: m.launches for k, m in mods.items()}
+    counts["limb_splits"] = limbs.splits
     want = want(out) if callable(want) else want
-    want = {k: want.get(k, 0) for k in KERNELS}
+    want = {k: want.get(k, 0) for k in counts}
     print(f"{name} launches {json.dumps(counts)}, expected {json.dumps(want)}")
     if counts != want:
         raise AssertionError(f"{name}: launch counts {counts} != {want}")
-    for k, v in counts.items():
-        TOTALS[k] += v
+    for k in KERNELS:
+        TOTALS[k] += counts[k]
     return out, counts
 
 
@@ -1102,8 +1159,9 @@ def engines(bench):
     cfg = gn.OptimConfig(reg=0.1, max_iters=50, tol_delta=0.0)
     try:
         sdf_ops.set_lookup_method("pallas_v3_1")
+        # One split of the SDF for the plan, one launch per lookup.
         out, _ = drive("pallas_v3_1", lambda: gn.plan(*bench, cfg), {
-            "btd_solve": 50, "sdf_lookup_limbs": 51})
+            "btd_solve": 50, "sdf_lookup_limbs": 51, "limb_splits": 1})
         check_plan("core.gn.plan under pallas_v3_1 (bf16 SDF)", out, 50)
         sdf_ops.set_lookup_method("pallas")
         cfg5 = gn.OptimConfig(reg=0.1, max_iters=5, tol_delta=0.0)
@@ -1191,6 +1249,20 @@ def constrained_problems(dev, bench_np):
                 opt=dict(max_iters=20)),
         joint_states(rng, B, 5, (-2.0, 0.0, 0.0, 0.0, 0.0), 0.4),
         joint_states(rng, B, 5, (1.6, 0.0, 0.0, 0.0, 0.0), 0.4), None, sdf)
+    # 9-link arm (D=18, the wide K-BTD), 20 iterations: links of 0.6 down
+    # to 0.3 m, 3.8 m in all as the 5-link arm; under LM, whose rejected
+    # steps let every problem improve (under plain GN 2 of 1024 did not in
+    # 20 iterations on the card).
+    links = [0.6, 0.5, 0.5, 0.45, 0.4, 0.4, 0.35, 0.3, 0.3]
+    out["9-link arm"] = (
+        planner(arm_yamls,
+                {"type": "planar_arm", "link_lengths": links,
+                 "spheres_per_link": 2, "sphere_radius": [0.25]},
+                pp=dict(dof=9, state_dim=18),
+                gp=dict(Q_c_inv=np.eye(9), q_min=[-2.8] * 9, q_max=[2.8] * 9),
+                opt=dict(max_iters=20, method="lm")),
+        joint_states(rng, B, 9, (-2.0,) + (0.0,) * 8, 0.4),
+        joint_states(rng, B, 9, (1.6,) + (0.0,) * 8, 0.4), None, sdf)
     return out
 
 
@@ -1224,7 +1296,9 @@ def constrained(dev, bench_np):
             run = lambda: gn.plan(spec, robot, params, th0, sdf,  # noqa: E731
                                   planner.cfg)
         out, _ = drive(name, run, {"btd_solve": n, "sdf_lookup": n + 1})
-        check_plan(name, out, n, spec.dof, spec.total_time_step)
+        # The 9-link arm must improve every problem.
+        check_plan(name, out, n, spec.dof, spec.total_time_step,
+                   1.0 if name == "9-link arm" else 0.95)
         problems[name] = prob
         if wg is not None:
             centers, _ = robot.fk(out.th)
@@ -1334,7 +1408,17 @@ def plan_ms(bench):
 
 def timing(smi, bench, bench3, problems, ms_run):
     phase("10 timing")
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+
     per_iter = {}
+    try:
+        sdf_ops.set_lookup_method("pallas_v3_1")
+        t50, t200, per_iter["_v3_1"] = plan_ms(bench)
+    finally:
+        sdf_ops.set_lookup_method("auto")
+    print(f"[{smi}] core.gn.plan B=1024 T=100 128x128 float32 under "
+          f"pallas_v3_1: 50 iterations {t50:.3f} ms, 200 iterations "
+          f"{t200:.3f} ms, ms per GN iteration {per_iter['_v3_1']:.4f}")
     for key, name, prob in (
             ("", "core.gn.plan B=1024 T=100 128x128", bench),
             ("_3d", "3-D core.gn.plan B=1024 T=100 64^3", bench3),
@@ -1380,8 +1464,10 @@ def main():
     check_btd(dev, recs["btd_solve"], bench, smi)
     check_lookup(dev, recs["sdf_lookup"], bench, smi)
     check_lookup3d(dev, recs["sdf_lookup3d"], smi)
-    check_limbs(dev, recs["sdf_lookup_limbs"], smi)
-    check_path_lookups(dev)
+    lookups = path_lookups(dev)
+    check_limbs(dev, recs["sdf_lookup_limbs"], smi, lookups)
+    check_path_lookups(lookups)
+    del lookups
     check_golden(dev)
     bench = main_path(dev, bench_np)
     bench3 = path3d(dev, smi)

@@ -31,8 +31,9 @@
 // T dependent steps, each step a chain of D dependent pivots.
 //
 // What the design does about it:
-// - A lane group per problem.  G = 2, 4, 8, 8 and 16 lanes of one warp for
-//   D = 2, 4, 6, 8 and 10-16; lane r owns row r of every D x D block and element r of every vector
+// - A lane group per problem.  G = 2, 4, 8 and 16 lanes of one warp for
+//   D = 1-2, 3-4, 5-8 and 9-16; lane r owns row r of every D x D block and
+//   element r of every vector
 //   (lanes r >= D, and the groups past the batch, carry identity rows and store
 //   nothing).  The D x D algebra runs across the group through
 //   __shfl_sync(..., width = G), which spreads one step's serial chain over D
@@ -46,16 +47,28 @@
 //   dependent pivots, not 3 D, and leaves X_t and z_t in the RHS columns.
 // - The back sweep is one matvec per step: no triangular solve, no division.
 // - Fill the card: one warp per block, 32 / G problems per warp, so B = 1024 is
-//   128 blocks at D = 4, 256 at D = 6, 8 and 512 at D = 10-16 over the 132
+//   128 blocks at D = 4, 256 at D = 5-8 and 512 at D = 9-16 over the 132
 //   SMs.
 // - Loads off the critical path: a ring of kStages steps in shared memory,
-//   filled by cp.async.  Lane r copies its row of diag[t] and off[t] as 8- or
-//   16-byte pieces, its columns of off[t] and diag[t] and rhs[t][r] (the back
-//   sweep: its row of X_t and z_t[r]) kStages - 1 steps ahead of the
-//   arithmetic, so no load waits behind the previous pivot.  Each lane reads
-//   back only what it copied itself, so the ring needs no barrier.  The ring
-//   stays in static shared memory (48 KB): in float64 at D = 12-16 it has 3
-//   or 2 stages in place of 4 (ring_stages).
+//   filled by cp.async.  Lane r copies its row of diag[t] and off[t] as 4-,
+//   8- or 16-byte pieces, its columns of off[t] and diag[t] and rhs[t][r]
+//   (the back sweep: its row of X_t and z_t[r]) kStages - 1 steps ahead of
+//   the arithmetic, so no load waits behind the previous pivot.  Each lane
+//   reads back only what it copied itself, so the ring needs no barrier.  The
+//   ring stays in static shared memory (48 KB): in float64 at D = 11-16 it
+//   has 3 or 2 stages in place of 4 (ring_stages).
+// - Every D from 1 to 16 has its own instance (odd D too: the rows are
+//   tiled by 4- or 8-byte pieces).
+//
+// D = 17-32 (arms of 9-16 links) takes btd_solve_kernel_wide: one problem
+// per warp, D given at run time, the rows [C_t | U_t | y_t] of the step in
+// shared memory.  Registers bind there: the lane state above is 4 D + 2
+// values, 258 registers at D = 32 in float64, past the 255 a thread may
+// hold.  So the wide kernel keeps each row in shared memory, where pivot row
+// j is a broadcast read, and the loops run to D at run time: one instance
+// per type, no spill.  Its step is a chain of D pivots, two warp barriers
+// each, over shared memory; the loads of a step are not prefetched.  It is
+// simple and right, not fast.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -65,6 +78,8 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kStages = 4;
 constexpr int kStaticSmem = 48 * 1024;  // bytes of static shared memory
+constexpr int kNarrowMax = 16;          // largest D of btd_solve_kernel
+constexpr int kMaxD = 32;               // largest D of btd_solve_kernel_wide
 
 template <int D>
 __host__ __device__ constexpr int group_lanes() {
@@ -81,7 +96,7 @@ __host__ __device__ constexpr int ring_slot() {
 }
 
 // kStages, or as many stages as fit the static shared-memory limit (3 at
-// D = 12, 14 and 2 at D = 16 in float64).
+// D = 11-14 and 2 at D = 15, 16 in float64).
 template <typename T, int D>
 __host__ __device__ constexpr int ring_stages() {
   const int fit =
@@ -303,6 +318,116 @@ __global__ void __launch_bounds__(kWarp)
   }
 }
 
+// D = 17-32: one warp per problem, lane r owns row r (lanes r >= d help load
+// and otherwise idle).  Shared memory per warp: the rows [C_t | U_t | y_t]
+// of this step and [. | X_{t-1} | z_{t-1}] of the last one (two buffers of
+// kWarp rows, kWideRow columns: an odd stride, so lane r's own column is
+// free of bank conflicts), and U_{t-1} (row-major, stride kWarp + 1); 41.7 KB
+// in float64, under the static limit.
+constexpr int kWideRow = 2 * kMaxD + 1;
+
+// row[k] -= f * piv[k] for k in [k0, k1), four columns a round with every
+// load issued before the stores: the two rows may be the same array, so
+// the compiler would otherwise wait out each store before the next load.
+template <typename T>
+__device__ __forceinline__ void sub_scaled(T* row, const T* piv, T f, int k0,
+                                           int k1) {
+  int k = k0;
+  for (; k + 4 <= k1; k += 4) {
+    T p[4], a[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      p[q] = piv[k + q];
+      a[q] = row[k + q];
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) row[k + q] = a[q] - f * p[q];
+  }
+  for (; k < k1; ++k) row[k] -= f * piv[k];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarp)
+    btd_solve_kernel_wide(const T* __restrict__ diag,
+                          const T* __restrict__ off,
+                          const T* __restrict__ rhs, T* __restrict__ x,
+                          T* __restrict__ gain, int steps, int d) {
+  __shared__ T rows[2][kWarp][kWideRow];
+  __shared__ T up[kWarp][kWarp + 1];
+  const int r = threadIdx.x;
+  const bool own = r < d;
+  const size_t dd = static_cast<size_t>(d) * d;
+  const size_t b = blockIdx.x;
+  const T* dg = diag + b * steps * dd;
+  const T* of = off + b * (steps - 1) * dd;
+  const T* rv = rhs + b * steps * d;
+  T* xb = x + b * steps * d;
+  T* gn = gain + b * (steps - 1) * dd;
+  const int cz = 2 * d;  // the column of y_t, then z_t
+
+  for (int t = 0; t < steps; ++t) {
+    T(*cur)[kWideRow] = rows[t & 1];
+    const T(*prev)[kWideRow] = rows[(t + 1) & 1];
+    const bool has_next = t < steps - 1;
+    // The lower triangle of diag[t], mirrored (as the plain version's
+    // Cholesky reads it), U_t = off[t] and y_t = rhs[t]: row i by lanes
+    // r = column.
+    for (int i = 0; i < d; ++i) {
+      if (r <= i) {
+        const T v = dg[t * dd + i * d + r];
+        cur[i][r] = v;
+        cur[r][i] = v;
+      }
+      if (own) cur[i][d + r] = has_next ? of[t * dd + i * d + r] : T(0);
+    }
+    if (own) cur[r][cz] = rv[static_cast<size_t>(t) * d + r];
+    __syncwarp();
+    // Schur update of row r: C_t -= U_{t-1}^T X_{t-1}, y_t -= U_{t-1}^T z_{t-1},
+    // one row of X_{t-1} at a time.
+    if (t > 0 && own) {
+      for (int k = 0; k < d; ++k) {
+        const T u = up[k][r];
+        cur[r][cz] -= u * prev[k][cz];
+        sub_scaled(cur[r], prev[k] + d, u, 0, d);
+      }
+    }
+    __syncwarp();
+    if (own)
+      for (int k = 0; k < d; ++k) up[r][k] = cur[r][d + k];
+    // Gauss-Jordan: C_t becomes I, [U_t | y_t] becomes [X_t | z_t].  Rows
+    // r != j read pivot row j before lane j scales it.
+    for (int j = 0; j < d; ++j) {
+      const T inv = recip(cur[j][j]);
+      if (own && r != j)
+        sub_scaled(cur[r], cur[j], cur[r][j] * inv, j + 1, cz + 1);
+      __syncwarp();
+      if (r == j) {
+#pragma unroll 4
+        for (int k = j + 1; k <= cz; ++k) cur[j][k] *= inv;
+      }
+      __syncwarp();
+    }
+    if (own) {
+      xb[static_cast<size_t>(t) * d + r] = cur[r][cz];
+      if (has_next)
+        for (int k = 0; k < d; ++k) gn[t * dd + r * d + k] = cur[r][d + k];
+    }
+  }
+
+  // Back sweep from x_{T-1} = z_{T-1}: x_t = z_t - X_t x_{t+1}; each lane
+  // reads back its own row of X_t and its own z_t.
+  T xn = own ? xb[static_cast<size_t>(steps - 1) * d + r] : T(0);
+  for (int t = steps - 2; t >= 0; --t) {
+    T acc = own ? xb[static_cast<size_t>(t) * d + r] : T(0);
+    for (int k = 0; k < d; ++k) {
+      const T xk = __shfl_sync(0xffffffffu, xn, k);
+      if (own) acc -= gn[t * dd + r * d + k] * xk;
+    }
+    xn = acc;
+    if (own) xb[static_cast<size_t>(t) * d + r] = xn;
+  }
+}
+
 template <typename T, int D>
 void launch_d(const T* diag, const T* off, const T* rhs, T* x, T* gain,
               int batch, int steps, cudaStream_t s) {
@@ -312,38 +437,28 @@ void launch_d(const T* diag, const T* off, const T* rhs, T* x, T* gain,
                                                 batch, steps);
 }
 
+// The instance of btd_solve_kernel for d, from D up to kNarrowMax.
+template <typename T, int D = 1>
+void launch_narrow(const T* diag, const T* off, const T* rhs, T* x, T* gain,
+                   int batch, int steps, int d, cudaStream_t s) {
+  if (d == D) {
+    launch_d<T, D>(diag, off, rhs, x, gain, batch, steps, s);
+  } else if constexpr (D < kNarrowMax) {
+    launch_narrow<T, D + 1>(diag, off, rhs, x, gain, batch, steps, d, s);
+  }
+}
+
 template <typename T>
 int launch(const T* diag, const T* off, const T* rhs, T* x, T* gain,
            int batch, int steps, int d, void* stream) {
+  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || steps <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 2:
-      launch_d<T, 2>(diag, off, rhs, x, gain, batch, steps, s);
-      break;
-    case 4:
-      launch_d<T, 4>(diag, off, rhs, x, gain, batch, steps, s);
-      break;
-    case 6:
-      launch_d<T, 6>(diag, off, rhs, x, gain, batch, steps, s);
-      break;
-    case 8:
-      launch_d<T, 8>(diag, off, rhs, x, gain, batch, steps, s);
-      break;
-    case 10:
-      launch_d<T, 10>(diag, off, rhs, x, gain, batch, steps, s);
-      break;
-    case 12:
-      launch_d<T, 12>(diag, off, rhs, x, gain, batch, steps, s);
-      break;
-    case 14:
-      launch_d<T, 14>(diag, off, rhs, x, gain, batch, steps, s);
-      break;
-    case 16:
-      launch_d<T, 16>(diag, off, rhs, x, gain, batch, steps, s);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (d <= kNarrowMax) {
+    launch_narrow<T>(diag, off, rhs, x, gain, batch, steps, d, s);
+  } else {
+    btd_solve_kernel_wide<T><<<batch, kWarp, 0, s>>>(diag, off, rhs, x, gain,
+                                                     steps, d);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,6 @@
-// The launch of the SDF lookup kernels K-LOOKUP (sdf_lookup.cu) and
-// K-LOOKUP3D (sdf_lookup3d.cu): every part of a lookup that is not the
-// blend of one point's taps.
+// The launch of the SDF lookup kernels K-LOOKUP (sdf_lookup.cu), K-LOOKUP3D
+// (sdf_lookup3d.cu) and K-LOOKUP-LIMB (sdf_lookup_limbs.cu): every part of a
+// lookup that is not the blend of one point's taps.
 //
 // The B*P query points are one flat array, cut into tiles of kTile = 128
 // consecutive points; a block of 128 threads takes a tile, a thread a point.

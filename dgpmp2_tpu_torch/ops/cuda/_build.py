@@ -31,7 +31,6 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_F = ctypes.c_double
 # name -> argtypes; every function returns cudaGetLastError() as an int.
 _SIGNATURES = {
     "dgpmp2_btd_solve_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
@@ -41,8 +40,7 @@ _SIGNATURES = {
     "dgpmp2_sdf_lookup_f64": [_P] * 5,
     "dgpmp2_sdf_lookup3d_f32": [_P] * 5,
     "dgpmp2_sdf_lookup3d_f64": [_P] * 5,
-    "dgpmp2_sdf_lookup_limbs": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                *[_F] * 8, _P],
+    **{f"dgpmp2_sdf_lookup_limbs_l{n}": [_P] * 5 for n in (1, 2, 3)},
 }
 
 _lib = None

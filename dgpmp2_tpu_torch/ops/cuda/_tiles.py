@@ -1,6 +1,7 @@
 """Launch geometry and launch plans of the SDF lookup kernels K-LOOKUP
-(``csrc/sdf_lookup.cu``) and K-LOOKUP3D (``csrc/sdf_lookup3d.cu``), whose
-shared launch is ``csrc/lookup_tiles.cuh``.
+(``csrc/sdf_lookup.cu``), K-LOOKUP3D (``csrc/sdf_lookup3d.cu``) and
+K-LOOKUP-LIMB (``csrc/sdf_lookup_limbs.cu``), whose shared launch is
+``csrc/lookup_tiles.cuh``.
 
 The B·P query points are one flat array cut into tiles of :data:`TILE`
 points, one block of :data:`TILE` threads per tile; the ragged last tile
@@ -112,12 +113,31 @@ class Plan(NamedTuple):
     device: torch.device
 
 
+def _limb_entry(name, sdf_shape, dtype, pts_dtype):
+    """K-LOOKUP-LIMB's ``(entry point, (B, H, W))`` of a packed limb layout
+    (``ops.sdf.packed_grid``): bf16 limbs and float32 points only."""
+    b, h, w, n_limbs = sdf_ops.packed_grid(sdf_shape)
+    if dtype != torch.bfloat16 or pts_dtype != torch.float32:
+        raise ValueError(f"{name} kernel needs bfloat16 limbs and float32 "
+                         f"points; got {dtype} and {pts_dtype}")
+    return f"dgpmp2_{name}_l{n_limbs}", (b, h, w)
+
+
 @functools.lru_cache(maxsize=256)
 def plan(name: str, sdf_shape, pts_shape, dtype, pts_dtype, device,
          pts_device, res, lims, oob_mode) -> Plan:
     """The checked launch plan of one shape (cached): raises
-    ``ValueError`` on what the kernel ``name`` does not take."""
+    ``ValueError`` on what the kernel ``name`` does not take.  K-LOOKUP and
+    K-LOOKUP3D take an SDF and points of one dtype, float32 or float64;
+    K-LOOKUP-LIMB (``name`` "sdf_lookup_limbs") a packed bf16 limb layout,
+    float32 points and the intended OOB mode."""
     ndim = len(lims)
+    limbs = name == "sdf_lookup_limbs"
+    if limbs:
+        entry, sdf_shape = _limb_entry(name, sdf_shape, dtype, pts_dtype)
+        if oob_mode != "intended":
+            raise ValueError(f"{name} kernel takes the intended OOB mode "
+                             f"only; got {oob_mode!r}")
     want = "(B, H, W)" if ndim == 2 else "(B, D, H, W)"
     if (len(sdf_shape) != ndim + 1 or len(pts_shape) != 3
             or pts_shape[-1] != ndim):
@@ -132,7 +152,8 @@ def plan(name: str, sdf_shape, pts_shape, dtype, pts_dtype, device,
         if dev.type != "cuda" or dev != device:
             raise ValueError(f"{name} kernel needs CUDA tensors on one "
                              f"device; {what} is on {dev}")
-        if dt not in (torch.float32, torch.float64) or dt != dtype:
+        if not limbs and (dt not in (torch.float32, torch.float64)
+                          or dt != dtype):
             raise ValueError(f"{name} kernel needs float32 or float64 of "
                              f"one dtype; {what} is {dt}")
     if oob_mode not in sdf_ops.OOB_MODES:
@@ -141,11 +162,11 @@ def plan(name: str, sdf_shape, pts_shape, dtype, pts_dtype, device,
     if b * p > MAX_POINTS:
         raise ValueError(f"{name} kernel takes fewer than 2**31 points; got "
                          f"{b * p}")
-    itemsize = 4 if dtype == torch.float32 else 8
+    itemsize = 4 if pts_dtype == torch.float32 else 8
     struct = plan_struct(sdf_shape, p, itemsize, res, lims, oob_mode,
                          device.index)
     lib = _build.library()
-    fn = getattr(lib, f"dgpmp2_{name}_f{8 * itemsize}")
+    fn = getattr(lib, entry if limbs else f"dgpmp2_{name}_f{8 * itemsize}")
     numel, g_offset = out_layout(b * p, ndim, itemsize)
     return Plan(fn, ctypes.addressof(struct), struct, numel, g_offset, device)
 
@@ -153,12 +174,13 @@ def plan(name: str, sdf_shape, pts_shape, dtype, pts_dtype, device,
 def launch(name: str, sdf: torch.Tensor, points: torch.Tensor, res, lims,
            oob_mode: str):
     """One launch of the lookup kernel ``name`` on the current stream:
-    ``(d (B, P), grad (B, P, ndim))``, views of one buffer."""
+    ``(d (B, P), grad (B, P, ndim))`` in the points' dtype, views of one
+    buffer."""
     pl = plan(name, sdf.shape, points.shape, sdf.dtype, points.dtype,
               sdf.device, points.device, res, lims, oob_mode)
     if not (sdf.is_contiguous() and points.is_contiguous()):
         raise ValueError(f"{name} kernel needs contiguous inputs")
-    out = torch.empty(pl.numel, dtype=sdf.dtype, device=sdf.device)
+    out = torch.empty(pl.numel, dtype=points.dtype, device=sdf.device)
     _build.check(pl.fn(pl.addr, sdf.data_ptr(), points.data_ptr(),
                        out.data_ptr(),
                        torch._C._cuda_getCurrentRawStream(pl.device.index)),

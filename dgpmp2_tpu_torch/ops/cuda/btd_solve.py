@@ -14,7 +14,7 @@ import torch
 from dgpmp2_tpu_torch.ops import tridiag
 from dgpmp2_tpu_torch.ops.cuda import _build
 
-SUPPORTED_D = (2, 4, 6, 8, 10, 12, 14, 16)
+MAX_D = 32  # every D from 1 to MAX_D
 launches = 0
 
 
@@ -23,8 +23,8 @@ def launch(diag: torch.Tensor, off: torch.Tensor,
     """One kernel launch: x with ``Λ x = rhs``, on the current CUDA stream.
 
     diag (B, T, D, D), off (B, T-1, D, D), rhs (B, T, D); contiguous,
-    16-byte aligned CUDA tensors of one dtype, float32 or float64; D in
-    ``SUPPORTED_D``.
+    16-byte aligned CUDA tensors of one dtype, float32 or float64; D from
+    1 to :data:`MAX_D`.
     """
     global launches
     _check(diag, off, rhs)
@@ -49,8 +49,8 @@ def _check(diag, off, rhs):
     if rhs.ndim != 3:
         raise ValueError(f"btd_solve kernel takes rhs (B, T, D); got {tuple(rhs.shape)}")
     b, t, d = rhs.shape
-    if d not in SUPPORTED_D:
-        raise ValueError(f"btd_solve kernel supports D in {SUPPORTED_D}; got D={d}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"btd_solve kernel takes D from 1 to {MAX_D}; got D={d}")
     if tuple(diag.shape) != (b, t, d, d) or tuple(off.shape) != (b, t - 1, d, d):
         raise ValueError(
             f"btd_solve kernel shape mismatch: diag {tuple(diag.shape)}, "

@@ -9,8 +9,10 @@ Port of ``dgpmp2_tpu/ops/sdf.py``.
 * :func:`bilinear_lookup` — bilinear SDF value + analytic spatial gradient,
   the plain version of the CUDA kernel K-LOOKUP (``ops/cuda/sdf_lookup.py``).
 * :func:`limb_split` / :func:`bilinear_lookup_limbs` — the SDF as 1–3 bf16
-  limbs and the lookup that sums them per tap, the plain version of
-  K-LOOKUP-LIMB (``ops/cuda/sdf_lookup_limbs.py``).
+  limbs and the lookup that sums them per tap; :func:`limb_pack` packs the
+  limbs into the layout K-LOOKUP-LIMB reads (``ops/cuda/sdf_lookup_limbs.py``)
+  and :func:`bilinear_lookup_packed`, its plain version, reads it;
+  :data:`LIMB_CACHE` splits an SDF once per plan.
 * :func:`trilinear_lookup` — the 3-D voxel lookup, the plain version of
   K-LOOKUP3D (``ops/cuda/sdf_lookup3d.py``).
 * :func:`lookup` / :func:`lookup_nd` — the dispatchers: CPU tensors go to
@@ -25,6 +27,10 @@ grids are ``sdf[..., z, row, col]`` with z unflipped:
 gradient ``∇d``.
 """
 from __future__ import annotations
+
+import collections
+import functools
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -145,9 +151,19 @@ def _axis(p: torch.Tensor, n: int, reference: bool):
     return p1c, p2c, 1.0 - f, f
 
 
-def _bilinear(take, points, dtype, h, w, res, x_lims, y_lims, reference):
-    """Bilinear value and gradient of the (H, W) grid whose flat cells
-    ``take(idx)`` reads, at (..., P, 2) points, in ``dtype``."""
+def _flat_taps(take, w):
+    """``taps`` of :func:`_bilinear` for a grid whose flat cell ``row·W +
+    col`` ``take`` reads."""
+    def taps(px1c, px2c, py1c, py2c):
+        return (take(py1c * w + px1c), take(py1c * w + px2c),
+                take(py2c * w + px1c), take(py2c * w + px2c))
+    return taps
+
+
+def _bilinear(taps, points, dtype, h, w, res, x_lims, y_lims, reference):
+    """Bilinear value and gradient of an (H, W) grid at (..., P, 2) points,
+    in ``dtype``; ``taps(px1c, px2c, py1c, py2c)`` reads the four corners
+    (d11, d21, d12, d22) of the clamped corner indices."""
     x = points[..., 0].to(dtype)
     y = points[..., 1].to(dtype)
     res_t = torch.tensor(res, dtype=dtype, device=points.device)
@@ -155,10 +171,7 @@ def _bilinear(take, points, dtype, h, w, res, x_lims, y_lims, reference):
     py = (-y_lims[0] / res) - y / res_t
     px1c, px2c, ax1, ax2 = _axis(px, w, reference)
     py1c, py2c, ay1, ay2 = _axis(py, h, reference)
-    d11 = take(py1c * w + px1c)
-    d21 = take(py1c * w + px2c)
-    d12 = take(py2c * w + px1c)
-    d22 = take(py2c * w + px2c)
+    d11, d21, d12, d22 = taps(px1c, px2c, py1c, py2c)
     d = ay1 * (ax1 * d11 + ax2 * d21) + ay2 * (ax1 * d12 + ax2 * d22)
     dd_dpx = ay1 * (d21 - d11) + ay2 * (d22 - d12)
     dd_dpy = ax1 * (d12 - d11) + ax2 * (d22 - d21)
@@ -190,8 +203,8 @@ def bilinear_lookup(sdf: torch.Tensor, points: torch.Tensor, res: float,
     """
     h, w = sdf.shape[-2], sdf.shape[-1]
     flat = sdf.reshape(*sdf.shape[:-2], h * w)
-    return _bilinear(lambda idx: torch.gather(flat, -1, idx), points,
-                     sdf.dtype, h, w, res, x_lims, y_lims,
+    return _bilinear(_flat_taps(lambda idx: torch.gather(flat, -1, idx), w),
+                     points, sdf.dtype, h, w, res, x_lims, y_lims,
                      (oob_mode or _OOB_MODE) == "reference")
 
 
@@ -201,11 +214,21 @@ def limb_split(sdf: torch.Tensor, n_limbs: int) -> torch.Tensor:
     previous limbs leave (as ``_limb_split`` of the TPU kernel T5)."""
     rem = sdf.to(torch.float32)
     limbs = []
-    for _ in range(n_limbs):
+    for l in range(n_limbs):
         limb = rem.to(torch.bfloat16)
         limbs.append(limb)
-        rem = rem - limb.to(torch.float32)
+        if l + 1 < n_limbs:  # no residual after the last limb
+            rem = rem - limb.to(torch.float32)
     return torch.stack(limbs, dim=-3)
+
+
+def _limb_sum(cells, idx, n_limbs):
+    """Σ_l float(cells[..., l]) at ``idx``, summed in order l = 0..L-1 in
+    float32: one tap of a limb layout, as K-LOOKUP-LIMB sums it."""
+    tap = torch.gather(cells[..., 0], -1, idx).to(torch.float32)
+    for l in range(1, n_limbs):
+        tap = tap + torch.gather(cells[..., l], -1, idx).to(torch.float32)
+    return tap
 
 
 def bilinear_lookup_limbs(limbs: torch.Tensor, points: torch.Tensor,
@@ -216,19 +239,94 @@ def bilinear_lookup_limbs(limbs: torch.Tensor, points: torch.Tensor,
     is ``Σ_l float(limb_l)`` summed in order l = 0..L-1 in float32, then the
     intended-mode blend and coordinate arithmetic of
     :func:`bilinear_lookup`.  Returns float32 d (B, P), grad (B, P, 2).
-    The plain version of K-LOOKUP-LIMB.
     """
     b, n_limbs, h, w = limbs.shape
-    flat = limbs.reshape(b, n_limbs, h * w)
+    cells = limbs.reshape(b, n_limbs, h * w).transpose(1, 2)
+    return _bilinear(_flat_taps(lambda idx: _limb_sum(cells, idx, n_limbs), w),
+                     points, torch.float32, h, w, res, x_lims, y_lims, False)
 
-    def take(idx):
-        tap = torch.gather(flat[:, 0], -1, idx).to(torch.float32)
-        for l in range(1, n_limbs):
-            tap = tap + torch.gather(flat[:, l], -1, idx).to(torch.float32)
-        return tap
 
-    return _bilinear(take, points, torch.float32, h, w, res, x_lims, y_lims,
-                     False)
+# The layout K-LOOKUP-LIMB reads, packed from the (B, L, H, W) limbs so that
+# one load brings every limb of a tap: (B, H, W, S), each grid cell holding
+# its L limbs side by side in S = 1, 2 or 4 slots (L = 3 leaves slot 3 at
+# zero and never sums it, so a -0.0 tap keeps its sign).
+_LIMBS_OF_SLOTS = {1: 1, 2: 2, 4: 3}
+
+
+def limb_pack(limbs: torch.Tensor) -> torch.Tensor:
+    """(B, L, H, W) bf16 limbs -> the packed (B, H, W, S) layout."""
+    b, n_limbs, h, w = limbs.shape
+    cells = limbs.new_zeros((b, h, w, 4 if n_limbs == 3 else n_limbs))
+    cells[..., :n_limbs] = limbs.permute(0, 2, 3, 1)
+    return cells
+
+
+def packed_grid(shape):
+    """``(B, H, W, L)`` of a packed limb layout's shape; raises on any
+    other shape."""
+    if len(shape) != 4 or shape[-1] not in _LIMBS_OF_SLOTS:
+        raise ValueError("a packed limb layout is (B, H, W, S) with S in 1, "
+                         f"2, 4; got {tuple(shape)}")
+    b, h, w, slots = shape
+    return b, h, w, _LIMBS_OF_SLOTS[slots]
+
+
+def bilinear_lookup_packed(packed: torch.Tensor, points: torch.Tensor,
+                           res: float, x_lims, y_lims):
+    """:func:`bilinear_lookup_limbs` read from the packed layout
+    (:func:`limb_pack`), bit for bit: the plain version of K-LOOKUP-LIMB."""
+    b, h, w, n_limbs = packed_grid(packed.shape)
+    cells = packed.reshape(b, h * w, -1)
+    return _bilinear(_flat_taps(lambda idx: _limb_sum(cells, idx, n_limbs), w),
+                     points, torch.float32, h, w, res, x_lims, y_lims, False)
+
+
+class LimbCache:
+    """The packed limb layouts of the SDFs the limb engines looked up last,
+    so that a plan splits its SDF once, not once per lookup: the H100 form
+    of XLA hoisting ``_limb_split`` out of the GN scan.
+
+    An entry is keyed by the SDF tensor's identity (a weakref) and
+    ``n_limbs``, and holds while the tensor's ``_version``, shape, dtype and
+    device are those it was split at.  It dies with the tensor (the weakref's
+    callback), so the cache never keeps a freed SDF's layout alive.  The
+    ``SIZE`` entries used last are kept: multistart looks up the K-tiled
+    pool and, beside it, the concatenation it scores."""
+
+    SIZE = 4
+
+    def __init__(self):
+        self._entries = collections.OrderedDict()
+
+    def get(self, sdf: torch.Tensor, n_limbs: int, split):
+        """The layout of ``sdf``: cached, or ``split(sdf, n_limbs)``."""
+        key = (id(sdf), n_limbs)
+        stamp = (sdf._version, sdf.shape, sdf.dtype, sdf.device)
+        entry = self._entries.get(key)
+        if entry is not None and entry[0]() is sdf and entry[1] == stamp:
+            self._entries.move_to_end(key)
+            return entry[2]
+        packed = split(sdf, n_limbs)
+        ref = weakref.ref(sdf, functools.partial(self._drop, key))
+        self._entries[key] = (ref, stamp, packed)
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.SIZE:
+            self._entries.popitem(last=False)
+        return packed
+
+    def _drop(self, key, ref):
+        entry = self._entries.get(key)
+        if entry is not None and entry[0] is ref:
+            del self._entries[key]
+
+    def __len__(self):
+        return len(self._entries)
+
+    def clear(self):
+        self._entries.clear()
+
+
+LIMB_CACHE = LimbCache()
 
 
 def trilinear_lookup(sdf: torch.Tensor, points: torch.Tensor, res: float,
@@ -344,8 +442,10 @@ def _world_lims(*lims):
 
 def lookup(sdf: torch.Tensor, points: torch.Tensor, res, x_lims, y_lims):
     """Device-dispatched bilinear lookup under the :func:`set_lookup_method`
-    engine (see the module docstring).  A limb engine refuses the
-    "reference" OOB mode: its TPU kernel has the intended semantics only."""
+    engine (see the module docstring).  A limb engine reads the SDF's packed
+    limbs from :data:`LIMB_CACHE` (split at the first lookup of this tensor)
+    and refuses the "reference" OOB mode: its TPU kernel has the intended
+    semantics only."""
     res = float(res)
     x_lims, y_lims = _world_lims(x_lims, y_lims)
     n_limbs = LIMB_ENGINES.get(_LOOKUP_METHOD)
@@ -357,7 +457,8 @@ def lookup(sdf: torch.Tensor, points: torch.Tensor, res, x_lims, y_lims):
             )
         from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_limbs as kernel
 
-        return kernel.limb_lookup(sdf, points, res, x_lims, y_lims, n_limbs)
+        packed = LIMB_CACHE.get(sdf, n_limbs, kernel.split)
+        return kernel.limb_lookup(sdf, packed, points, res, x_lims, y_lims)
     if sdf.device.type == "cpu" and points.device.type == "cpu":
         return bilinear_lookup(sdf, points, res, x_lims, y_lims)
     from dgpmp2_tpu_torch.ops.cuda import sdf_lookup as kernel

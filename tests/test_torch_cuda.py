@@ -27,9 +27,12 @@ def dev():
 
 
 def _spd(rng, b, t, d, dtype, dev):
+    """chip_smoke.spd_system's SPD system (off blocks scaled down above
+    D = 16)."""
     g = rng.standard_normal((b, t, d, d))
     diag = g @ np.swapaxes(g, -1, -2) * 0.1 + 4.0 * np.eye(d)
-    off = 0.3 * rng.standard_normal((b, t - 1, d, d))
+    off = 0.3 * min(1.0, (16 / d) ** 0.5) * rng.standard_normal(
+        (b, t - 1, d, d))
     rhs = rng.standard_normal((b, t, d))
     return [torch.tensor(a, dtype=dtype, device=dev) for a in (diag, off, rhs)]
 
@@ -127,7 +130,7 @@ def test_lookup_kernel_gradient_replays_plain(dev):
 
 
 def test_cuda_dispatch_raises_on_what_the_kernels_do_not_take(dev):
-    x = torch.zeros((2, 5, 3, 3), device=dev)
+    x = torch.zeros((2, 5, 33, 33), device=dev)
     with pytest.raises(ValueError, match="D="):
         tridiag.btd_solve_auto(x, x[:, 1:], x[..., 0])
     with pytest.raises(ValueError, match=r"\(B, H, W\)"):
@@ -204,17 +207,43 @@ def test_lookup3d_kernel_gradient_replays_plain(dev):
 
 @pytest.mark.parametrize("n_limbs", [1, 2, 3])
 def test_limb_kernel_matches_plain(dev, n_limbs):
+    """Bit-equal (tolerance 0) to the packed layout's plain reader and to
+    bilinear_lookup_limbs on the (B, L, H, W) limbs, far points and the
+    grid's last cell included."""
     rng = np.random.default_rng(6)
     sdf = torch.tensor(rng.standard_normal((3, 32, 32)), dtype=torch.float32,
                        device=dev)
-    pts = torch.tensor(np.concatenate([rng.uniform(-4.9, 4.9, (3, 40, 2)),
-                                       rng.uniform(-7, 7, (3, 10, 2))],
-                                      axis=1), dtype=torch.float32, device=dev)
-    limbs = tsdf.limb_split(sdf, n_limbs)
-    d_k, g_k = k_limbs.launch(limbs, pts, 10 / 32, LIMS, LIMS)
-    d_p, g_p = tsdf.bilinear_lookup_limbs(limbs, pts, 10 / 32, LIMS, LIMS)
-    assert float((d_k - d_p).abs().max()) <= 1e-5
-    assert float((g_k - g_p).abs().max()) <= 1e-3
+    pts = np.concatenate([rng.uniform(-4.9, 4.9, (3, 40, 2)),
+                          rng.uniform(-7, 7, (3, 10, 2))], axis=1)
+    pts[:, 0] = (1e10, -1e10)
+    pts[:, 1] = (4.9, -4.9)
+    pts = torch.tensor(pts, dtype=torch.float32, device=dev)
+    packed = k_limbs.split(sdf, n_limbs)
+    n = k_limbs.launches
+    d_k, g_k = k_limbs.launch(packed, pts, 10 / 32, LIMS, LIMS)
+    assert k_limbs.launches - n == 1
+    for d_p, g_p in (tsdf.bilinear_lookup_packed(packed, pts, 10 / 32, LIMS,
+                                                 LIMS),
+                     tsdf.bilinear_lookup_limbs(tsdf.limb_split(sdf, n_limbs),
+                                                pts, 10 / 32, LIMS, LIMS)):
+        assert torch.equal(d_k, d_p) and torch.equal(g_k, g_p)
+
+
+def test_limb_engine_splits_once_per_plan_on_the_card(dev):
+    """A 5-iteration plan under pallas_v3_2: one split of the SDF, six
+    K-LOOKUP-LIMB launches and no K-LOOKUP launch."""
+    import chip_smoke
+
+    imgs, start, goal = chip_smoke.bench_inputs(8)
+    bench = chip_smoke.port_problem(imgs, start, goal, dev, torch.float32)
+    counts = (k_limbs.splits, k_limbs.launches, k_lookup.launches)
+    tsdf.set_lookup_method("pallas_v3_2")
+    try:
+        gn.plan(*bench, gn.OptimConfig(reg=0.1, max_iters=5, tol_delta=0.0))
+    finally:
+        tsdf.set_lookup_method("auto")
+    after = (k_limbs.splits, k_limbs.launches, k_lookup.launches)
+    assert tuple(a - b for a, b in zip(after, counts)) == (1, 6, 0)
 
 
 def test_limb_engine_on_the_card_launches_and_replays_exact(dev):
@@ -426,11 +455,45 @@ def test_btd_kernel_at_d_10_and_16_matches_plain(dev, d, dtype, tol):
         assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= tol
 
 
-def test_btd_kernel_refuses_d_18(dev):
-    """D above 16 raises on the card, naming the supported set."""
-    x = torch.zeros((2, 5, 18, 18), device=dev)
-    with pytest.raises(ValueError, match=r"D in \(2, 4, 6, 8, 10, 12, 14, "
-                                         r"16\); got D=18"):
+@pytest.mark.parametrize("d", [1, 3, 17, 18, 24, 32])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-10)])
+def test_btd_kernel_at_odd_and_wide_d_matches_plain(dev, d, dtype, tol):
+    """Odd D (their own instances) and D = 17-32 (the wide kernel, one
+    problem per warp), at ragged batches and the shortest chains."""
+    for b, t in ((33, 21), (3, 1), (5, 2), (1000, 41)):
+        diag, off, rhs = _spd(np.random.default_rng(d + t), b, t, d, dtype,
+                              dev)
+        x_k = k_btd.launch(diag, off, rhs)
+        x_p = tridiag.btd_solve(diag, off, rhs)
+        assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("d", [17, 32])
+def test_btd_kernel_wide_reads_the_lower_triangle_and_differentiates(dev, d):
+    """The wide kernel reads the lower triangle of each diag block, and its
+    gradient is two launches of the implicit adjoint."""
+    diag, off, rhs = _spd(np.random.default_rng(12), 6, 7, d, torch.float64,
+                          dev)
+    noisy = diag + torch.triu(torch.randn_like(diag), diagonal=1)
+    x_p = tridiag.btd_solve(diag, off, rhs)
+    assert float((k_btd.launch(noisy, off, rhs) - x_p).abs().max()
+                 / x_p.abs().max()) <= 1e-10
+    a = [x.clone().requires_grad_(True) for x in (diag, off, rhs)]
+    c = [x.clone().requires_grad_(True) for x in (diag, off, rhs)]
+    xbar = torch.randn(rhs.shape, dtype=torch.float64, device=dev)
+    n = k_btd.launches
+    tridiag.btd_solve_auto(*a).backward(xbar)
+    assert k_btd.launches - n == 2
+    tridiag.btd_solve(*c).backward(xbar)
+    for u, v in zip(a, c):
+        assert float((u.grad - v.grad).abs().max()) <= 1e-10
+
+
+def test_btd_kernel_refuses_d_33(dev):
+    """D above 32 raises on the card, naming the limit."""
+    x = torch.zeros((2, 5, 33, 33), device=dev)
+    with pytest.raises(ValueError, match=r"D from 1 to 32; got D=33"):
         tridiag.btd_solve_auto(x, x[:, 1:].contiguous(), x[..., 0])
 
 

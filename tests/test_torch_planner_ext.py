@@ -141,6 +141,40 @@ def test_a_five_link_arm_plan_matches_jax():
     assert float(np_(got.err_final).mean()) < float(np_(got.err_init).mean())
 
 
+def test_a_nine_link_arm_gn_step_matches_jax():
+    """A 9-link arm (D=18, past the narrow K-BTD; chip_smoke.py's links,
+    3.8 m in all) from the arm YAMLs' weights: one float64 GN step, 1e-8."""
+    links = [0.6, 0.5, 0.5, 0.45, 0.4, 0.4, 0.35, 0.3, 0.3]
+    pp, gp, obs, opt, _, lims = yaml_setup("arm")
+    rd = {"type": "planar_arm", "link_lengths": links, "spheres_per_link": 2,
+          "sphere_radius": [0.25]}
+    pp = dict(pp, dof=9, state_dim=18)
+    gp = dict(gp, Q_c_inv=np.eye(9), q_min=[-2.8] * 9, q_max=[2.8] * 9)
+    opt = dict(opt, max_iters=1)
+    planner = DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(rd),
+                               dtype=F64, device="cpu")
+    j_planner = JPlanner(gp, obs, pp, opt, lims, j_make_robot(rd),
+                         dtype=jnp.float64)
+    assert planner.spec.state_dim == 18 and planner.robot.nlinks == 18
+    _, _, _, sdf = problem("arm")
+    rng = np.random.default_rng(9)
+    start, goal = np.zeros((B, 18)), np.zeros((B, 18))
+    start[:, :9] = rng.uniform(-0.4, 0.4, (B, 9))
+    goal[:, :9] = rng.uniform(-0.4, 0.4, (B, 9))
+    start[:, 0] -= 2.0
+    goal[:, 0] += 1.6
+    alpha = np.linspace(0.0, 1.0, T + 1)[None, :, None]
+    pos = start[:, None, :9] * (1 - alpha) + goal[:, None, :9] * alpha
+    vel = np.broadcast_to(((goal - start)[:, :9] / 10.0)[:, None], pos.shape)
+    args = (np.concatenate([pos, vel], -1), start, goal, sdf)
+    got, want = planner.plan(*args), j_planner.plan(*args)
+    for name in ("th", "err_init", "err_final", "err_per_iter"):
+        np.testing.assert_allclose(np_(getattr(got, name)),
+                                   np_(getattr(want, name)), rtol=1e-8,
+                                   atol=1e-8, err_msg=name)
+    assert float(np_(got.err_final).mean()) < float(np_(got.err_init).mean())
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_step_and_error_functionals_match_jax(kind):
     planner, j_planner = planners(kind)

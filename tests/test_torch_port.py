@@ -88,7 +88,8 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     with pytest.raises(ValueError, match="CUDA"):
         k_btd.launch(d, off, rhs)
     with pytest.raises(ValueError, match="D="):
-        k_btd.launch(d[..., :3, :3].contiguous(), off[..., :3, :3], rhs[..., :3])
+        k_btd.launch(torch.zeros((2, 5, 33, 33)), torch.zeros((2, 4, 33, 33)),
+                     torch.zeros((2, 5, 33)))
     sdf = torch.zeros((2, 8, 8), dtype=torch.float64)
     pts = torch.zeros((2, 3, 2), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
@@ -109,15 +110,16 @@ def test_new_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
         k_lookup3d.launch(sdf, pts, 10 / 8, lims, lims, lims)
     with pytest.raises(ValueError, match=r"\(B, D, H, W\)"):
         k_lookup3d.launch(sdf[0], pts, 10 / 8, lims, lims, lims)
-    limbs = tsdf.limb_split(sdf[:, 0], 2)
+    packed = k_limbs.split(sdf[:, 0], 2)
     pts2 = torch.zeros((2, 3, 2), dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
-        k_limbs.launch(limbs, pts2, 10 / 8, lims, lims)
-    with pytest.raises(ValueError, match="L in 1..3"):
-        k_limbs.launch(limbs.repeat(1, 2, 1, 1), pts2, 10 / 8, lims, lims)
+        k_limbs.launch(packed, pts2, 10 / 8, lims, lims)
+    with pytest.raises(ValueError, match="packed limb layout"):
+        k_limbs.launch(packed[..., :1].repeat(1, 1, 1, 3), pts2, 10 / 8, lims,
+                       lims)
     # The dispatchers take the plain versions for CPU tensors.
     tsdf.lookup_nd(sdf, pts, 10 / 8, lims, lims, lims)
-    k_limbs.limb_lookup(sdf[:, 0], pts2, 10 / 8, lims, lims, 1)
+    k_limbs.limb_lookup(sdf[:, 0], packed, pts2, 10 / 8, lims, lims)
     assert k_lookup3d.launches == 0 and k_limbs.launches == 0
 
 

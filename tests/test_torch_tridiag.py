@@ -20,16 +20,18 @@ torch.set_num_threads(1)
 
 
 def spd_system(seed, b=3, t=12, d=4):
-    """Block-diagonally dominant SPD system (numpy float64)."""
+    """Block-diagonally dominant SPD system (numpy float64); above D = 16
+    the off blocks shrink as D^-½, as in chip_smoke.spd_system."""
     rng = np.random.default_rng(seed)
     g = rng.standard_normal((b, t, d, d))
     diag = g @ np.swapaxes(g, -1, -2) * 0.1 + 4.0 * np.eye(d)
-    off = 0.3 * rng.standard_normal((b, t - 1, d, d))
+    off = 0.3 * min(1.0, (16 / d) ** 0.5) * rng.standard_normal(
+        (b, t - 1, d, d))
     rhs = rng.standard_normal((b, t, d))
     return diag, off, rhs
 
 
-@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 16])
+@pytest.mark.parametrize("d", [2, 3, 4, 6, 8, 10, 16, 18, 32])
 def test_btd_solve_matches_jax_f64(d):
     diag, off, rhs = spd_system(0, d=d)
     x_t = tt.btd_solve(*(torch.tensor(a) for a in (diag, off, rhs)))
@@ -56,7 +58,7 @@ def test_btd_solve_f32_matches_pallas_interpret():
     assert _rel(x_t, btd_solve_stream(*args, interpret=True, chunk=4)) < 1e-4
 
 
-@pytest.mark.parametrize("d", [2, 4, 6, 8, 10, 16])
+@pytest.mark.parametrize("d", [2, 3, 4, 6, 8, 10, 16, 18, 32])
 def test_btd_solve_vjp_matches_jax_f64(d):
     """The implicit adjoint (diag, off and rhs cotangents): 1e-9."""
     diag, off, rhs = spd_system(2, d=d)

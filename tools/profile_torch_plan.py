@@ -2,14 +2,17 @@
 """Where the time of one GN iteration of the PyTorch port goes, on a GPU.
 
     python3 tools/profile_torch_plan.py [--iters 20] [--out build/profile]
-        [--problem 2d|3d|arm2|xyh|task|gp_inter|arm4|arm5]
+        [--problem 2d|3d|arm2|xyh|task|gp_inter|arm4|arm5|arm9]
+        [--lookup ENGINE]
 
 At one of ``chip_smoke.py``'s B=1024 float32 problems: the 2-D bench problem
 (default; T=100, 128x128), the 3-D one (PointRobot3D, 64^3 voxels), the
 2-link arm (T=40, self-collision, joint limits), the heading robot (D=6,
 nonholonomic), the task-space 3-link arm (workspace goal, LM), the bench
 problem with GP interpolation and velocity limits, the 4-link arm (D=8,
-T=40) or the 5-link arm (D=10, T=40):
+T=40), the 5-link arm (D=10, T=40) or the 9-link arm (D=18, T=40); a 2-D
+problem under the lookup engine ``--lookup`` (``ops.sdf.set_lookup_method``,
+default "auto"; "pallas_v3_1" for K-LOOKUP-LIMB):
 
 * each layer of one iteration timed alone with CUDA events (median of 20):
   residuals with the lookup, assembly, damping, the solve, and the
@@ -35,6 +38,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 from dgpmp2_tpu_torch.core import gn, graph  # noqa: E402
+from dgpmp2_tpu_torch.ops import sdf as sdf_ops  # noqa: E402
 from dgpmp2_tpu_torch.ops import tridiag  # noqa: E402
 
 
@@ -77,7 +81,8 @@ def layer_times(bench, reg=0.1):
 CONSTRAINED = {"arm2": "2-link arm", "xyh": "heading robot",
                "task": "task-space 3-link arm",
                "gp_inter": "GP interpolation + velocity limits",
-               "arm4": "4-link arm", "arm5": "5-link arm"}
+               "arm4": "4-link arm", "arm5": "5-link arm",
+               "arm9": "9-link arm"}
 
 
 def main():
@@ -86,7 +91,9 @@ def main():
     ap.add_argument("--out", default="build/profile")
     ap.add_argument("--problem", default="2d",
                     choices=["2d", "3d", *CONSTRAINED])
+    ap.add_argument("--lookup", default="auto")
     args = ap.parse_args()
+    sdf_ops.set_lookup_method(args.lookup)
     smi = cs.device_info()
     dev = torch.device("cuda", 0)
     cfg = gn.OptimConfig(reg=0.1, max_iters=args.iters, tol_delta=0.0)
@@ -106,7 +113,8 @@ def main():
         print(f"  {k:18s} {v:.4f}")
 
     prof, rec = cs.profile_plan(bench, cfg)
-    print(f"[{smi}] profiled plan of {args.iters} iterations: wall "
+    print(f"[{smi}] profiled plan of {args.iters} iterations (lookup engine "
+          f"{args.lookup}): wall "
           f"{rec['wall_ms']:.3f} ms, device busy {rec['busy_ms']:.3f} ms "
           f"({rec['busy_ms'] / rec['wall_ms']:.3f} of wall), {rec['ops']} "
           f"device operations ({rec['ops'] / args.iters:.1f} per iteration)")
@@ -121,8 +129,8 @@ def main():
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out,
-                                          f"plan_{args.problem}_trace.json"))
+    prof.export_chrome_trace(os.path.join(
+        args.out, f"plan_{args.problem}_{args.lookup}_trace.json"))
 
 
 if __name__ == "__main__":

@@ -11,13 +11,17 @@ The kernels come from the ``dgpmp2_tpu_torch`` package under ``--repo``
 archive <rev> dgpmp2_tpu_torch | tar -x -C DIR``).  Problems and timing
 helpers come from this checkout's ``chip_smoke.py``: each lookup is timed
 on the lookup a path makes (``chip_smoke.path_lookups``), K-BTD at
-``chip_smoke.BTD_TIMED``, K-LOOKUP-LIMB at L=1; each record holds
-``chip_smoke.kernel_ms``'s times (device-only, CUDA graph, host-inclusive
-events, host µs per ``launch()``), the host µs per ``ops.sdf.lookup_nd``
-call for the lookups, and the bound.  ``--gn`` adds ms per GN iteration
-of the 2-D, 3-D, 2- and 4-link arm and heading-robot plans
-(``chip_smoke.plan_ms``) and a profiled 20-iteration plan of each
-(``chip_smoke.profile_plan``).  Prints one line per record with the
+``chip_smoke.BTD_TIMED`` and ``BTD_WIDE_TIMED`` (D = 18, 32; skipped by a
+tree whose K-BTD refuses them), K-LOOKUP-LIMB at L = 1, 2, 3 on the 2-D
+paths' lookups ``chip_smoke.LIMB_SHAPES`` with the time of the tree's
+split of the SDF (the packed limbs, or in a tree from before them the
+(B, L, H, W) limb planes); each record holds ``chip_smoke.kernel_ms``'s
+times (device-only, CUDA graph, host-inclusive events, host µs per
+``launch()``), the host µs per ``ops.sdf.lookup_nd`` call for the lookups
+(under the limb engine of its L for K-LOOKUP-LIMB), and the bound.
+``--gn`` adds ms per GN iteration of the 2-D (also under ``pallas_v3_1``),
+3-D, 2- and 4-link arm and heading-robot plans (``chip_smoke.plan_ms``)
+and a profiled 20-iteration plan of each (``chip_smoke.profile_plan``).  Prints one line per record with the
 card's name and power limit and writes ``time_kernels_<label>.json`` under
 ``--out``.  Imports no JAX.
 """
@@ -54,13 +58,43 @@ def timed(cs, smi, records, rec, launch, kernel, entry=None):
           flush=True)
 
 
+# K-LOOKUP-LIMB's engine of each L.
+LIMB_ENGINES = {1: "pallas_v3_1", 2: "pallas_v3_2", 3: "pallas_v3"}
+
+
+def time_limbs(cs, smi, records, lookups):
+    """K-LOOKUP-LIMB at L = 1, 2, 3 on ``chip_smoke.LIMB_SHAPES``."""
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_limbs
+
+    split = getattr(sdf_lookup_limbs, "split", sdf_ops.limb_split)
+    for name in cs.LIMB_SHAPES:
+        sdf, pts, res, xl, yl = lookups[name]
+        b, p = pts.shape[:2]
+        for n in (1, 2, 3):
+            limbs = split(sdf, n)
+            rec = {"shape": f"L={n} {name}", "B": b, "P": p, "L": n,
+                   "split_ms": cs.cuda_ms(lambda n=n: split(sdf, n), reps=10),
+                   **cs.lookup_bound(b * p, 2, 4, 2 * n, torch.float32)}
+            sdf_ops.set_lookup_method(LIMB_ENGINES[n])
+            try:
+                timed(cs, smi, records, rec,
+                      lambda a=(limbs, pts, res, xl, yl):
+                      sdf_lookup_limbs.launch(*a),
+                      "sdf_lookup_limbs_kernel",
+                      lambda a=(sdf, pts, res, xl, yl): sdf_ops.lookup_nd(*a))
+            finally:
+                sdf_ops.set_lookup_method("auto")
+            del limbs
+
+
 def time_kernels(cs, dev, smi):
     from dgpmp2_tpu_torch.ops import sdf as sdf_ops
-    from dgpmp2_tpu_torch.ops.cuda import (btd_solve, sdf_lookup,
-                                           sdf_lookup3d, sdf_lookup_limbs)
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve, sdf_lookup, sdf_lookup3d
 
     records = []
-    for name, args in cs.path_lookups(dev).items():
+    lookups = cs.path_lookups(dev)
+    for name, args in lookups.items():
         sdf, points = args[:2]
         ndim = points.shape[-1]
         k, kernel = ((sdf_lookup, "sdf_lookup_kernel") if ndim == 2
@@ -72,51 +106,55 @@ def time_kernels(cs, dev, smi):
         timed(cs, smi, records, rec,
               lambda k=k, args=args: k.launch(*args, "intended"), kernel,
               lambda args=args: sdf_ops.lookup_nd(*args))
+    time_limbs(cs, smi, records, lookups)
+    del lookups
     rng = np.random.default_rng(1)
-    for label, b, t, d, dtype in cs.BTD_TIMED:
+    for label, b, t, d, dtype in cs.BTD_TIMED + cs.BTD_WIDE_TIMED:
         diag, off, rhs = cs.spd_system(rng, b, t, d, dtype, dev)
+        try:
+            btd_solve.launch(diag, off, rhs)
+        except ValueError as e:
+            print(f"K-BTD {label} D={d}: not taken by this tree ({e})")
+            continue
         bound_ms, bound_by = cs.btd_bound(b, t, d, dtype)
         rec = {"shape": label, "B": b, "T": t, "D": d, "dtype": str(dtype),
                "bound_ms": bound_ms, "bound_by": bound_by}
         timed(cs, smi, records, rec,
               lambda a=(diag, off, rhs): btd_solve.launch(*a),
               "btd_solve_kernel")
-    sdf = torch.tensor(rng.standard_normal((cs.B, cs.IMSIZE, cs.IMSIZE)),
-                       dtype=torch.float32, device=dev)
-    pts = torch.tensor(cs.lookup_points(rng, cs.T + 1, 2),
-                       dtype=torch.float32, device=dev)
-    limbs = sdf_ops.limb_split(sdf, 1)
-    rec = {"shape": "L=1 uniform random points", "B": cs.B, "P": cs.T + 1,
-           "dtype": "torch.float32",
-           **cs.lookup_bound(cs.B * (cs.T + 1), 2, 4, 2, torch.float32)}
-    timed(cs, smi, records, rec,
-          lambda: sdf_lookup_limbs.launch(limbs, pts, 10.0 / cs.IMSIZE,
-                                          cs.LIMS, cs.LIMS),
-          "sdf_lookup_limbs_kernel")
     return records
 
 
 def time_gn(cs, dev, smi):
-    """ms per GN iteration of five paths (``chip_smoke.plan_ms``), and a
+    """ms per GN iteration of six paths (``chip_smoke.plan_ms``), and a
     profiled 20-iteration plan of each (``chip_smoke.profile_plan``)."""
     from dgpmp2_tpu_torch.core import gn
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
 
     bench_np = cs.bench_inputs(cs.B)
     constrained = cs.constrained_problems(dev, bench_np)
+    bench2d = lambda: cs.port_problem(*bench_np, dev, torch.float32)  # noqa: E731
+    # key -> (problem, 2-D lookup engine)
     problems = {
-        "": lambda: cs.port_problem(*bench_np, dev, torch.float32),
-        "_3d": lambda: cs.port_problem(*cs.bench3d_inputs(cs.B, dev), dev,
-                                       torch.float32),
-        "_arm2": lambda: cs.problem_of(*constrained["2-link arm"]),
-        "_xyh": lambda: cs.problem_of(*constrained["heading robot"]),
-        "_arm4": lambda: cs.problem_of(*constrained["4-link arm"]),
+        "": (bench2d, "auto"),
+        "_v3_1": (bench2d, "pallas_v3_1"),
+        "_3d": (lambda: cs.port_problem(*cs.bench3d_inputs(cs.B, dev), dev,
+                                        torch.float32), "auto"),
+        "_arm2": (lambda: cs.problem_of(*constrained["2-link arm"]), "auto"),
+        "_xyh": (lambda: cs.problem_of(*constrained["heading robot"]),
+                 "auto"),
+        "_arm4": (lambda: cs.problem_of(*constrained["4-link arm"]), "auto"),
     }
     cfg = gn.OptimConfig(reg=0.1, max_iters=20, tol_delta=0.0)
     out, prof = {}, {}
-    for key, make in problems.items():
+    for key, (make, engine) in problems.items():
         bench = make()
-        t50, t200, out[key] = cs.plan_ms(bench)
-        prof[key] = cs.profile_plan(bench, cfg)[1]
+        sdf_ops.set_lookup_method(engine)
+        try:
+            t50, t200, out[key] = cs.plan_ms(bench)
+            prof[key] = cs.profile_plan(bench, cfg)[1]
+        finally:
+            sdf_ops.set_lookup_method("auto")
         print(f"[{smi}] gn_iter_ms_b1024{key} {out[key]:.4f} (50 iterations "
               f"{t50:.3f} ms, 200 iterations {t200:.3f} ms); profiled 20 "
               f"iterations {json.dumps(prof[key])}", flush=True)
