@@ -7,12 +7,16 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
 2. build the four CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc,
-   printing every kernel's registers and spills (34 K-BTD instances: D = 1
-   to 16 and the wide kernel of D = 17-32, in two dtypes);
+   printing every kernel's registers and spills (36 K-BTD instances: D = 1
+   to 16, the wide kernel of D = 17-32 and the block kernel of D > 32, in
+   two dtypes);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: K-BTD at every D from 1 to 32 (B=1024; T=101 up to D=8,
    T=41 above) in float32 and float64 on random SPD systems and at the
-   edge shapes B in {1, 1000, 4096} x T in {1, 2, 41}, then on the bench
+   edge shapes B in {1, 1000, 4096} x T in {1, 2, 41}, past D = 32 at
+   D = 33, 40, 48, 64 and at the largest D whose rows fit the card's shared
+   memory and the next (B=1024, T=41, both dtypes, each timed beside its
+   bound and its plain version), then on the bench
    problem's own system, then timed at the paths' shapes (2-D, 3-D,
    multistart pool, plan_batch, 4-link arm) beside its bound and
    ``torch.linalg.solve`` on the dense Λ, and at D = 18 and 32 (B=1024,
@@ -32,8 +36,9 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
    host µs per ``launch()`` call, its bound and its plain version;
 4. float64 plans on the small goldens that the JAX package wrote
    (``tests/goldens/torch_port_plan_small.npz``, ``..._plan3d_small.npz``,
-   and ``..._plan_ext_small.npz``: the 2-link arm, the task-space 3-link
-   arm, the heading robot and GP interpolation with velocity limits);
+   ``..._plan_ext_small.npz``: the 2-link arm, the task-space 3-link
+   arm, the heading robot and GP interpolation with velocity limits; and
+   ``..._learned_small.npz``: the learned planner, feed-forward and GRU);
 5. the 2-D main path: the bench.py problem at B=1024 in float32 through
    ``DiffGPMP2Planner.plan`` (YAML configs) and ``core.gn.plan``;
 6. the 3-D path: B=1024 PointRobot3D problems in 64^3 voxel worlds built
@@ -47,15 +52,28 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
    joint limits), the heading robot (nonholonomic, D=6), the task-space
    3-link arm (workspace goal, self-collision, joint limits, D=6), the
    bench problem with GP interpolation and velocity limits, the 4-link arm
-   (D=8), the 5-link arm (D=10, 20 iterations) and the 9-link arm (D=18,
-   20 LM iterations, every problem improved); then
+   (D=8), the 5-link arm (D=10, 20 iterations), the 9-link arm (D=18,
+   20 LM iterations, every problem improved) and the 17-link arm (D=34,
+   the block K-BTD, 20 LM iterations, every problem improved); then
    ``GPMP2Planner.plan_batch`` (LM, float64) on B=256 bench problems;
 9. multistart: the ``benchmarks/bench_multistart.py`` problem (B=256, K=16)
    through ``GPMP2Planner.plan_multistart``, full pool and staged, for four
    seeds of the perturbation draws;
 10. timing with CUDA events: ms per GN iteration in 2-D (also under
     ``pallas_v3_1``), 3-D, for the 2- and 4-link arms and the heading
-    robot, ms per multistart batch, and each kernel's times from phase 3.
+    robot, ms per multistart batch, ms per learned GN iteration (B=1024,
+    T=100) and the learned encoder's ms per plan, and each kernel's times
+    from phase 3;
+11. the learned planner (``LearnedDiffGPMP2Planner``) at full width in
+    float32: the 2-D campaign configuration (bounded eps, feed-forward
+    head, B=1024, 128x128, 50 GN iterations, ``track_best``; its first 5
+    iterations at static init against ``core.gn.plan`` with the static
+    covariances), the GRU head with random weights, the 3-D path
+    (PointRobot3D, 32^3 voxels built on the card, T=20, LM, ConvEncoder3D),
+    ``plan_multistart`` (B=256, K=16, full and staged) on the multistart
+    problem; then the gradient of ``err_ext`` with respect to every weight
+    (B=64, 5 iterations, float64) on the card against the same on the CPU,
+    with the head's output decoded in float64 and, as shipped, in float32.
 
 Every time printed carries the card's name and power limit.
 
@@ -81,6 +99,7 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "torch_port_plan_small.npz"
 GOLDEN3D = ROOT / "tests" / "goldens" / "torch_port_plan3d_small.npz"
 GOLDEN_EXT = ROOT / "tests" / "goldens" / "torch_port_plan_ext_small.npz"
+GOLDEN_LEARNED = ROOT / "tests" / "goldens" / "torch_port_learned_small.npz"
 CONFIGS = ROOT / "dgpmp2_tpu" / "configs"
 B, T, IMSIZE, VOX = 1024, 100, 128, 64
 LIMS = (-5.0, 5.0)
@@ -121,8 +140,9 @@ def build():
     for name, regs, spill_st, spill_ld, smem in rows:
         print(f"ptxas {kernel_name(name)}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B, shared {smem} B")
-    # Each D of the narrow kernel and the wide kernel, in two dtypes.
-    want = 2 * (BTD_NARROW + 1)
+    # Each D of the narrow kernel, the wide and the block kernel, in two
+    # dtypes.
+    want = 2 * (BTD_NARROW + 2)
     n_btd = sum("btd_solve_kernel" in r[0] for r in rows)
     if n_btd != want:
         raise AssertionError(f"ptxas reported {n_btd} K-BTD kernels, not "
@@ -276,19 +296,25 @@ def kernel_ms(record, kernel, plain, name, plain_reps=5):
 
 
 def profile_plan(bench, cfg):
-    """``gn.plan(*bench, cfg)`` once under ``torch.profiler``, after a
-    warm-up: the profiler, and a record of the wall ms, the device-busy ms,
-    the device operations and, for each of the port's kernels that ran,
-    its launches, device µs per launch and share of the device time."""
+    """``gn.plan(*bench, cfg)`` under :func:`profile_run`."""
     from dgpmp2_tpu_torch.core import gn
+
+    return profile_run(lambda: gn.plan(*bench, cfg))
+
+
+def profile_run(run):
+    """``run()`` once under ``torch.profiler``, after a warm-up: the
+    profiler, and a record of the wall ms, the device-busy ms, the device
+    operations and, for each of the port's kernels that ran, its launches,
+    device µs per launch and share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    gn.plan(*bench, cfg)
+    run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        gn.plan(*bench, cfg)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # Kernel rows only: an op's row repeats the device time of its kernels.
@@ -337,18 +363,21 @@ def bench_inputs(b: int, seed: int = 0):
     return imgs, start, goal
 
 
-def bench3d_inputs(b: int, dev, seed: int = 0):
+def bench3d_inputs(b: int, dev, seed: int = 0, vox: int = VOX):
     """benchmarks/bench_throughput.py:109-146's 3-D worlds, carved on
     ``dev``: one 12^3 box per 64^3 occupancy grid (uint8, 1 = free), starts
-    near (-4, -4, -4) and goals near (4, 4, 4)."""
+    near (-4, -4, -4) and goals near (4, 4, 4); at another ``vox`` the box
+    and its placement scale with the grid."""
     rng = np.random.default_rng(seed)
-    r = torch.tensor(rng.integers(10, VOX - 22, (b, 3)), device=dev)
+    edge = 12 * vox // 64
+    r = torch.tensor(rng.integers(10 * vox // 64, vox - 22 * vox // 64,
+                                  (b, 3)), device=dev)
     start = np.zeros((b, 6))
     start[:, :3] = rng.uniform(-4.5, -3.5, (b, 3))
     goal = np.zeros((b, 6))
     goal[:, :3] = rng.uniform(3.5, 4.5, (b, 3))
-    ax = torch.arange(VOX, device=dev)
-    inside = [(ax >= r[:, i:i + 1]) & (ax < r[:, i:i + 1] + 12)
+    ax = torch.arange(vox, device=dev)
+    inside = [(ax >= r[:, i:i + 1]) & (ax < r[:, i:i + 1] + edge)
               for i in range(3)]
     box = (inside[0][:, :, None, None] & inside[1][:, None, :, None]
            & inside[2][:, None, None, :])
@@ -445,6 +474,52 @@ def golden_ext_plan(dev, case, g):
     return gn.plan(planner.spec, planner.robot, params, th0, sdf, planner.cfg)
 
 
+def learned_golden_plan(dev, case, g):
+    """Plan one case of the learned golden in float64 on ``dev``: the
+    weights remade from the stored seed and flax tree shapes about the
+    head's static init, as the JAX package's were.  Returns ``(th, errs,
+    errs_ext)``."""
+    from dgpmp2_tpu_torch import convert
+    from dgpmp2_tpu_torch.core import gn
+    from dgpmp2_tpu_torch.learn.learned_planner import (
+        LearnedDiffGPMP2Planner, LearnedPlannerConfig)
+
+    cfg = json.loads(str(g[f"{case}_config"]))
+    lkw = dict(cfg["learn"], static_init=tuple(cfg["learn"]["static_init"]))
+    spec, robot, params, th0, sdf = port_problem(
+        g[f"{case}_images"], g[f"{case}_start"], g[f"{case}_goal"], dev,
+        torch.float64, cfg["T"], cfg["cost_sigma"], cfg["epsilon_dist"],
+        cfg["k_s"], cfg["k_g"])
+    planner = LearnedDiffGPMP2Planner(
+        spec, robot, gn.OptimConfig(reg=cfg["reg"], max_iters=cfg["iters"],
+                                    method=cfg["method"]),
+        LearnedPlannerConfig(**lkw, dtype=torch.float64), device=dev)
+    im = torch.tensor(g[f"{case}_images"], dtype=torch.float64, device=dev)
+    shapes = json.loads(str(g[f"{case}_shapes"]))
+    tree = convert.seeded_flax_tree(shapes, int(g[f"{case}_seed"]),
+                                    convert.learned_out_path(shapes),
+                                    planner.out_bias)
+    variables = planner.load_variables(convert.learned_state_from_flax(tree),
+                                       planner.stack_inputs(im, sdf), th0)
+    with torch.no_grad():
+        th, errs, errs_ext, _ = planner.plan(variables, params, th0, sdf, im,
+                                             track_best=cfg["track_best"])
+    return th, errs, errs_ext
+
+
+def learned_golden_errors(dev, path=GOLDEN_LEARNED) -> dict:
+    """case -> relative max-abs errors of the port's learned plans against
+    the learned golden."""
+    g = dict(np.load(path))
+    out = {}
+    for case in g["cases"]:
+        got = learned_golden_plan(dev, case, g)
+        out[str(case)] = {
+            name: rel_err(x.detach().cpu(), torch.tensor(g[f"{case}_{name}"]))
+            for name, x in zip(("th", "errs", "errs_ext"), got)}
+    return out
+
+
 def spd_system(rng, b, t, d, dtype, dev):
     """Block-diagonally dominant SPD system: off blocks N(0, s²) with
     s = 0.3 up to D = 16 and 0.3·(16/D)^½ above (the norm of an off block
@@ -465,8 +540,12 @@ def spd_system(rng, b, t, d, dtype, dev):
     return [a.to(dtype) for a in (diag, off, normal(b, t, d))]
 
 
-BTD_D = tuple(range(1, 33))  # every D K-BTD takes
+BTD_D = tuple(range(1, 33))  # every D of the narrow and the wide kernel
 BTD_NARROW = 16  # D = 1-16: one instance each; D = 17-32: the wide kernel
+# Past D = 32, the block kernel: arms of 17, 20, 24 and 32 links, then the
+# largest D whose rows fit the card's shared memory and the next (global
+# scratch rows), found from the kernel library at run time.
+BTD_BLOCK_D = (33, 40, 48, 64)
 # Ragged and edge shapes: a lone problem, a batch that leaves the last warp
 # partly empty, the multistart pool; one block solve, one Schur step, the
 # arm's T.
@@ -579,6 +658,57 @@ def check_btd(dev, record, bench, smi):
         print(line)
         if label == "2-D":
             record.update(rec)
+    check_btd_block(dev, smi, rng)
+
+
+def btd_smem_max(k, dev):
+    """The largest D whose block-kernel rows fit the card's shared memory."""
+    d = BTD_D[-1] + 1
+    while k.scratch_bytes(d + 1, dev) == 0:
+        d += 1
+    return d
+
+
+def check_btd_block(dev, smi, rng):
+    """K-BTD past D = 32 (the block kernel) against its plain version at
+    B=1024, T=41 in both dtypes, at BTD_BLOCK_D and the shared-memory limit
+    and one above it, each timed beside its bound.  Tolerance, relative to
+    the plain version: 1e-13 in float64, 1e-6 in float32 (the kernel works
+    in float64 there; both are also held against the float64 solve)."""
+    from dgpmp2_tpu_torch.ops import tridiag
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve as k
+
+    t = 41
+    top = btd_smem_max(k, dev)
+    for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-13)):
+        for d in BTD_BLOCK_D + (top, top + 1):
+            system = spd_system(rng, B, t, d, dtype, dev)
+            x_k = k.launch(*system)
+            x_p = tridiag.btd_solve(*system)
+            err = rel_err(x_k, x_p)
+            extra = ""
+            if dtype == torch.float32:
+                x64 = tridiag.btd_solve(*(a.double() for a in system))
+                e_k, e_p = rel_err(x_k.double(), x64), rel_err(x_p.double(), x64)
+                extra = (f"; against the float64 solve: kernel {e_k:.3e}, "
+                         f"plain {e_p:.3e}")
+                del x64
+            where = ("global scratch" if k.scratch_bytes(d, dev)
+                     else "shared memory")
+            print(f"K-BTD block D={d} {dtype} B={B} T={t} (rows in {where}): "
+                  f"max rel err vs plain {err:.3e} (tol {tol:g}){extra}")
+            if not err <= tol:
+                raise AssertionError(f"K-BTD block {dtype} D={d}: {err}")
+            ms = device_ms(lambda: k.launch(*system), "btd_solve_kernel",
+                           reps=3)
+            plain = cuda_ms(lambda: tridiag.btd_solve(*system), reps=2,
+                            warmup=1)
+            bms, by = btd_bound(B, t, d, dtype)
+            print(f"[{smi}] K-BTD block D={d} B={B} T={t} {dtype}: "
+                  f"device-only {ms:.4f} ms (profiler, L2 flushed); bound "
+                  f"{bms:.4f} ms ({by}), share of bound {bms / ms:.4f}; "
+                  f"plain {plain:.4f} ms")
+            del system, x_k, x_p
 
 
 def check_btd_bench_system(name, bench):
@@ -946,8 +1076,11 @@ def check_golden(dev):
     g = dict(np.load(GOLDEN_EXT))
     runs += [(f"{GOLDEN_EXT.name}:{case}", golden_ext_plan(dev, case, g), g,
               f"{case}_") for case in g["cases"]]
-    for name, out, gold, prefix in runs:
-        errs = golden_errors(out, gold, prefix)
+    checks = [(name, golden_errors(out, gold, prefix))
+              for name, out, gold, prefix in runs]
+    checks += [(f"{GOLDEN_LEARNED.name}:{case}", errs) for case, errs in
+               learned_golden_errors(dev).items()]
+    for name, errs in checks:
         print(f"{name} relative errors " + json.dumps(errs))
         bad = {k: v for k, v in errs.items() if not v <= 1e-8}
         if bad:
@@ -1263,6 +1396,20 @@ def constrained_problems(dev, bench_np):
                 opt=dict(max_iters=20, method="lm")),
         joint_states(rng, B, 9, (-2.0,) + (0.0,) * 8, 0.4),
         joint_states(rng, B, 9, (1.6,) + (0.0,) * 8, 0.4), None, sdf)
+    # 17-link arm (D=34, the block K-BTD), 20 LM iterations: the 9-link
+    # arm's link profile resampled at 17 links and scaled to the same 3.8 m.
+    links17 = np.interp(np.linspace(0, 8, 17), np.arange(9), links)
+    links17 = (links17 * 3.8 / links17.sum()).tolist()
+    out["17-link arm"] = (
+        planner(arm_yamls,
+                {"type": "planar_arm", "link_lengths": links17,
+                 "spheres_per_link": 2, "sphere_radius": [0.25]},
+                pp=dict(dof=17, state_dim=34),
+                gp=dict(Q_c_inv=np.eye(17), q_min=[-2.8] * 17,
+                        q_max=[2.8] * 17),
+                opt=dict(max_iters=20, method="lm")),
+        joint_states(rng, B, 17, (-2.0,) + (0.0,) * 16, 0.4),
+        joint_states(rng, B, 17, (1.6,) + (0.0,) * 16, 0.4), None, sdf)
     return out
 
 
@@ -1296,9 +1443,12 @@ def constrained(dev, bench_np):
             run = lambda: gn.plan(spec, robot, params, th0, sdf,  # noqa: E731
                                   planner.cfg)
         out, _ = drive(name, run, {"btd_solve": n, "sdf_lookup": n + 1})
-        # The 9-link arm must improve every problem.
+        # The 9- and 17-link arms must improve every problem.
         check_plan(name, out, n, spec.dof, spec.total_time_step,
-                   1.0 if name == "9-link arm" else 0.95)
+                   1.0 if name in ("9-link arm", "17-link arm") else 0.95)
+        if spec.use_self_collision:
+            print(f"{name}: D={spec.state_dim}, {spec.num_self_pairs} "
+                  f"self-collision pairs")
         problems[name] = prob
         if wg is not None:
             centers, _ = robot.fk(out.th)
@@ -1393,17 +1543,67 @@ def multistart(dev):
     return run
 
 
+def iter_ms(run):
+    """ms per GN iteration of ``run(n)``, a plan of n iterations:
+    (200-iteration plan - 50-iteration plan) / 150, each the median of 5
+    CUDA-event runs after one warm-up."""
+    t50, t200 = (cuda_ms(lambda: run(n), reps=5, warmup=1) for n in (50, 200))
+    return t50, t200, (t200 - t50) / 150.0
+
+
 def plan_ms(bench):
-    """ms per GN iteration: (200-iteration plan - 50-iteration plan) / 150,
-    each the median of 5 CUDA-event runs after one warm-up."""
+    """ms per GN iteration of ``core.gn.plan`` (:func:`iter_ms`)."""
     from dgpmp2_tpu_torch.core import gn
 
-    def run(n):
-        cfg = gn.OptimConfig(reg=0.1, max_iters=n, tol_delta=0.0)
-        return cuda_ms(lambda: gn.plan(*bench, cfg), reps=5, warmup=1)
+    return iter_ms(lambda n: gn.plan(*bench, gn.OptimConfig(
+        reg=0.1, max_iters=n, tol_delta=0.0)))
 
-    t50, t200 = run(50), run(200)
-    return t50, t200, (t200 - t50) / 150.0
+
+# The learned planner's 2-D configuration: tools/learned_campaign.py's
+# eps_bounded (:111-114) on its make_planner defaults (:225-236), with the
+# fixed covariances of its COV (:54).
+EPS_BOUNDED = dict(dynamics_mode="diag_identity", learn_eps=True, eps_max=0.8,
+                   static_init=(1.0, 0.01, 0.4), dropout_prob=0.1)
+# Its GRU twin, eps_bounded_gru (:130-134), hidden width 64.
+EPS_BOUNDED_GRU = dict(EPS_BOUNDED, model_type="rnn_gru", hidden_dim=64)
+# tools/learn3d_campaign.py:170-176, the 3-D planner (LM): the static init
+# at COV's cost_sigma 0.05 in place of its sweep winner.
+LEARN3D = dict(dynamics_mode="diag_identity", learn_eps=True, eps_max=0.8,
+               dropout_prob=0.1, static_init=(1.0, 0.05, 0.4))
+LEARN3D_VOX, LEARN3D_T = 32, 20
+
+
+def learned_setup(dev, occupancy, start, goal, lkw=EPS_BOUNDED,
+                  method="gauss_newton", iters=50, t=T, dtype=torch.float32,
+                  weights_seed=None):
+    """A learned planner on a bench problem: ``(planner, variables,
+    params_fix, th0, sdf, im)``; the SDFs built on ``dev`` from the
+    occupancy (B, H, W) or (B, D, H, W), the fixed covariances the
+    campaigns' COV.  The weights are the planner's own init from a seeded
+    generator, or, with ``weights_seed``, random weights about the static
+    init made with numpy (``convert.seeded_flax_tree``)."""
+    from dgpmp2_tpu_torch import convert
+    from dgpmp2_tpu_torch.core import gn
+    from dgpmp2_tpu_torch.learn.learned_planner import (
+        LearnedDiffGPMP2Planner, LearnedPlannerConfig)
+
+    spec, robot, params, th0, sdf = port_problem(occupancy, start, goal, dev,
+                                                 dtype, t)
+    planner = LearnedDiffGPMP2Planner(
+        spec, robot, gn.OptimConfig(reg=0.1, max_iters=iters, method=method),
+        LearnedPlannerConfig(**lkw, dtype=dtype), device=dev)
+    im = torch.as_tensor(occupancy, device=dev).to(dtype)
+    stack = planner.stack_inputs(im, sdf)
+    variables = planner.init_variables(torch.Generator().manual_seed(0),
+                                       stack, th0)
+    if weights_seed is not None:
+        shapes = convert.learned_flax_shapes(variables)
+        tree = convert.seeded_flax_tree(shapes, weights_seed,
+                                        convert.learned_out_path(shapes),
+                                        planner.out_bias)
+        variables = planner.load_variables(
+            convert.learned_state_from_flax(tree), stack, th0)
+    return planner, variables, params, th0, sdf, im
 
 
 def timing(smi, bench, bench3, problems, ms_run):
@@ -1435,7 +1635,230 @@ def timing(smi, bench, bench3, problems, ms_run):
     for name in MS_RUNS:
         ms = cuda_ms(lambda: ms_run(name), reps=5, warmup=1)
         print(f"[{smi}] multistart_ms_b{MS_B}_k{MS_K}_{name} {ms:.3f}")
+    planner, variables, params, th0, sdf, im = learned_setup(
+        bench[3].device, *bench_inputs(B))
+
+    def learned_run(n):
+        with torch.no_grad():
+            return planner.plan(variables, params, th0, sdf, im, max_iters=n,
+                                track_best=True)
+
+    t50, t200, per_iter["_learned"] = iter_ms(learned_run)
+    stack = planner.stack_inputs(im, sdf)
+    with torch.no_grad():
+        enc = cuda_ms(lambda: planner.conv_features(variables, stack), reps=5)
+    print(f"[{smi}] learned planner (eps_bounded, feed-forward, track_best) "
+          f"B=1024 T=100 128x128 float32: 50 iterations {t50:.3f} ms, 200 "
+          f"iterations {t200:.3f} ms, ms per GN iteration "
+          f"{per_iter['_learned']:.4f}; encoder once per plan {enc:.4f} ms")
     return per_iter
+
+
+def fixed_err(planner, params, th, sdf):
+    """The graph error under the fixed covariances at ``th`` (B,)."""
+    from dgpmp2_tpu_torch.core import graph
+
+    with torch.no_grad():
+        return graph.graph_error(planner.spec, planner.robot, params, th, sdf)
+
+
+def check_learned_plan(name, planner, params, th0, sdf, out, n_iter, dof,
+                       t, share=0.95):
+    """Shapes, finite values, and the final iterate's error under the fixed
+    covariances below the seed's on at least ``share`` of the problems."""
+    th, errs, errs_ext, _, th_final = out
+    b = th0.shape[0]
+    shapes = (tuple(th.shape), tuple(errs.shape), tuple(errs_ext.shape))
+    if shapes != ((b, t + 1, 2 * dof), (n_iter, b), (n_iter, b)):
+        raise AssertionError(f"{name}: shapes {shapes}")
+    finite = bool(torch.isfinite(th).all() & torch.isfinite(th_final).all()
+                  & torch.isfinite(errs_ext).all())
+    e0 = fixed_err(planner, params, th0, sdf)
+    e1 = fixed_err(planner, params, th_final, sdf)
+    better = float((e1 < e0).double().mean())
+    print(f"{name}: finite {finite}, fixed-covariance error of the final "
+          f"iterate below the seed's on {better:.4f} of problems, mean "
+          f"{float(e0.mean()):.4g} -> {float(e1.mean()):.4g}, iterations "
+          f"{n_iter}")
+    if not (finite and better >= share):
+        raise AssertionError(f"{name}: finite={finite} improved={better}")
+
+
+def learned(dev, bench_np):
+    """The learned planner at full width in float32 (phase 11), each path
+    through drive() with exact launch counts: one K-BTD launch per
+    iteration, one lookup per iteration plus one at the seed (LM or
+    track_best), one more per multistart scoring; then the gradient check
+    (:func:`learned_gradient`)."""
+    phase("11 learned planner (B=1024, float32)")
+    from dgpmp2_tpu_torch.core import gn
+
+    n = 50
+
+    def plan(setup, **kw):
+        planner, variables, params, th0, sdf, im = setup
+        with torch.no_grad():
+            return planner.plan(variables, params, th0, sdf, im,
+                                return_final=True, **kw)
+
+    # 2-D, the campaign's configuration at its static init.
+    ff = learned_setup(dev, *bench_np)
+    out, _ = drive("learned 2-D feed-forward", lambda: plan(
+        ff, track_best=True), {"btd_solve": n, "sdf_lookup": n + 1})
+    check_learned_plan("learned 2-D feed-forward (eps_bounded, track_best)",
+                       ff[0], *ff[2:5], out, n, 2, T)
+    # At static init the head emits the static covariances: its first 5
+    # iterations are core.gn.plan's with them (float32: 5 iterations only).
+    planner, variables, params, th0, sdf, im = ff
+    static = port_problem(*bench_np, dev, torch.float32, T, cost_sigma=0.01,
+                          epsilon_dist=0.4)
+    with torch.no_grad():
+        th5, errs5, _, _ = planner.plan(variables, params, th0, sdf, im,
+                                        max_iters=5)
+        ref = gn.plan(*static, gn.OptimConfig(reg=0.1, max_iters=5,
+                                              tol_delta=0.0))
+    e_th = rel_err(th5, ref.th)
+    e_err = rel_err(errs5[1:], ref.err_per_iter[:-1])
+    print(f"learned 2-D at static init, 5 iterations against core.gn.plan "
+          f"with the static covariances: th rel err {e_th:.3e}, err trace "
+          f"{e_err:.3e} (tol 1e-4, float32)")
+    if not (e_th <= 1e-4 and e_err <= 1e-4):
+        raise AssertionError(f"learned static init: {e_th}, {e_err}")
+
+    # 2-D, the GRU head with random weights about the static init.
+    gru = learned_setup(dev, *bench_np, lkw=EPS_BOUNDED_GRU, weights_seed=5)
+    out, _ = drive("learned 2-D GRU", lambda: plan(gru, track_best=True),
+                   {"btd_solve": n, "sdf_lookup": n + 1})
+    th, errs, errs_ext, hidden, th_final = out
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (th, errs, errs_ext, th_final, *hidden))
+    print(f"learned 2-D GRU (random weights): shapes {tuple(th.shape)}, "
+          f"{tuple(errs.shape)}, carry {tuple(hidden[0].shape)}; finite "
+          f"{finite}")
+    if not finite or tuple(th.shape) != (B, T + 1, 4):
+        raise AssertionError("learned GRU: not finite or misshapen")
+    del gru
+
+    # 3-D: PointRobot3D in 32^3 voxel worlds built on the card, T=20, LM.
+    occ, start, goal = bench3d_inputs(B, dev, vox=LEARN3D_VOX)
+    p3 = learned_setup(dev, occ, start, goal, lkw=LEARN3D, method="lm",
+                       t=LEARN3D_T)
+    out, _ = drive("learned 3-D", lambda: plan(p3),
+                   {"btd_solve": n, "sdf_lookup3d": n + 1})
+    check_learned_plan("learned 3-D (ConvEncoder3D, 32^3, T=20, LM)",
+                       p3[0], *p3[2:5], out, n, 3, LEARN3D_T)
+    del p3, out
+
+    # Multistart on the multistart problem: B=256, K=16, full and staged.
+    imgs, mstart, mgoal = forest_inputs(MS_B)
+    planner, variables, params, th0, sdf, im = learned_setup(
+        dev, imgs, mstart, mgoal)
+    for name, kw in MS_RUNS.items():
+        def run():
+            with torch.no_grad():
+                return planner.plan_multistart(
+                    variables, params, th0, sdf, im,
+                    torch.Generator(dev).manual_seed(0), restarts=MS_K,
+                    amp=2.0, **kw)
+
+        res, _ = drive(f"learned multistart {name}", run, {
+            "btd_solve": n, "sdf_lookup": n + (4 if kw else 2)})
+        pool = 2 * kw["keep"] if kw else MS_K
+        if (tuple(res.th.shape) != (MS_B, T + 1, 4)
+                or not bool(torch.isfinite(res.th).all())
+                or not bool(((res.k_best >= 0) & (res.k_best < pool)).all())):
+            raise AssertionError(f"learned multistart {name}")
+        print(f"learned multistart {name} (B={MS_B}, K={MS_K}): contact-free "
+              f"{int(res.contact_free.sum())}/{MS_B}")
+    learned_gradient(dev)
+
+
+# Seeds of the gradient check through the float32 decode as shipped (each
+# the seed of the inputs and of the weights); the float64-decode check takes
+# the first.
+GRAD_SEEDS = (3, 4, 5, 6)
+
+
+def decode_in_float64(planner):
+    """Make ``planner.predict`` (a feed-forward head) decode the head's
+    output in the plan's float64, where the package, as JAX, casts it to
+    float32 first: the gradient check of the kernel path, free of that
+    cast's rounding."""
+    from dgpmp2_tpu_torch.learn import covariances as cov_lib
+
+    lc = planner.learn_cfg
+
+    def predict(variables, th, feats, hidden=None, train=False,
+                dth_prev=None):
+        out = variables["head"](feats, planner._head_pos(th, dth_prev),
+                                train=train)
+        return cov_lib.decode(out, planner.spec, lc.dynamics_mode,
+                              lc.learn_eps, lc.eps_max), None
+
+    planner.predict = predict
+
+
+def learned_gradient(dev, b=64, iters=5):
+    """d(Σ err_ext)/d(every weight) of a float64 learned plan (B=64, 5
+    iterations, random weights about the static init, learned eps decoded
+    as s², GN) on the card, through K-BTD's adjoint launches and the
+    lookups' replay, against the same on the CPU with the plain versions,
+    leaf by leaf: 1e-10 relative with the head's output decoded in float64
+    (:func:`decode_in_float64`), which checks the kernel path; 1e-4 on each
+    of ``GRAD_SEEDS`` through the float32 decode as shipped, whose rounding
+    (and gp_q_inv's float32 backward, where the 12/dt³ and 6/dt² terms
+    cancel) a 1e-16 difference upstream can flip on one device and not the
+    other."""
+    from dgpmp2_tpu_torch import convert
+
+    lkw = dict(dynamics_mode="diag_identity", learn_eps=True,
+               static_init=(1.0, 0.05, 0.4))
+    runs = [(GRAD_SEEDS[0], "float64", 1e-10)]
+    runs += [(seed, "float32", 1e-4) for seed in GRAD_SEEDS]
+    for seed, decode, tol in runs:
+        inputs = bench_inputs(b, seed=seed)
+        grads = []  # the card's, then the CPU's
+        for where in (dev, torch.device("cpu")):
+            planner, variables, params, th0, sdf, im = learned_setup(
+                where, *inputs, lkw=lkw, iters=iters, dtype=torch.float64,
+                weights_seed=seed)
+            if decode == "float64":
+                decode_in_float64(planner)
+
+            def run():
+                _, _, errs_ext, _ = planner.plan(variables, params, th0, sdf,
+                                                 im)
+                errs_ext.sum().backward()
+
+            if where.type == "cuda":
+                # A forward solve per iteration and an adjoint one for each
+                # but the last, whose step reaches no err_ext; the lookups'
+                # backward replays the plain lookup (no launch).
+                drive(f"learned gradient (float64, B={b}, seed {seed}, "
+                      f"{decode} decode)", run,
+                      {"btd_solve": 2 * iters - 1, "sdf_lookup": iters})
+            else:
+                run()
+            grads.append(_leaves(convert.learned_grads_to_flax(variables)))
+        errs = {path: rel_err(torch.tensor(a), torch.tensor(c))
+                for (path, a), (_, c) in zip(*grads)}
+        worst = max(errs, key=errs.get)
+        nonzero = sum(bool(np.any(a != 0)) for _, a in grads[0])
+        print(f"learned gradient, seed {seed}, {decode} decode, on the card "
+              f"against the CPU: {len(errs)} weight tensors ({nonzero} "
+              f"nonzero), max rel err {errs[worst]:.3e} at {worst} (tol "
+              f"{tol:g})")
+        if not errs[worst] <= tol or nonzero != len(errs):
+            raise AssertionError(f"learned gradient seed {seed} {decode}: "
+                                 f"{errs[worst]}")
+
+
+def _leaves(tree, path=""):
+    """(path, array) of each leaf of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaves(tree[k], f"{path}/{k}")]
+    return [(path, tree)]
 
 
 def main():
@@ -1474,9 +1897,10 @@ def main():
     engines(bench)
     problems = constrained(dev, bench_np)
     ms_run = multistart(dev)
+    per_iter = timing(smi, bench, bench3, problems, ms_run)
+    learned(dev, bench_np)
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
-    per_iter = timing(smi, bench, bench3, problems, ms_run)
     for rec in recs.values():
         print(f"[{smi}] {rec['name']}: {times_line(rec)}")
     for key, ms in per_iter.items():

@@ -223,46 +223,77 @@ def select(mask: torch.Tensor, a, b):
     return type(a)(**out)
 
 
-def eval_residuals(spec: GraphSpec, robot: RobotModel, params: GraphParams,
-                   th: torch.Tensor, sdf: torch.Tensor) -> FactorResiduals:
-    """Evaluate every factor once at ``th`` (one SDF lookup in all: under
-    ``use_gp_inter`` it covers the support and the interpolated states)."""
+@dataclasses.dataclass
+class Geometry:
+    """The part of a factor-graph evaluation that no GraphParams field
+    changes: the robot's spheres at ``th`` and their SDF lookup.
+
+    centers (B, T+1, L, W), jac_fk (B, T+1, L, W, D), d (B, T+1, L), grad
+    (B, T+1, L, W); under ``use_gp_inter`` the same at the interpolated
+    states: centers_i, jac_fk_i, d_i (B, T, nip, L), grad_i.  One SDF lookup
+    covers all of them.
+    """
+
+    centers: torch.Tensor
+    jac_fk: torch.Tensor
+    d: torch.Tensor
+    grad: torch.Tensor
+    centers_i: Optional[torch.Tensor] = None
+    jac_fk_i: Optional[torch.Tensor] = None
+    d_i: Optional[torch.Tensor] = None
+    grad_i: Optional[torch.Tensor] = None
+
+
+def eval_geometry(spec: GraphSpec, robot: RobotModel, th: torch.Tensor,
+                  sdf: torch.Tensor) -> Geometry:
+    """FK and the one SDF lookup at ``th`` (under ``use_gp_inter`` it covers
+    the support and the interpolated states)."""
     spec.validate_grid(sdf.shape)
+    centers, jac_fk = robot.fk(th)
+    b_shape = th.shape[:-2]
+    wd = centers.shape[-1]
+    tn, l = spec.num_traj_states, spec.nlinks
+    pts = centers.reshape(*b_shape, tn * l, wd)
+    out = {}
+    if spec.use_gp_inter:
+        lam, psi = factors.gp_interp_coeffs(spec.dof, spec.dt, spec.num_inter,
+                                            th.dtype, th.device)
+        th_tau = factors.gp_interpolate(th, lam, psi)  # (B, T, nip, D)
+        out["centers_i"], out["jac_fk_i"] = robot.fk(th_tau)
+        pts = torch.cat([pts, out["centers_i"].reshape(*b_shape, -1, wd)],
+                        dim=-2)
+    d_all, grad_all = sdf_ops.lookup_nd(
+        sdf, pts, spec.res(sdf.shape[-1]), spec.x_lims, spec.y_lims,
+        spec.z_lims)
+    if spec.use_gp_inter:
+        t, nip = spec.num_gp_factors, spec.num_inter
+        out["d_i"] = d_all[..., tn * l:].reshape(*b_shape, t, nip, l)
+        out["grad_i"] = grad_all[..., tn * l:, :].reshape(*b_shape, t, nip,
+                                                          l, wd)
+        d_all, grad_all = d_all[..., :tn * l], grad_all[..., :tn * l, :]
+    return Geometry(centers=centers, jac_fk=jac_fk,
+                    d=d_all.reshape(*b_shape, tn, l),
+                    grad=grad_all.reshape(centers.shape), **out)
+
+
+def residuals_from_geometry(spec: GraphSpec, robot: RobotModel,
+                            params: GraphParams, th: torch.Tensor,
+                            geom: Geometry) -> FactorResiduals:
+    """Every factor at ``th`` from its :class:`Geometry` (no lookup): one
+    geometry serves every GraphParams at the same ``th``."""
     dtype, dev = th.dtype, th.device
     r_gp = factors.gp_residual(th, dt=spec.dt)
     r_s = factors.prior_residual(params.start, th[..., 0, :])
     r_g = factors.prior_residual(params.goal, th[..., -1, :])
-    centers, jac_fk = robot.fk(th)
+    centers, jac_fk = geom.centers, geom.jac_fk
     radii = robot.radii_array(dtype, dev)
+    r_obs, h_obs = factors.hinge_from_lookup(geom.d, geom.grad, jac_fk, radii,
+                                             params.eps)
     out = {}
     if spec.use_gp_inter:
-        lam, psi = factors.gp_interp_coeffs(spec.dof, spec.dt, spec.num_inter,
-                                            dtype, dev)
-        th_tau = factors.gp_interpolate(th, lam, psi)  # (B, T, nip, D)
-        centers_i, jac_fk_i = robot.fk(th_tau)  # (B, T, nip, L, W[, D])
-        b_shape = th.shape[:-2]
-        wd = centers.shape[-1]
-        tn, t, nip, l = (spec.num_traj_states, spec.num_gp_factors,
-                         spec.num_inter, spec.nlinks)
-        pts = torch.cat([centers.reshape(*b_shape, tn * l, wd),
-                         centers_i.reshape(*b_shape, t * nip * l, wd)], dim=-2)
-        d_all, grad_all = sdf_ops.lookup_nd(
-            sdf, pts, spec.res(sdf.shape[-1]), spec.x_lims, spec.y_lims,
-            spec.z_lims)
-        r_obs, h_obs = factors.hinge_from_lookup(
-            d_all[..., :tn * l].reshape(*b_shape, tn, l),
-            grad_all[..., :tn * l, :].reshape(*b_shape, tn, l, wd),
-            jac_fk, radii, params.eps)
         eps_i = params.eps[..., :-1, None, :]  # left-support margin
         out["r_obsi"], out["h_obsi"] = factors.hinge_from_lookup(
-            d_all[..., tn * l:].reshape(*b_shape, t, nip, l),
-            grad_all[..., tn * l:, :].reshape(*b_shape, t, nip, l, wd),
-            jac_fk_i, radii, eps_i)
-    else:
-        r_obs, h_obs = factors.hinge_obstacle_residual(
-            centers, jac_fk, radii, params.eps, sdf, spec.res(sdf.shape[-1]),
-            spec.x_lims, spec.y_lims, spec.z_lims,
-        )
+            geom.d_i, geom.grad_i, geom.jac_fk_i, radii, eps_i)
     if spec.non_holonomic:
         out["r_dyn"], out["h_dyn"] = factors.nonholonomic_residual(th)
     if spec.use_vel_limits:
@@ -280,6 +311,14 @@ def eval_residuals(spec: GraphSpec, robot: RobotModel, params: GraphParams,
             centers[..., -1, :, :], jac_fk[..., -1, :, :, :], params.p_goal)
     return FactorResiduals(r_gp=r_gp, r_s=r_s, r_g=r_g, r_obs=r_obs,
                            h_obs=h_obs, **out)
+
+
+def eval_residuals(spec: GraphSpec, robot: RobotModel, params: GraphParams,
+                   th: torch.Tensor, sdf: torch.Tensor) -> FactorResiduals:
+    """Evaluate every factor once at ``th`` (one SDF lookup in all: under
+    ``use_gp_inter`` it covers the support and the interpolated states)."""
+    return residuals_from_geometry(spec, robot, params, th,
+                                   eval_geometry(spec, robot, th, sdf))
 
 
 @dataclasses.dataclass
@@ -308,6 +347,27 @@ def assemble_static(spec: GraphSpec, params: GraphParams,
     return StaticBlocks(diag_static=diag.to(dtype), off=-phiT_q, phiT_q=phiT_q)
 
 
+# Above this many elements, a broadcast product summed over one axis is
+# formed as a batched matrix product instead: the crossover measured on an
+# H100 at every assembly of tools/time_contract.py.  Up to 1.4e7 elements
+# the broadcast form is the faster (a batched GEMM costs 0.09-0.28 ms a call
+# at small blocks), from 2.1e7 the matrix product; far above, the broadcast
+# intermediate outgrows memory (a 17-link arm's 411 self-collision pairs:
+# 80 GB in float32 at B=1024).
+BROADCAST_MAX = 1 << 24
+
+
+def _contract(x, y, dim, matmul, a, b):
+    """``Σ_dim x * y`` (x, y broadcast views of ``a``, ``b``), or
+    ``matmul(a, b)`` in their promoted dtype when the broadcast product
+    would hold more than :data:`BROADCAST_MAX` elements."""
+    n = torch.broadcast_shapes(x.shape, y.shape).numel()
+    if n <= BROADCAST_MAX:
+        return torch.sum(x * y, dim=dim)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return matmul(a.to(dt), b.to(dt))
+
+
 def assemble_from_residuals(spec: GraphSpec, params: GraphParams,
                             res: FactorResiduals,
                             dtype: torch.dtype | None = None,
@@ -334,12 +394,14 @@ def assemble_from_residuals(spec: GraphSpec, params: GraphParams,
     def unary_gauss(diag, rhs, h, r, lam_h):
         """Per-state Gauss terms of a unary factor with K residual rows:
         diag += Σ_k h_k ⊗ (Λh)_k, rhs += Σ_k (Λh)_k r_k."""
-        diag = diag + torch.sum(h[..., :, :, None] * lam_h[..., :, None, :],
-                                dim=-3)
+        diag = diag + _contract(h[..., :, :, None], lam_h[..., :, None, :],
+                                -3, lambda a, b: a.transpose(-1, -2) @ b,
+                                h, lam_h)
         return diag, rhs + torch.sum(lam_h * r[..., None], dim=-2)
 
     def lam_full(w, h):  # full (K, K) inverse covariance times H
-        return torch.sum(w[..., :, :, None] * h[..., None, :, :], dim=-2)
+        return _contract(w[..., :, :, None], h[..., None, :, :], -2,
+                         lambda a, b: a @ b, w, h)
 
     diag, rhs = unary_gauss(diag, rhs, res.h_obs, res.r_obs,
                             lam_full(params.obs_inv, res.h_obs))

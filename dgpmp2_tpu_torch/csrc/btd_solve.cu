@@ -69,6 +69,20 @@
 // per type, no spill.  Its step is a chain of D pivots, two warp barriers
 // each, over shared memory; the loads of a step are not prefetched.  It is
 // simple and right, not fast.
+//
+// D > 32 (arms of 17 links and more) takes btd_solve_kernel_block: a block of
+// 32 x 8 threads per problem, the step's rows [C_t | U_t | y_t], the last
+// step's [. | X_{t-1} | z_{t-1}] and U_{t-1} in one buffer of 5 D^2 + 3 D
+// doubles (block_elems).  The loads, the Schur update and each Gauss-Jordan
+// pivot run over the rows' elements (32 columns by 8 rows at a time), so
+// the block's threads share a step's D^3 work; the pivots leave the rows
+// unscaled, one barrier each, and the rows are scaled once at the end of the
+// step.  The rows are float64 in both dtypes (see the kernel).  The buffer
+// is dynamic shared memory, opted in up to the card's limit
+// (cudaDevAttrMaxSharedMemoryPerBlockOptin: up to D = 75 on an H100); past
+// it, the same rows live in a global scratch buffer that the wrapper
+// allocates (dgpmp2_btd_scratch_bytes says how large), and the code path is
+// the same.  So every D runs on the card.
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -80,6 +94,8 @@ constexpr int kStages = 4;
 constexpr int kStaticSmem = 48 * 1024;  // bytes of static shared memory
 constexpr int kNarrowMax = 16;          // largest D of btd_solve_kernel
 constexpr int kMaxD = 32;               // largest D of btd_solve_kernel_wide
+constexpr int kBlockX = 32;             // past kMaxD: threads along a row
+constexpr int kBlockY = 8;              // and rows at a time
 
 template <int D>
 __host__ __device__ constexpr int group_lanes() {
@@ -448,31 +464,207 @@ void launch_narrow(const T* diag, const T* off, const T* rhs, T* x, T* gain,
   }
 }
 
+// Elements (double) of btd_solve_kernel_block's buffer per problem: two
+// steps of D rows of 2 D + 1 columns and U_{t-1} with D + 1 columns.
+__host__ __device__ inline size_t block_elems(int d) {
+  return static_cast<size_t>(d) * (2 * d + 1) * 2 +
+         static_cast<size_t>(d) * (d + 1);
+}
+
+// D > kMaxD: one block of kBlockX x kBlockY threads per problem, x over the
+// columns of a row and y over rows.  Row i of a step's buffer holds
+// [C_t | U_t | y_t] at columns [0, d), [d, 2d) and 2d (stride w = 2d + 1).
+// The rows are double in both instances: in float32, rows stored back in
+// float32 after each of D pivots drift by ~D ulp (1.1e-6 relative at D = 48
+// on an H100, 3x the plain version's error), so the float32 instance reads
+// float32, works in float64 and writes float32.  `scratch` is null for the dynamic
+// shared buffer, else a global buffer of block_elems(d) doubles per problem.
+template <typename T>
+__global__ void __launch_bounds__(kBlockX * kBlockY)
+    btd_solve_kernel_block(const T* __restrict__ diag,
+                           const T* __restrict__ off,
+                           const T* __restrict__ rhs, T* __restrict__ x,
+                           T* __restrict__ gain, double* __restrict__ scratch,
+                           int steps, int d) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const size_t b = blockIdx.x;
+  double* base = scratch ? scratch + b * block_elems(d)
+                         : reinterpret_cast<double*>(smem);
+  const int w = 2 * d + 1;
+  const int cz = 2 * d;  // the column of y_t, then z_t
+  const size_t step_elems = static_cast<size_t>(d) * w;
+  double* up = base + 2 * step_elems;  // U_{t-1}, stride d + 1
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int dd = d * d;
+  const T* dg = diag + b * steps * dd;
+  const T* of = off + b * (steps - 1) * dd;
+  const T* rv = rhs + b * steps * d;
+  T* xb = x + b * steps * d;
+  T* gn = gain + b * (steps - 1) * dd;
+
+  for (int t = 0; t < steps; ++t) {
+    double* cur = base + (t & 1) * step_elems;
+    const double* prev = base + ((t + 1) & 1) * step_elems;
+    const bool has_next = t < steps - 1;
+    const size_t tdd = static_cast<size_t>(t) * dd;
+    // The lower triangle of diag[t], mirrored (as the plain version's
+    // Cholesky reads it), U_t = off[t] and y_t = rhs[t].
+    for (int i = ty; i < d; i += kBlockY) {
+      for (int c = tx; c < d; c += kBlockX) {
+        if (c <= i) {
+          const double v = dg[tdd + i * d + c];
+          cur[i * w + c] = v;
+          cur[c * w + i] = v;
+        }
+        cur[i * w + d + c] = has_next ? double(of[tdd + i * d + c]) : 0.0;
+      }
+      if (tx == 0) cur[i * w + cz] = rv[static_cast<size_t>(t) * d + i];
+    }
+    __syncthreads();
+    // Schur update: C_t -= U_{t-1}^T X_{t-1}, y_t -= U_{t-1}^T z_{t-1}; the
+    // column c = d stands for y.
+    if (t > 0) {
+      for (int r = ty; r < d; r += kBlockY) {
+        for (int c = tx; c <= d; c += kBlockX) {
+          const int col = c < d ? c : cz;
+          const int pcol = c < d ? d + c : cz;
+          double acc = cur[r * w + col];
+          for (int k = 0; k < d; ++k)
+            acc -= up[k * (d + 1) + r] * prev[k * w + pcol];
+          cur[r * w + col] = acc;
+        }
+      }
+      __syncthreads();
+    }
+    for (int i = ty; i < d; i += kBlockY)
+      for (int c = tx; c < d; c += kBlockX)
+        up[i * (d + 1) + c] = cur[i * w + d + c];
+    __syncthreads();
+    // Gauss-Jordan without scaling: pivot j takes cur[r][j] / cur[j][j]
+    // times row j from every other row, over columns j + 1 .. 2d.  Row j
+    // and column j are only read in pass j, so one barrier per pivot; each
+    // row is divided by its pivot at the end: [X_t | z_t].
+    for (int j = 0; j < d; ++j) {
+      const double inv = recip(cur[j * w + j]);
+      for (int r = ty; r < d; r += kBlockY) {
+        if (r == j) continue;
+        const double f = cur[r * w + j] * inv;
+        for (int k = j + 1 + tx; k <= cz; k += kBlockX)
+          cur[r * w + k] -= f * cur[j * w + k];
+      }
+      __syncthreads();
+    }
+    for (int r = ty; r < d; r += kBlockY) {
+      const double inv = recip(cur[r * w + r]);
+      for (int k = d + tx; k <= cz; k += kBlockX) cur[r * w + k] *= inv;
+    }
+    __syncthreads();
+    for (int r = ty; r < d; r += kBlockY) {
+      if (has_next)
+        for (int c = tx; c < d; c += kBlockX)
+          gn[tdd + r * d + c] = static_cast<T>(cur[r * w + d + c]);
+      if (tx == 0)
+        xb[static_cast<size_t>(t) * d + r] = static_cast<T>(cur[r * w + cz]);
+    }
+  }
+
+  // Back sweep from x_{T-1} = z_{T-1}: x_t = z_t - X_t x_{t+1}, x_{t+1} held
+  // in the buffer of U (free now), a row per thread.
+  const int tid = ty * kBlockX + tx;
+  const int nt = kBlockX * kBlockY;
+  double* xa = up;
+  double* xn = up + d;
+  const double* last = base + ((steps - 1) & 1) * step_elems;
+  for (int i = tid; i < d; i += nt) xa[i] = last[i * w + cz];
+  __syncthreads();
+  for (int t = steps - 2; t >= 0; --t) {
+    const size_t tdd = static_cast<size_t>(t) * dd;
+    for (int r = tid; r < d; r += nt) {
+      double acc = xb[static_cast<size_t>(t) * d + r];
+      for (int k = 0; k < d; ++k) acc -= double(gn[tdd + r * d + k]) * xa[k];
+      xn[r] = acc;
+      xb[static_cast<size_t>(t) * d + r] = static_cast<T>(acc);
+    }
+    __syncthreads();
+    double* tmp = xa;
+    xa = xn;
+    xn = tmp;
+  }
+}
+
+// Largest dynamic shared memory a block may opt in to on the current device.
+int smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  return static_cast<int>(e);
+}
+
+template <typename T>
+int launch_block(const T* diag, const T* off, const T* rhs, T* x, T* gain,
+                 double* scratch, int batch, int steps, int d,
+                 cudaStream_t s) {
+  size_t smem = 0;
+  if (scratch == nullptr) {
+    smem = block_elems(d) * sizeof(double);
+    const cudaError_t e = cudaFuncSetAttribute(
+        btd_solve_kernel_block<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  btd_solve_kernel_block<T><<<batch, dim3(kBlockX, kBlockY), smem, s>>>(
+      diag, off, rhs, x, gain, scratch, steps, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const T* diag, const T* off, const T* rhs, T* x, T* gain,
-           int batch, int steps, int d, void* stream) {
-  if (d < 1 || d > kMaxD) return static_cast<int>(cudaErrorInvalidValue);
+           double* scratch, int batch, int steps, int d, void* stream) {
+  if (d < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (batch <= 0 || steps <= 0) return static_cast<int>(cudaSuccess);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= kNarrowMax) {
     launch_narrow<T>(diag, off, rhs, x, gain, batch, steps, d, s);
-  } else {
+  } else if (d <= kMaxD) {
     btd_solve_kernel_wide<T><<<batch, kWarp, 0, s>>>(diag, off, rhs, x, gain,
                                                      steps, d);
+  } else {
+    return launch_block<T>(diag, off, rhs, x, gain, scratch, batch, steps, d,
+                           s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// Bytes of global scratch per problem that the wrapper must pass at D: 0
+// where the kernel needs none (D <= 32, or the rows fit the device's opt-in
+// shared memory).
+extern "C" int dgpmp2_btd_scratch_bytes(int d, long long* bytes) {
+  *bytes = 0;
+  if (d <= kMaxD) return static_cast<int>(cudaSuccess);
+  int optin = 0;
+  const int rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  const size_t n = block_elems(d) * sizeof(double);
+  if (n > static_cast<size_t>(optin)) *bytes = static_cast<long long>(n);
+  return static_cast<int>(cudaSuccess);
+}
+
 extern "C" int dgpmp2_btd_solve_f32(const float* diag, const float* off,
                                     const float* rhs, float* x, float* gain,
-                                    int batch, int steps, int d, void* stream) {
-  return launch<float>(diag, off, rhs, x, gain, batch, steps, d, stream);
+                                    double* scratch, int batch, int steps,
+                                    int d, void* stream) {
+  return launch<float>(diag, off, rhs, x, gain, scratch, batch, steps, d,
+                       stream);
 }
 
 extern "C" int dgpmp2_btd_solve_f64(const double* diag, const double* off,
                                     const double* rhs, double* x, double* gain,
-                                    int batch, int steps, int d, void* stream) {
-  return launch<double>(diag, off, rhs, x, gain, batch, steps, d, stream);
+                                    double* scratch, int batch, int steps,
+                                    int d, void* stream) {
+  return launch<double>(diag, off, rhs, x, gain, scratch, batch, steps, d,
+                        stream);
 }

@@ -33,8 +33,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes; every function returns cudaGetLastError() as an int.
 _SIGNATURES = {
-    "dgpmp2_btd_solve_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "dgpmp2_btd_solve_f64": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # (diag, off, rhs, x, gain, scratch, batch, steps, d, stream)
+    "dgpmp2_btd_solve_f32": [_P] * 6 + [_I, _I, _I, _P],
+    "dgpmp2_btd_solve_f64": [_P] * 6 + [_I, _I, _I, _P],
+    # (d, out bytes per problem)
+    "dgpmp2_btd_scratch_bytes": [_I, _P],
     # (plan, sdf, points, out, stream); plan: ops/cuda/_tiles.LookupPlan.
     "dgpmp2_sdf_lookup_f32": [_P] * 5,
     "dgpmp2_sdf_lookup_f64": [_P] * 5,

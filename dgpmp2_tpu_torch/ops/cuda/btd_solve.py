@@ -9,12 +9,14 @@ Replaces the TPU kernels ``dgpmp2_tpu/ops/pallas/btd_solve.py`` and
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from dgpmp2_tpu_torch.ops import tridiag
 from dgpmp2_tpu_torch.ops.cuda import _build
 
-MAX_D = 32  # every D from 1 to MAX_D
 launches = 0
 
 
@@ -23,8 +25,10 @@ def launch(diag: torch.Tensor, off: torch.Tensor,
     """One kernel launch: x with ``Λ x = rhs``, on the current CUDA stream.
 
     diag (B, T, D, D), off (B, T-1, D, D), rhs (B, T, D); contiguous,
-    16-byte aligned CUDA tensors of one dtype, float32 or float64; D from
-    1 to :data:`MAX_D`.
+    16-byte aligned CUDA tensors of one dtype, float32 or float64; any
+    D >= 1.  Past D = 32 the kernel's rows live in shared memory up to the
+    card's opt-in limit and beyond it in a global scratch buffer allocated
+    here (:func:`scratch_bytes`).
     """
     global launches
     _check(diag, off, rhs)
@@ -36,21 +40,37 @@ def launch(diag: torch.Tensor, off: torch.Tensor,
     # X_t = C_t⁻¹ U_t of the forward sweep, read back by the back sweep.
     gain = torch.empty((b, t - 1, d, d), dtype=diag.dtype,
                        device=diag.device)
+    n = scratch_bytes(d, diag.device)
+    scratch = (torch.empty((b * n,), dtype=torch.uint8, device=diag.device)
+               if n else None)
     with torch.cuda.device(diag.device):
         stream = torch.cuda.current_stream(diag.device).cuda_stream
         rc = fn(diag.data_ptr(), off.data_ptr(), rhs.data_ptr(), x.data_ptr(),
-                gain.data_ptr(), b, t, d, stream)
+                gain.data_ptr(), None if scratch is None else scratch.data_ptr(),
+                b, t, d, stream)
     _build.check(rc, "btd_solve kernel")
     launches += 1
     return x
+
+
+@functools.lru_cache(maxsize=None)
+def scratch_bytes(d: int, device: torch.device) -> int:
+    """Bytes of global scratch per problem the kernel needs at ``d``: 0
+    unless D > 32 and its rows (5 D² + 3 D doubles) exceed the device's
+    opt-in shared memory."""
+    n = ctypes.c_longlong(0)
+    with torch.cuda.device(device):
+        rc = _build.library().dgpmp2_btd_scratch_bytes(d, ctypes.byref(n))
+    _build.check(rc, "btd_solve scratch query")
+    return int(n.value)
 
 
 def _check(diag, off, rhs):
     if rhs.ndim != 3:
         raise ValueError(f"btd_solve kernel takes rhs (B, T, D); got {tuple(rhs.shape)}")
     b, t, d = rhs.shape
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"btd_solve kernel takes D from 1 to {MAX_D}; got D={d}")
+    if d < 1:
+        raise ValueError(f"btd_solve kernel takes D >= 1; got D={d}")
     if tuple(diag.shape) != (b, t, d, d) or tuple(off.shape) != (b, t - 1, d, d):
         raise ValueError(
             f"btd_solve kernel shape mismatch: diag {tuple(diag.shape)}, "

@@ -6,6 +6,8 @@ Port of ``dgpmp2_tpu/ops/sdf.py``.
   :func:`sdf_from_occupancy_3d` — exact Euclidean distance transform as one
   dense min-plus pass per spatial axis in int32, chunked over the output
   axis so that the (..., k, n) intermediate stays near a byte limit.
+* :func:`costmap_2d` / :func:`safe_sdf` — the hinge costmap of an SDF and
+  its unhinged form.
 * :func:`bilinear_lookup` — bilinear SDF value + analytic spatial gradient,
   the plain version of the CUDA kernel K-LOOKUP (``ops/cuda/sdf_lookup.py``).
 * :func:`limb_split` / :func:`bilinear_lookup_limbs` — the SDF as 1–3 bf16
@@ -116,6 +118,18 @@ def sdf_from_occupancy_3d(voxels: torch.Tensor, res: float = 1.0,
     a third min-plus pass."""
     return _sdf_from_occupancy_nd(voxels, res, threshold, padlen, dtype,
                                   chunk_bytes, 3)
+
+
+def costmap_2d(sdf: torch.Tensor, eps) -> torch.Tensor:
+    """Hinge costmap ``max(0, eps - sdf)``: ``eps - sdf`` where
+    ``sdf <= eps``, else 0 (the learned planner's ``costmap_predict``
+    channel)."""
+    return torch.where(sdf <= eps, eps - sdf, torch.zeros_like(sdf))
+
+
+def safe_sdf(sdf: torch.Tensor, eps) -> torch.Tensor:
+    """``eps - sdf`` without the hinge."""
+    return eps - sdf
 
 
 # Out-of-bounds semantics of the lookup (as ``dgpmp2_tpu.ops.sdf``):

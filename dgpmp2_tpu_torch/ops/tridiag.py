@@ -36,14 +36,23 @@ class BTDFactors(NamedTuple):
     gain: torch.Tensor
 
 
+def _cholesky(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor; where a block is not positive definite, NaN in
+    place of an error, as JAX's Cholesky and K-BTD give (a float32 LM plan
+    whose lambda overflows proposes NaN steps, which its test rejects)."""
+    l, info = torch.linalg.cholesky_ex(a)
+    return torch.where((info > 0)[..., None, None],
+                       torch.full_like(l, float("nan")), l)
+
+
 def btd_factor(diag: torch.Tensor, off: torch.Tensor) -> BTDFactors:
     """Block-Thomas factorisation (forward elimination of the pivots)."""
-    l = torch.linalg.cholesky(diag[..., 0, :, :])
+    l = _cholesky(diag[..., 0, :, :])
     chols, gains = [l], []
     for i in range(1, diag.shape[-3]):
         u = off[..., i - 1, :, :]
         g = torch.cholesky_solve(u, l).transpose(-1, -2)
-        l = torch.linalg.cholesky(diag[..., i, :, :] - g @ u)
+        l = _cholesky(diag[..., i, :, :] - g @ u)
         chols.append(l)
         gains.append(g)
     gain = torch.stack(gains, dim=-3) if gains else torch.zeros_like(off)

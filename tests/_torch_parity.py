@@ -121,3 +121,75 @@ def both_problems_3d(seed=0, b=3, t=16, n=16, cost_sigma=0.05, eps=0.4):
                       spec_t.total_time_sec, t)
     return ((spec_j, JPointRobot3D(), params_j, th_j, sdf_j),
             (spec_t, TPointRobot3D(), params_t, th_t, sdf_t))
+
+
+def flax_shapes(tree) -> dict:
+    """A flax variable tree's leaf shapes (nested dicts of lists)."""
+    import jax
+
+    return jax.tree.map(lambda a: list(np.shape(a)), tree)
+
+
+def jnp_tree(tree) -> dict:
+    """Nested numpy -> nested jnp arrays (float64)."""
+    import jax
+
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def learned_pair(lkw: dict, seed=0, b=3, t=10, n=32, method="gauss_newton",
+                 max_iters=5, weights_seed=11, out_bias=True, three_d=False):
+    """The same float64 learned planner, problem and random weights in both
+    packages.  ``lkw``: LearnedPlannerConfig fields (dtype excluded).  The
+    weights come from ``convert.seeded_flax_tree`` about the static init
+    (1.0, 0.05, 0.4) unless ``out_bias`` is False or the mode has no static
+    init (``qc_full``, ``q_full``).  The JAX planner's recurrent carry is
+    made float64: flax makes it float32 (its param_dtype), which a float64
+    scan refuses.
+
+    Returns (jax: (planner, variables, params, th0, sdf, im),
+    torch: (planner, variables, params, th0, sdf, im), numpy weights)."""
+    import jax
+
+    from dgpmp2_tpu.core import gn as jgn
+    from dgpmp2_tpu.learn import learned_planner as jlp
+    from dgpmp2_tpu_torch.core import gn as tgn
+    from dgpmp2_tpu_torch.learn import learned_planner as tlp
+
+    if three_d:
+        pj, pt = both_problems_3d(seed, b, t, n)
+        im = world3d(seed, b, n)[0]
+    else:
+        pj, pt = both_problems(seed, b, t, n)
+        im = world(seed, b, n)[0]
+    spec_j, robot_j, params_j, th_j, sdf_j = pj
+    spec_t, robot_t, params_t, th_t, sdf_t = pt
+    optim = dict(reg=0.1, max_iters=max_iters, method=method)
+    planner_j = jlp.LearnedDiffGPMP2Planner(
+        spec_j, robot_j, jgn.OptimConfig(**optim),
+        jlp.LearnedPlannerConfig(**lkw, dtype=jnp.float64))
+    planner_t = tlp.LearnedDiffGPMP2Planner(
+        spec_t, robot_t, tgn.OptimConfig(**optim),
+        tlp.LearnedPlannerConfig(**lkw, dtype=F64), device="cpu")
+    im_j = jnp.asarray(im)
+    stack_j = planner_j.stack_inputs(im_j, sdf_j)
+    shapes = flax_shapes(planner_j.init_variables(jax.random.PRNGKey(0),
+                                                  stack_j, th_j))
+    bias = None
+    if out_bias and lkw.get("dynamics_mode") not in ("qc_full", "q_full"):
+        bias = (planner_j.static_out_bias(1.0, 0.05, 0.4)
+                if planner_j.learn_cfg.static_init is None
+                else planner_j.static_out_bias(
+                    *planner_j.learn_cfg.static_init))
+    tree = convert.seeded_flax_tree(shapes, weights_seed,
+                                    convert.learned_out_path(shapes), bias)
+    if planner_j.recurrent:
+        init_hidden = planner_j.init_hidden
+        planner_j.init_hidden = lambda *a: jax.tree.map(
+            lambda x: x.astype(jnp.float64), init_hidden(*a))
+    im_t = torch.tensor(im)
+    vars_t = planner_t.load_variables(
+        convert.learned_state_from_flax(tree),
+        planner_t.stack_inputs(im_t, sdf_t), th_t)
+    return ((planner_j, jnp_tree(tree), params_j, th_j, sdf_j, im_j),
+            (planner_t, vars_t, params_t, th_t, sdf_t, im_t), tree)

@@ -166,14 +166,19 @@ def test_eval_residuals_match_jax(problem):
 
 
 @all_cases
-def test_assembly_matches_jax(problem):
+def test_assembly_matches_jax(problem, monkeypatch):
+    """Both forms of the unary terms: broadcast products, and the batched
+    matrix products that large robots take (BROADCAST_MAX forced to 0)."""
     (spec_j, _, p_j, *_), (spec_t, _, p_t, *_), r_j, r_t = problem
     want = J_ASM(spec_j, p_j, r_j)
     static = tg.assemble_static(spec_t, p_t, F64)
     off0 = static.off.clone()
-    for got in (tg.assemble_from_residuals(spec_t, p_t, r_t),
-                tg.assemble_from_residuals(spec_t, p_t, r_t, static=static)):
-        for name, a, b in zip(("diag", "off", "rhs"), got, want):
+    got = [tg.assemble_from_residuals(spec_t, p_t, r_t),
+           tg.assemble_from_residuals(spec_t, p_t, r_t, static=static)]
+    monkeypatch.setattr(tg, "BROADCAST_MAX", 0)
+    got.append(tg.assemble_from_residuals(spec_t, p_t, r_t, static=static))
+    for sys_ in got:
+        for name, a, b in zip(("diag", "off", "rhs"), sys_, want):
             close(a, b, msg=name)
     # The GP-interpolation couplings go into a new off tensor: the static
     # blocks a plan loop reuses stay as they were.

@@ -130,9 +130,9 @@ def test_lookup_kernel_gradient_replays_plain(dev):
 
 
 def test_cuda_dispatch_raises_on_what_the_kernels_do_not_take(dev):
-    x = torch.zeros((2, 5, 33, 33), device=dev)
-    with pytest.raises(ValueError, match="D="):
-        tridiag.btd_solve_auto(x, x[:, 1:], x[..., 0])
+    x = torch.zeros((2, 5, 4, 4), device=dev)
+    with pytest.raises(ValueError, match="one dtype"):
+        tridiag.btd_solve_auto(x, x[:, 1:].double(), x[..., 0])
     with pytest.raises(ValueError, match=r"\(B, H, W\)"):
         tsdf.lookup(torch.zeros((8, 8), device=dev),
                     torch.zeros((3, 2), device=dev), 10 / 8, LIMS, LIMS)
@@ -490,11 +490,55 @@ def test_btd_kernel_wide_reads_the_lower_triangle_and_differentiates(dev, d):
         assert float((u.grad - v.grad).abs().max()) <= 1e-10
 
 
-def test_btd_kernel_refuses_d_33(dev):
-    """D above 32 raises on the card, naming the limit."""
-    x = torch.zeros((2, 5, 33, 33), device=dev)
-    with pytest.raises(ValueError, match=r"D from 1 to 32; got D=33"):
-        tridiag.btd_solve_auto(x, x[:, 1:].contiguous(), x[..., 0])
+@pytest.mark.parametrize("d", [33, 48, 64])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-12)])
+def test_btd_kernel_past_d_32_matches_plain(dev, d, dtype, tol):
+    """D > 32 (arms of 17+ links): a block per problem, its rows (float64 in
+    both dtypes) in dynamic shared memory, at ragged batches and the
+    shortest chains."""
+    for b, t in ((33, 21), (3, 1), (5, 2), (200, 41)):
+        diag, off, rhs = _spd(np.random.default_rng(d + t), b, t, d, dtype,
+                              dev)
+        x_k = k_btd.launch(diag, off, rhs)
+        x_p = tridiag.btd_solve(diag, off, rhs)
+        assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6),
+                                       (torch.float64, 1e-12)])
+def test_btd_kernel_beyond_shared_memory_matches_plain(dev, dtype, tol):
+    """The largest D whose rows fit the card's shared memory and the next,
+    whose rows go to the wrapper's global scratch buffer."""
+    d = 33
+    while k_btd.scratch_bytes(d + 1, dev) == 0:
+        d += 1
+    for dd in (d, d + 1):
+        diag, off, rhs = _spd(np.random.default_rng(dd), 4, 5, dd, dtype, dev)
+        x_k = k_btd.launch(diag, off, rhs)
+        x_p = tridiag.btd_solve(diag, off, rhs)
+        assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("d", [33, 64])
+def test_btd_kernel_block_reads_the_lower_triangle_and_differentiates(dev, d):
+    """Past D = 32 the kernel reads the lower triangle of each diag block,
+    and its gradient is two launches of the implicit adjoint."""
+    diag, off, rhs = _spd(np.random.default_rng(13), 5, 6, d, torch.float64,
+                          dev)
+    noisy = diag + torch.triu(torch.randn_like(diag), diagonal=1)
+    x_p = tridiag.btd_solve(diag, off, rhs)
+    assert float((k_btd.launch(noisy, off, rhs) - x_p).abs().max()
+                 / x_p.abs().max()) <= 1e-10
+    a = [x.clone().requires_grad_(True) for x in (diag, off, rhs)]
+    c = [x.clone().requires_grad_(True) for x in (diag, off, rhs)]
+    xbar = torch.randn(rhs.shape, dtype=torch.float64, device=dev)
+    n = k_btd.launches
+    tridiag.btd_solve_auto(*a).backward(xbar)
+    assert k_btd.launches - n == 2
+    tridiag.btd_solve(*c).backward(xbar)
+    for u, v in zip(a, c):
+        assert float((u.grad - v.grad).abs().max()) <= 1e-10
 
 
 # Shapes that exercise the lookup kernels' tiles of 128 points: B·P below
@@ -610,3 +654,34 @@ def test_a_five_link_arm_on_the_card_matches_cpu(dev):
         assert k_btd.launches - n == (where == dev)
     assert float((out[0] - out[1]).abs().max()) <= 1e-9 * float(
         out[1].abs().max())
+
+
+@pytest.mark.parametrize("lkw,method", [
+    (dict(dynamics_mode="diag_identity", learn_eps=True, eps_max=0.8,
+          static_init=(1.0, 0.01, 0.4)), "gauss_newton"),
+    (dict(model_type="rnn_gru", hidden_dim=16, learn_eps=True,
+          static_init=(1.0, 0.05, 0.4)), "lm")], ids=["feed_forward", "gru"])
+def test_learned_plan_on_the_card_matches_cpu(dev, lkw, method):
+    """The learned planner in float64 (random weights about the static
+    init), 5 iterations with track_best, through K-BTD and K-LOOKUP on the
+    card against the plain versions on the CPU: 1e-9 relative, and 1e-6
+    under eps_max, whose float32 sigmoid may round an ulp apart on the card
+    and the CPU (6e-8 seen)."""
+    import chip_smoke
+
+    inputs = chip_smoke.bench_inputs(4, seed=2)
+    outs, counts = [], {}
+    for where in (dev, torch.device("cpu")):
+        planner, variables, params, th0, sdf, im = chip_smoke.learned_setup(
+            where, *inputs, lkw=lkw, method=method, iters=5,
+            dtype=torch.float64, weights_seed=4)
+        n_btd, n_look = k_btd.launches, k_lookup.launches
+        with torch.no_grad():
+            outs.append(planner.plan(variables, params, th0, sdf, im,
+                                     track_best=True))
+        counts[where.type] = (k_btd.launches - n_btd,
+                              k_lookup.launches - n_look)
+    assert counts == {"cuda": (5, 6), "cpu": (0, 0)}
+    tol = 1e-6 if lkw.get("eps_max") else 1e-9
+    for a, b in zip(outs[0][:3], outs[1][:3]):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) <= tol

@@ -87,9 +87,9 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     rhs = torch.ones((2, 5, 4), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):
         k_btd.launch(d, off, rhs)
-    with pytest.raises(ValueError, match="D="):
-        k_btd.launch(torch.zeros((2, 5, 33, 33)), torch.zeros((2, 4, 33, 33)),
-                     torch.zeros((2, 5, 33)))
+    with pytest.raises(ValueError, match="D >= 1; got D=0"):
+        k_btd.launch(torch.zeros((2, 5, 0, 0)), torch.zeros((2, 4, 0, 0)),
+                     torch.zeros((2, 5, 0)))
     sdf = torch.zeros((2, 8, 8), dtype=torch.float64)
     pts = torch.zeros((2, 3, 2), dtype=torch.float64)
     with pytest.raises(ValueError, match="CUDA"):

@@ -73,6 +73,21 @@ def test_btd_solve_vjp_matches_jax_f64(d):
         np.testing.assert_allclose(np_(got.grad), np_(ref), atol=1e-9)
 
 
+def test_btd_solve_gives_nan_on_a_non_pd_block_as_jax():
+    """A diag block that is not positive definite in one problem: NaN in
+    that problem where JAX's Cholesky gives NaN, not an error, and the
+    batch's other problems solved as JAX solves them (1e-10)."""
+    diag, off, rhs = spd_system(6)
+    diag[1, 5] = -diag[1, 5]
+    x_t = np_(tt.btd_solve(*(torch.tensor(a) for a in (diag, off, rhs))))
+    x_j = np_(jt.btd_solve(*(jnp.asarray(a) for a in (diag, off, rhs))))
+    assert np.isnan(x_t[1]).any()
+    np.testing.assert_array_equal(np.isnan(x_t), np.isnan(x_j))
+    assert np.isfinite(x_t[[0, 2]]).all()
+    np.testing.assert_allclose(x_t[[0, 2]], x_j[[0, 2]], rtol=1e-10,
+                               atol=1e-10)
+
+
 def test_btd_solve_auto_on_cpu_is_the_plain_solve():
     """CPU tensors take the plain version; the kernel is not launched."""
     before = k_btd.launches

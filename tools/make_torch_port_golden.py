@@ -24,11 +24,25 @@ rebuild each problem from the stored inputs and compare their plan with it.
   seeds ``th0`` and, for the task-space arm, ``workspace_goal``; each is
   planned through ``DiffGPMP2Planner.make_params`` and ``gn.plan``.
 
+* ``tests/goldens/torch_port_learned_small.npz``: the learned planner
+  (``LearnedDiffGPMP2Planner``) at B=4 in 64x64 worlds (the bench
+  construction at that size), T=20, 5 iterations: case ``ff``, the
+  campaign's bounded-eps feed-forward configuration under GN with
+  ``track_best``, and case ``gru``, its GRU twin under LM.  The weights are
+  remade on both sides with ``dgpmp2_tpu_torch.convert.seeded_flax_tree``
+  from the stored seed and flax tree shapes (``<c>_shapes``, JSON) about the
+  head's static init; no array of weights is stored.  Each case stores
+  ``<c>_config`` (JSON: LearnedPlannerConfig fields, method, reg, iters,
+  track_best, T, the fixed covariance scalars), its images, start, goal,
+  and the plan's ``th``, ``errs`` and ``errs_ext``.
+
 Each stores its config scalars and, after ITERS fixed-damping GN iterations
 of ``dgpmp2_tpu.core.gn.plan`` (standard engine, gather lookups), ``th``,
 ``err_init``, ``err_per_iter`` and ``err_ext_per_iter``, float64 on CPU.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py [--learned]
+
+(``--learned`` writes the learned planner's golden only.)
 """
 from __future__ import annotations
 
@@ -59,6 +73,7 @@ GOLDENS = Path(__file__).resolve().parents[1] / "tests" / "goldens"
 OUT = GOLDENS / "torch_port_plan_small.npz"
 OUT3D = GOLDENS / "torch_port_plan3d_small.npz"
 OUT_EXT = GOLDENS / "torch_port_plan_ext_small.npz"
+OUT_LEARNED = GOLDENS / "torch_port_learned_small.npz"
 CONFIGS = Path(__file__).resolve().parents[1] / "dgpmp2_tpu" / "configs"
 B_EXT, IM_EXT = 4, 64
 B, T, IMSIZE, ITERS = 8, 100, 128, 5
@@ -222,7 +237,89 @@ def golden_ext(out_path):
     print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes)")
 
 
+LEARNED_B, LEARNED_IM, LEARNED_T = 4, 64, 20
+# The campaign's eps_bounded configuration (tools/learned_campaign.py) and
+# its GRU twin, hidden width cut to 16.
+LEARNED_CASES = {
+    "ff": dict(learn=dict(dynamics_mode="diag_identity", learn_eps=True,
+                          eps_max=0.8, static_init=[1.0, 0.01, 0.4],
+                          dropout_prob=0.1),
+               method="gauss_newton", track_best=True),
+    "gru": dict(learn=dict(dynamics_mode="diag_identity", learn_eps=True,
+                           eps_max=0.8, static_init=[1.0, 0.01, 0.4],
+                           model_type="rnn_gru", hidden_dim=16),
+                method="lm", track_best=False),
+}
+
+
+def golden_learned(out_path):
+    """The learned planner's golden: each case planned in float64 with
+    weights from ``seeded_flax_tree`` (seed 7) about the static init."""
+    from dgpmp2_tpu.learn.learned_planner import (LearnedDiffGPMP2Planner,
+                                                  LearnedPlannerConfig)
+    from dgpmp2_tpu_torch import convert
+
+    cov = dict(cost_sigma=0.05, epsilon_dist=0.4, k_s=0.01, k_g=0.01)
+    arrays = {}
+    for case, c in LEARNED_CASES.items():
+        rng = np.random.default_rng({"ff": 1, "gru": 2}[case])
+        imgs = np.ones((LEARNED_B, LEARNED_IM, LEARNED_IM), np.uint8)
+        for i in range(LEARNED_B):
+            r, cc = rng.integers(10, 45, 2)
+            imgs[i, r:r + 10, cc:cc + 10] = 0
+        start = np.zeros((LEARNED_B, 4))
+        start[:, :2] = rng.uniform(-4.5, -3.5, (LEARNED_B, 2))
+        goal = np.zeros((LEARNED_B, 4))
+        goal[:, :2] = rng.uniform(3.5, 4.5, (LEARNED_B, 2))
+        spec = graph.GraphSpec(total_time_step=LEARNED_T)
+        robot = PointRobot2D()
+        lcfg = dict(c["learn"], static_init=tuple(c["learn"]["static_init"]))
+        planner = LearnedDiffGPMP2Planner(
+            spec, robot, gn.OptimConfig(reg=0.1, max_iters=ITERS,
+                                        method=c["method"]),
+            LearnedPlannerConfig(**lcfg, dtype=jnp.float64))
+        sdf = sdf_ops.sdf_from_occupancy(jnp.asarray(imgs, jnp.float64),
+                                         res=10.0 / LEARNED_IM)
+        params = graph.default_params(spec, robot, jnp.asarray(start),
+                                      jnp.asarray(goal), qc_inv=np.eye(2),
+                                      dtype=jnp.float64, **cov)
+        th0 = straight_line_traj(jnp.asarray(start[:, :2]),
+                                 jnp.asarray(goal[:, :2]),
+                                 spec.total_time_sec, LEARNED_T)
+        im = jnp.asarray(imgs, jnp.float64)
+        shapes = jax.tree.map(
+            lambda a: list(np.shape(a)), planner.init_variables(
+                jax.random.PRNGKey(0), planner.stack_inputs(im, sdf), th0))
+        tree = convert.seeded_flax_tree(
+            shapes, 7, convert.learned_out_path(shapes),
+            planner.static_out_bias(*lcfg["static_init"]))
+        hidden = None
+        if planner.recurrent:  # flax's carry is float32; the scan is float64
+            hidden = jax.tree.map(lambda x: x.astype(jnp.float64),
+                                  planner.init_hidden(jax.random.PRNGKey(0),
+                                                      LEARNED_B, 1))
+        th, errs, errs_ext, _ = planner.plan(
+            jax.tree.map(jnp.asarray, tree), params, th0, sdf, im,
+            hidden=hidden, track_best=c["track_best"])
+        config = dict(learn=c["learn"], method=c["method"], reg=0.1,
+                      iters=ITERS, track_best=c["track_best"], T=LEARNED_T,
+                      **cov)
+        arrays.update({
+            f"{case}_config": json.dumps(config),
+            f"{case}_shapes": json.dumps(shapes), f"{case}_seed": 7,
+            f"{case}_images": imgs, f"{case}_start": start,
+            f"{case}_goal": goal, f"{case}_th": np.asarray(th),
+            f"{case}_errs": np.asarray(errs),
+            f"{case}_errs_ext": np.asarray(errs_ext)})
+    np.savez_compressed(out_path, cases=np.asarray(list(LEARNED_CASES)),
+                        **arrays)
+    print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes)")
+
+
 def main():
+    if sys.argv[1:] == ["--learned"]:
+        golden_learned(OUT_LEARNED)
+        return
     imgs, start, goal = bench_inputs(B)
     spec = graph.GraphSpec(total_time_step=T,
                            total_time_sec=CONFIG["total_time_sec"])
@@ -240,6 +337,7 @@ def main():
                                         res=10.0 / VOX)
     golden(OUT3D, spec, PointRobot3D(), vox, start, goal, sdf, np.eye(3))
     golden_ext(OUT_EXT)
+    golden_learned(OUT_LEARNED)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,7 @@ shapes and access patterns, on a GPU, for one checkout's kernels, so that
 an earlier commit and this one can be timed in turns in one run.
 
     python3 tools/time_kernels.py [--repo DIR] [--label NAME] [--gn]
-        [--out build/time_kernels]
+        [--btd] [--out build/time_kernels]
 
 The kernels come from the ``dgpmp2_tpu_torch`` package under ``--repo``
 (default: this checkout; for an earlier commit, unpack it with ``git
@@ -19,7 +19,7 @@ split of the SDF (the packed limbs, or in a tree from before them the
 times (device-only, CUDA graph, host-inclusive events, host µs per
 ``launch()``), the host µs per ``ops.sdf.lookup_nd`` call for the lookups
 (under the limb engine of its L for K-LOOKUP-LIMB), and the bound.
-``--gn`` adds ms per GN iteration of the 2-D (also under ``pallas_v3_1``),
+``--btd`` times K-BTD alone.  ``--gn`` adds ms per GN iteration of the 2-D (also under ``pallas_v3_1``),
 3-D, 2- and 4-link arm and heading-robot plans (``chip_smoke.plan_ms``)
 and a profiled 20-iteration plan of each (``chip_smoke.profile_plan``).  Prints one line per record with the
 card's name and power limit and writes ``time_kernels_<label>.json`` under
@@ -88,12 +88,12 @@ def time_limbs(cs, smi, records, lookups):
             del limbs
 
 
-def time_kernels(cs, dev, smi):
+def time_kernels(cs, dev, smi, btd_only=False):
     from dgpmp2_tpu_torch.ops import sdf as sdf_ops
     from dgpmp2_tpu_torch.ops.cuda import btd_solve, sdf_lookup, sdf_lookup3d
 
     records = []
-    lookups = cs.path_lookups(dev)
+    lookups = {} if btd_only else cs.path_lookups(dev)
     for name, args in lookups.items():
         sdf, points = args[:2]
         ndim = points.shape[-1]
@@ -106,7 +106,8 @@ def time_kernels(cs, dev, smi):
         timed(cs, smi, records, rec,
               lambda k=k, args=args: k.launch(*args, "intended"), kernel,
               lambda args=args: sdf_ops.lookup_nd(*args))
-    time_limbs(cs, smi, records, lookups)
+    if not btd_only:
+        time_limbs(cs, smi, records, lookups)
     del lookups
     rng = np.random.default_rng(1)
     for label, b, t, d, dtype in cs.BTD_TIMED + cs.BTD_WIDE_TIMED:
@@ -167,6 +168,7 @@ def main():
     ap.add_argument("--repo", default=str(ROOT))
     ap.add_argument("--label", default="change")
     ap.add_argument("--gn", action="store_true")
+    ap.add_argument("--btd", action="store_true")
     ap.add_argument("--out", default=str(ROOT / "build" / "time_kernels"))
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
@@ -178,7 +180,7 @@ def main():
     print(f"kernels from {Path(_build.__file__).resolve().parents[2]}")
     _build.library()
     result = {"label": args.label, "card": smi,
-              "kernels": time_kernels(cs, dev, smi)}
+              "kernels": time_kernels(cs, dev, smi, args.btd)}
     if args.gn:
         result["gn_iter_ms"], result["gn_profile"] = time_gn(cs, dev, smi)
     out = Path(args.out)
