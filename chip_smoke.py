@@ -6,7 +6,7 @@
 Phases, in order; any failed check raises, so the exit code is non-zero:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build the four CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc,
+2. build the five CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc,
    printing every kernel's registers and spills (36 K-BTD instances: D = 1
    to 16, the wide kernel of D = 17-32 and the block kernel of D > 32, in
    two dtypes);
@@ -73,7 +73,18 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     ``plan_multistart`` (B=256, K=16, full and staged) on the multistart
     problem; then the gradient of ``err_ext`` with respect to every weight
     (B=64, 5 iterations, float64) on the card against the same on the CPU,
-    with the head's output decoded in float64 and, as shipped, in float32.
+    with the head's output decoded in float64 and, as shipped, in float32;
+12. learned-planner training: a dataset of 96 forest worlds x 4 problems
+    (128x128, T=100) written by the port's writers, labelled by
+    ``DiffGPMP2Planner`` at sigma 0.05; ``train_planner.main`` with the
+    campaign's eps_bounded configuration at full width (batch 128, unroll 10
+    in windows of 5, Adam) for 3 epochs with a validation pass and a
+    checkpoint, resumed for a fourth, then ``test_planner.main``; one
+    training step timed (CUDA events) and profiled (device busy, the
+    encoder's share, launches); K-LOOKUP-BWD against its autograd replay in
+    both dtypes and OOB modes at the tile edges, the paths' shapes and one
+    training step's own lookups, timed; a float64 training step on the card
+    against the CPU (chunked and LM paths).
 
 Every time printed carries the card's name and power limit.
 
@@ -103,7 +114,8 @@ GOLDEN_LEARNED = ROOT / "tests" / "goldens" / "torch_port_learned_small.npz"
 CONFIGS = ROOT / "dgpmp2_tpu" / "configs"
 B, T, IMSIZE, VOX = 1024, 100, 128, 64
 LIMS = (-5.0, 5.0)
-KERNELS = ("btd_solve", "sdf_lookup", "sdf_lookup3d", "sdf_lookup_limbs")
+KERNELS = ("btd_solve", "sdf_lookup", "sdf_lookup3d", "sdf_lookup_limbs",
+           "sdf_lookup_bwd")
 
 
 _T0 = time.perf_counter()
@@ -223,7 +235,8 @@ def device_ms(fn, kernel, reps=20):
     ``fn`` (one launch each), each after the L2 flush, divided by their
     launch count.  The profiler may drop a few launches' records; a window
     that shows fewer than ``reps`` is taken again, up to three times, and
-    the last one used if it shows any.  Raises if none shows a launch."""
+    the last one used if it shows any; if none shows a launch, the
+    CUDA-graph replay's time (:func:`graph_ms`) stands in, said so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -243,7 +256,13 @@ def device_ms(fn, kernel, reps=20):
         if n == reps:
             break
     if n == 0:
-        raise RuntimeError(f"the profiler saw no launch of {kernel}")
+        # A rare window in which the profiler records no kernel at all
+        # (seen once for K-LOOKUP-LIMB in a run that had profiled every
+        # kernel before it): the CUDA-graph replay's time, warm L2, instead.
+        ms = graph_ms(fn)
+        print(f"device_ms: the profiler saw no launch of {kernel} in three "
+              f"windows; its CUDA-graph time {ms:.4f} ms stands in")
+        return ms
     if n != reps:
         print(f"device_ms: the profiler saw {n} of {reps} launches of "
               f"{kernel}; the time is their mean")
@@ -1106,10 +1125,11 @@ def counters():
     """The kernel wrappers' modules, by kernel name (K-LOOKUP-LIMB's also
     counts its SDF splits)."""
     from dgpmp2_tpu_torch.ops.cuda import (btd_solve, sdf_lookup,
-                                           sdf_lookup3d, sdf_lookup_limbs)
+                                           sdf_lookup3d, sdf_lookup_bwd,
+                                           sdf_lookup_limbs)
 
     return dict(zip(KERNELS, (btd_solve, sdf_lookup, sdf_lookup3d,
-                              sdf_lookup_limbs)))
+                              sdf_lookup_limbs, sdf_lookup_bwd)))
 
 
 # Launches of every path run through drive(), by kernel: the kernels line.
@@ -1780,20 +1800,24 @@ GRAD_SEEDS = (3, 4, 5, 6)
 
 
 def decode_in_float64(planner):
-    """Make ``planner.predict`` (a feed-forward head) decode the head's
-    output in the plan's float64, where the package, as JAX, casts it to
-    float32 first: the gradient check of the kernel path, free of that
-    cast's rounding."""
+    """Make ``planner.predict`` decode the head's output in the plan's
+    float64, where the package, as JAX, casts it to float32 first: the
+    gradient and train-step checks of the kernel path, free of that cast's
+    rounding."""
     from dgpmp2_tpu_torch.learn import covariances as cov_lib
 
     lc = planner.learn_cfg
 
     def predict(variables, th, feats, hidden=None, train=False,
-                dth_prev=None):
-        out = variables["head"](feats, planner._head_pos(th, dth_prev),
-                                train=train)
+                dth_prev=None, rng=None):
+        pos = planner._head_pos(th, dth_prev)
+        head = variables["head"]
+        if planner.recurrent:
+            out, hidden = head(feats, pos, hidden)
+        else:
+            out, hidden = head(feats, pos, train=train, rng=rng), None
         return cov_lib.decode(out, planner.spec, lc.dynamics_mode,
-                              lc.learn_eps, lc.eps_max), None
+                              lc.learn_eps, lc.eps_max), hidden
 
     planner.predict = predict
 
@@ -1801,8 +1825,8 @@ def decode_in_float64(planner):
 def learned_gradient(dev, b=64, iters=5):
     """d(Σ err_ext)/d(every weight) of a float64 learned plan (B=64, 5
     iterations, random weights about the static init, learned eps decoded
-    as s², GN) on the card, through K-BTD's adjoint launches and the
-    lookups' replay, against the same on the CPU with the plain versions,
+    as s², GN) on the card, through K-BTD's adjoint launches and
+    K-LOOKUP-BWD, against the same on the CPU with the plain versions,
     leaf by leaf: 1e-10 relative with the head's output decoded in float64
     (:func:`decode_in_float64`), which checks the kernel path; 1e-4 on each
     of ``GRAD_SEEDS`` through the float32 decode as shipped, whose rounding
@@ -1832,11 +1856,13 @@ def learned_gradient(dev, b=64, iters=5):
 
             if where.type == "cuda":
                 # A forward solve per iteration and an adjoint one for each
-                # but the last, whose step reaches no err_ext; the lookups'
-                # backward replays the plain lookup (no launch).
+                # but the last, whose step reaches no err_ext; a K-LOOKUP-BWD
+                # launch for each lookup but the seed's, whose points carry
+                # no gradient.
                 drive(f"learned gradient (float64, B={b}, seed {seed}, "
                       f"{decode} decode)", run,
-                      {"btd_solve": 2 * iters - 1, "sdf_lookup": iters})
+                      {"btd_solve": 2 * iters - 1, "sdf_lookup": iters,
+                       "sdf_lookup_bwd": iters - 1})
             else:
                 run()
             grads.append(_leaves(convert.learned_grads_to_flax(variables)))
@@ -1852,6 +1878,463 @@ def learned_gradient(dev, b=64, iters=5):
             raise AssertionError(f"learned gradient seed {seed} {decode}: "
                                  f"{errs[worst]}")
 
+
+# -- phase 12: learned-planner training --------------------------------------
+
+# K-LOOKUP-BWD against its replay: relative to the largest cotangent of the
+# call.  The kernel sums in autograd's order but not bit for bit (1e-16
+# float64 and 1e-7 float32 seen in a Python mirror of its arithmetic); the
+# SDF cotangent's atomics add in no fixed order.
+LOOKUP_BWD_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# The training run: tools/learned_campaign.py's eps_bounded (:111-114) with
+# its CLI defaults (:438-443) at full width: 128^2, T=100, feed-forward head
+# 1000/640 with dropout 0.1, Adam 3e-4, batch 128, unroll 10 in windows of
+# 5, ext loss 1 with obstacle weight 5 and no imitation term.  96 forest
+# worlds x 4 problems: two batches of 128 to train on per epoch and one to
+# validate (valid_size 0.334).
+TRAIN_ENVS, TRAIN_PROBS, TRAIN_B, TRAIN_UNROLL, TRAIN_TK = 96, 4, 128, 10, 5
+
+
+def eps_bounded_learn(epochs, batch=TRAIN_B, unroll=TRAIN_UNROLL,
+                      tk=TRAIN_TK, valid_size=0.334, every=3):
+    """The learn YAML of the campaign's eps_bounded configuration;
+    validation and checkpoint every ``every`` epochs."""
+    return {
+        "model": {"type": "feed_forward", "dropout_prob": 0.1,
+                  "hidden_dim": 64, "num_hidden": 1},
+        "data": {"valid_size": valid_size, "expert": "gpmp2",
+                 "shuffle": True, "num_train_envs": -1,
+                 "num_train_env_probs": -1},
+        "optim": {"optimizer": "adam", "alpha": 3e-4, "reg_strength": 0.0,
+                  "batch_size": batch, "epochs": epochs, "save_epoch": every,
+                  "eval_epoch": every, "do_validation": True,
+                  "clip_grad": True, "clip_val": 2.0,
+                  "vel_loss_lambda": 0.1, "ext_obs_lambda": 5.0,
+                  "ext_loss_weight": 1.0, "pos_loss_weight": 0.0,
+                  "max_pen_weight": 0.0, "max_pen_beta": 30.0},
+        "dgpmp2": {"dynamics_mode": "diag_identity", "learn_eps": True,
+                   "eps_max": 0.8, "static_init": True, "sdf_predict": True,
+                   "dtheta_predict": False, "fixed_conv": False,
+                   "T": unroll, "tk": tk, "use_inter_loss": True,
+                   "optimize_tk": False},
+    }
+
+
+def training_dataset(root, dev, n_envs=TRAIN_ENVS, probs=TRAIN_PROBS,
+                     imsize=IMSIZE, t=T, iters=100, seed=0):
+    """A planning dataset under ``root`` written by the port's writers:
+    ``forest_inputs`` worlds, ``probs`` problems in each (starts near
+    (-4, -4), goals near (4, 4)), labelled by the port's DiffGPMP2Planner of
+    the repo's 2-D YAMLs (σ = 0.05, the campaign's label sigma) at T=t,
+    ``iters`` GN iterations, planned as one batch on ``dev``."""
+    from dgpmp2_tpu_torch.data import dataset as ds
+    from dgpmp2_tpu_torch.planner import DiffGPMP2Planner
+    from dgpmp2_tpu_torch.robots import make_robot
+
+    imgs, _, _ = forest_inputs(n_envs, imsize, seed)
+    rng = np.random.default_rng(seed + 1)
+    n = n_envs * probs
+    start, goal = np.zeros((n, 4)), np.zeros((n, 4))
+    start[:, :2] = rng.uniform(-4.5, -3.5, (n, 2))
+    goal[:, :2] = rng.uniform(3.5, 4.5, (n, 2))
+    lims, pp, gp, obs, opt, robot_data = load_yamls("gpmp2_2d_params.yaml")
+    pp, opt = dict(pp, total_time_step=t), dict(opt, max_iters=iters)
+    planner = DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(robot_data),
+                               dtype=torch.float32, device=dev)
+    sdf = occupancy_sdf(imgs, dev)
+    th0 = seeds(planner.spec, start, goal, dev)
+    th_opt = planner.plan(th0, start, goal,
+                          sdf.repeat_interleave(probs, dim=0)).th
+    th_opt, sdf = th_opt.cpu().numpy(), sdf.cpu().numpy()
+    d = Path(root) / "train"
+    for e in range(n_envs):
+        ds.save_env(str(d), e, imgs[e], sdf[e])
+        for j in range(probs):
+            i = e * probs + j
+            ds.save_problem(str(d), e, j, "opt_trajs_gpmp2", start[i],
+                            goal[i], th_opt[i])
+    ds.save_meta(str(d), n_envs, probs, imsize)
+    return th_opt
+
+
+def training_argv(root, data, out, learn, t=T, iters=50, device="cuda",
+                  tag="learn"):
+    """train_planner/test_planner arguments of a run under ``root``: the
+    repo's 2-D YAMLs with T=t, ``iters`` GN iterations and cost_sigma 0.01
+    (eps_bounded's static init (1.0, 0.01, 0.4), which build_planner reads
+    from the same YAML), and ``learn`` as the learn YAML."""
+    import yaml
+
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    plan = yaml.safe_load((CONFIGS / "gpmp2_2d_params.yaml").read_text())
+    g = plan["gpmp2"]
+    g["planner_params"]["total_time_step"] = t
+    g["optim_params"]["max_iters"] = iters
+    g["obs_params"]["cost_sigma"] = 0.01
+    (root / "plan.yaml").write_text(yaml.safe_dump(plan))
+    (root / f"{tag}.yaml").write_text(yaml.safe_dump(learn))
+    return ["--dataset_folders", str(data), "--device", str(device),
+            "--plan_param_file", str(root / "plan.yaml"),
+            "--robot_param_file", str(CONFIGS / "robot_2d.yaml"),
+            "--env_param_file", str(CONFIGS / "env_2d_params.yaml"),
+            "--learn_param_file", str(root / f"{tag}.yaml"),
+            *(["--out_folder", str(out)] if out is not None else [])]
+
+
+def train_step_counts(steps, unroll=TRAIN_UNROLL, remat=True, plan_iters=0,
+                      seed_lookup=False):
+    """Launches of ``steps`` chunked training steps and, with
+    ``plan_iters``, a learned plan of that many iterations (one more lookup
+    at its seed with ``seed_lookup``: track_best) and its evaluation
+    (``learn.eval.evaluate_batch``: two lookups).  A training step makes a
+    K-BTD solve per GN step, again in each window's recompute under
+    ``remat``, and its adjoint; a lookup at the seed and at each new
+    iterate, again in the recompute; a K-LOOKUP-BWD launch per GN step (the
+    new iterate's lookup, whose geometry the loss and the next step
+    share)."""
+    again = unroll if remat else 0
+    plan_lookups = plan_iters + (seed_lookup + 2 if plan_iters else 0)
+    return {"btd_solve": steps * (2 * unroll + again) + plan_iters,
+            "sdf_lookup": steps * (1 + unroll + again) + plan_lookups,
+            "sdf_lookup_bwd": steps * unroll}
+
+
+def lookup_bwd_bound(points, ndim, taps, dtype, sdf_grad):
+    """bound_ms, bound_by, library_ms of K-LOOKUP-BWD over ``points``
+    points: each reads its coordinates, its cotangents (1 + ndim) and its
+    ``taps`` taps and writes its cotangent (ndim), with ``sdf_grad`` also
+    adding into its taps' cotangents; a few tens of flops a point.  No single
+    PyTorch call returns the point cotangent through both outputs."""
+    sz = torch.finfo(dtype).bits // 8
+    per = (ndim + 1 + ndim + ndim) * sz + taps * sz * (2 if sdf_grad else 1)
+    ms, by = bound(points * per, points * 12 * taps, dtype)
+    return {"bound_ms": ms, "bound_by": by, "library_ms": None}
+
+
+def compare_bwd(name, got, want, tol, quiet=True):
+    """Largest error of (p_bar, s_bar) relative to the replay's largest
+    entry (0 where both are 0: a point outside the world in the intended
+    mode); raises past ``tol``."""
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-300)
+            for a, b in zip(got, want) if b is not None and b.numel()]
+    err = max(errs, default=0.0)
+    if not quiet:
+        print(f"{name}: max rel err {err:.3e} (tol {tol:g})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: {err}")
+    return err
+
+
+def bwd_cases(dev, rng, dtype, b, p, ndim, grid, res, lims, far=True):
+    """(sdf, points, d_bar, g_bar) with random SDF and cotangents, points
+    as lookup_points (one in ten outside, the border) and, with ``far``,
+    one far outside the grid."""
+    sdf = torch.tensor(rng.standard_normal((b, *grid)), dtype=dtype,
+                       device=dev)
+    pts = lookup_points(rng, p, ndim, b)
+    if ndim == 3:
+        pts *= np.array([1.0, 0.6, 0.8])  # the 16 x 12 x 20 grid's world
+    if far:
+        pts[0, 0] = 1e10
+    pts_t = torch.tensor(pts, dtype=dtype, device=dev)
+    d_bar = torch.tensor(rng.standard_normal((b, p)), dtype=dtype, device=dev)
+    g_bar = torch.tensor(rng.standard_normal((b, p, ndim)), dtype=dtype,
+                         device=dev)
+    return sdf, pts_t, d_bar, g_bar
+
+
+def check_bwd_call(name, sdf, pts, d_bar, g_bar, res, lims, mode):
+    """K-LOOKUP-BWD against the replay on one input: the point cotangent
+    alone, then with the SDF's; in the reference mode the points beyond
+    1e3 m (weights of ~1e10, whose contributions to one cell cancel to the
+    rounding of that size in the replay's scatter) carry no cotangent in
+    the second call.  Returns the largest relative error."""
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_bwd as k
+
+    tol = LOOKUP_BWD_TOL[sdf.dtype]
+    args = (res, lims, mode)
+    worst = compare_bwd(f"{name} p_bar",
+                        k.launch(sdf, pts, d_bar, g_bar, *args, False),
+                        k.replay(sdf, pts, d_bar, g_bar, *args, False), tol)
+    if mode == "reference":
+        keep = (pts.abs() < 1e3).all(-1)
+        d_bar, g_bar = d_bar * keep, g_bar * keep[..., None]
+    return max(worst, compare_bwd(
+        f"{name} p_bar, s_bar", k.launch(sdf, pts, d_bar, g_bar, *args),
+        k.replay(sdf, pts, d_bar, g_bar, *args), tol))
+
+
+def check_lookup_bwd(dev, record, smi, captured):
+    """K-LOOKUP-BWD against the replay in both dtypes and OOB modes: at the
+    lookup tiles' edge shapes (far points too), on the training path's own
+    lookups (``captured``: one step's kernel inputs), at B=128, P=101 on
+    128^2 grids, and at the learned 3-D shape (B=128, 32^3, T=20); timed
+    on the training path's points (device-only, L2 flushed) beside its
+    bound and the replay."""
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_bwd as k
+    from dgpmp2_tpu_torch.ops.sdf import OOB_MODES
+
+    rng = np.random.default_rng(12)
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    grids = {2: ((32, 32), 10.0 / 32, (LIMS, LIMS)),
+             3: ((16, 12, 20), 0.5, (LIMS, (-3.0, 3.0), (-4.0, 4.0)))}
+    for dtype in LOOKUP_DTYPES:
+        for ndim, (grid, res, lims) in grids.items():
+            for b, p in LOOKUP_EDGES:
+                case = bwd_cases(dev, rng, dtype, b, p, ndim, grid, res,
+                                 lims)
+                for mode in OOB_MODES:
+                    worst[dtype] = max(worst[dtype], check_bwd_call(
+                        f"K-LOOKUP-BWD {ndim}-D B={b} P={p}", *case, res,
+                        lims, mode))
+        shapes = (("2-D B=128 P=101 128^2", 2, (IMSIZE, IMSIZE),
+                   10.0 / IMSIZE, (LIMS, LIMS)),
+                  ("3-D B=128 P=21 32^3", 3, (32, 32, 32), 10.0 / 32,
+                   (LIMS, LIMS, LIMS)))
+        for name, ndim, grid, res, lims in shapes:
+            case = bwd_cases(dev, rng, dtype, TRAIN_B,
+                             (T if ndim == 2 else LEARN3D_T) + 1, ndim, grid,
+                             res, lims)
+            for mode in OOB_MODES:
+                worst[dtype] = max(worst[dtype], check_bwd_call(
+                    f"K-LOOKUP-BWD {name} {dtype} {mode}", *case, res, lims,
+                    mode))
+        for i, (sdf, pts, d_bar, g_bar, res, lims, mode) in enumerate(
+                captured):
+            args = [x.to(dtype) for x in (sdf, pts, d_bar, g_bar)]
+            worst[dtype] = max(worst[dtype], check_bwd_call(
+                f"K-LOOKUP-BWD training lookup {i} {dtype}", *args, res,
+                lims, mode))
+    print(f"K-LOOKUP-BWD against the autograd replay at (B, P) in "
+          f"{LOOKUP_EDGES} (2-D 32^2, 3-D 16x12x20), B=128 P=101 128^2, "
+          f"B=128 P=21 32^3 and on {len(captured)} lookups of a training "
+          f"step, both OOB modes: max rel err float32 "
+          f"{worst[torch.float32]:.3e} (tol {LOOKUP_BWD_TOL[torch.float32]:g})"
+          f", float64 {worst[torch.float64]:.3e} (tol "
+          f"{LOOKUP_BWD_TOL[torch.float64]:g})")
+    sdf, pts, d_bar, g_bar, res, lims, mode = captured[-1]
+    n = pts.shape[0] * pts.shape[1]
+    for sdf_grad in (True, False):
+        rec = {}
+        run = (sdf, pts, d_bar, g_bar, res, lims, mode, sdf_grad)
+        got, want = k.launch(*run), k.replay(*run)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want)
+                  if b is not None)
+        kernel_ms(rec, lambda: k.launch(*run), lambda: k.replay(*run),
+                  "sdf_lookup_bwd_kernel")
+        rec.update(lookup_bwd_bound(n, 2, 4, pts.dtype, sdf_grad))
+        what = "point and SDF cotangents" if sdf_grad else (
+            "point cotangent (the training path)")
+        print(f"[{smi}] K-LOOKUP-BWD B={pts.shape[0]} P={pts.shape[1]} "
+              f"{IMSIZE}^2 float32, {what}, on a training step's lookup: "
+              f"{times_line(rec)}")
+    record.update(rec, max_abs_err=err)
+
+
+def train_batch(planner, dataset_root, cov_scalars, b):
+    """The first ``b`` problems of a dataset as a training batch on the
+    planner's device."""
+    from dgpmp2_tpu_torch.data import dataset as ds
+    from dgpmp2_tpu_torch.learn.train_planner import _to_batch
+
+    d = ds.PlanningDatasetMulti([str(dataset_root)])
+    return _to_batch(next(ds.as_batches(d, range(len(d)), b)), cov_scalars,
+                     planner.device)
+
+
+def check_training_run(name, history, epochs, want_validation):
+    """Finite per-epoch losses for ``epochs`` epochs, and the validation
+    suite where asked."""
+    losses = [h["loss"] for h in history]
+    finite = len(losses) == epochs and all(np.isfinite(losses))
+    val = [h["validation"] for h in history if "validation" in h]
+    print(f"{name}: epochs {[h['epoch'] for h in history]}, loss "
+          f"{', '.join(f'{v:.5g}' for v in losses)}"
+          + (f"; validation solve_rate {val[0]['solve_rate']:.4f}, "
+             f"contact_free_rate {val[0]['contact_free_rate']:.4f}"
+             if val else ""))
+    if not finite or (len(val) == 1) != want_validation:
+        raise AssertionError(f"{name}: {history}")
+
+
+def training(dev, smi, record):
+    """Phase 12: build a dataset on the card, run train_planner.main at the
+    campaign's full width for 3 epochs (a validation pass and a
+    checkpoint), resume it for a fourth, evaluate it with test_planner.main,
+    time a training step, check K-LOOKUP-BWD against the replay and a
+    float64 training step on the card against the CPU."""
+    phase(f"12 learned-planner training (B={TRAIN_B}, {IMSIZE}x{IMSIZE}, "
+          f"T={T}, float32)")
+    import shutil
+
+    from dgpmp2_tpu_torch.learn import checkpoints, test_planner
+    from dgpmp2_tpu_torch.learn import train_planner as tp
+    from dgpmp2_tpu_torch.learn.train import make_train_step
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_bwd
+
+    root = ROOT / "build" / "train_run"
+    shutil.rmtree(root, ignore_errors=True)
+    data, out = root / "data", root / "run"
+    n = TRAIN_ENVS * TRAIN_PROBS
+    drive(f"expert labels (DiffGPMP2Planner, B={n}, 100 iterations)",
+          lambda: training_dataset(data, dev),
+          {"btd_solve": 100, "sdf_lookup": 101})
+    argv = training_argv(root, data, out, eps_bounded_learn(3))
+    (state, history), _ = drive(
+        "train_planner.main, 3 epochs of 2 steps, a validation pass",
+        lambda: tp.main(argv), train_step_counts(6, plan_iters=50))
+    check_training_run("train_planner.main", history, 3, True)
+    ckpt = out / "checkpoints"
+    if (checkpoints.latest_step(ckpt) != 3 or state.step != 6
+            or not (out / "train_losses.yaml").is_file()
+            or not (out / "train_val_split.yaml").is_file()):
+        raise AssertionError("train_planner.main: checkpoint or outputs")
+    argv4 = training_argv(root, data, out, eps_bounded_learn(4), tag="learn4")
+    (state, history), _ = drive(
+        "train_planner.main --resume, a fourth epoch",
+        lambda: tp.main(argv4 + ["--resume"]), train_step_counts(2))
+    check_training_run("train_planner.main --resume", history, 1, False)
+    if checkpoints.latest_step(ckpt) != 4 or state.step != 8:
+        raise AssertionError(f"resume: step {state.step}")
+    results = root / "results.yaml"
+    summary, _ = drive("test_planner.main (track_best, 50 iterations)",
+                       lambda: test_planner.main(
+                           training_argv(root, data, None,
+                                         eps_bounded_learn(4), tag="learn4")
+                           + ["--model_folder", str(out), "--out_file",
+                              str(results), "--batch_size", str(TRAIN_B)]),
+                       train_step_counts(0, plan_iters=50,
+                                         seed_lookup=True))
+    print(f"test_planner.main on the validation split: solve_rate "
+          f"{summary['solve_rate']:.4f}, contact_free_rate "
+          f"{summary['contact_free_rate']:.4f}, avg_gp_error "
+          f"{summary['avg_gp_error']:.5g}")
+    if not (results.is_file() and 0.0 <= summary["solve_rate"] <= 1.0
+            and np.isfinite(summary["avg_gp_error"])):
+        raise AssertionError(f"test_planner.main: {summary}")
+
+    # One training step of the resumed run, timed and profiled.
+    args, _ = tp._parser("").parse_known_args(argv4)
+    planner, learn, gp, obs, _ = tp.load_run(args)
+    tcfg, weights = tp.train_config_of(learn)
+    train_step = make_train_step(planner, weights, tcfg)
+    batch = train_batch(planner, data, tp.cov_scalars_of(gp, obs), TRAIN_B)
+    captured, launch = [], sdf_lookup_bwd.launch
+
+    def capture(sdf, pts, d_bar, g_bar, res, lims, mode, sdf_grad=True):
+        captured.append((sdf.clone(), pts.clone(), d_bar.clone(),
+                         g_bar.clone(), res, lims, mode))
+        return launch(sdf, pts, d_bar, g_bar, res, lims, mode, sdf_grad)
+
+    sdf_lookup_bwd.launch = capture
+    try:
+        (state, metrics), _ = drive("one training step", lambda: train_step(
+            state, batch, 0), train_step_counts(1))
+    finally:
+        sdf_lookup_bwd.launch = launch
+    if not all(bool(torch.isfinite(v)) for v in metrics.values()):
+        raise AssertionError(f"training step: {metrics}")
+    step_ms = cuda_ms(lambda: train_step(state, batch, 0), reps=5, warmup=1)
+    _, prof = profile_run(lambda: train_step(state, batch, 0))
+    stack = planner.stack_inputs(batch["im"], batch["sdf"])
+
+    def encoder():
+        planner.conv_features(state.variables, stack).sum().backward()
+
+    _, enc = profile_run(encoder)
+    bwd = prof.get("sdf_lookup_bwd", {})
+    print(f"[{smi}] training step (eps_bounded, B={TRAIN_B}, {IMSIZE}^2, "
+          f"T={T}, unroll {TRAIN_UNROLL} in windows of {TRAIN_TK}, remat, "
+          f"Adam) float32: {step_ms:.3f} ms per step (CUDA events, median of "
+          f"5); one profiled step: wall {prof['wall_ms']:.3f} ms, device "
+          f"busy {prof['busy_ms']:.3f} ms ({prof['busy_ms'] / prof['wall_ms']:.4f}"
+          f" of the wall), {prof['ops']} device launches; the encoder's "
+          f"forward and backward {enc['busy_ms']:.3f} ms device "
+          f"({enc['busy_ms'] / prof['busy_ms']:.4f} of the step's); "
+          f"K-LOOKUP-BWD {bwd.get('launches', 0)} launches, "
+          f"{bwd.get('us', float('nan')):.2f} us each")
+    check_lookup_bwd(dev, record, smi, captured)
+    train_step_card_vs_cpu(dev)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def train_step_card_vs_cpu(dev, b=16, unroll=4, tk=2):
+    """One float64 training step (B=16, 128^2, T=100, unroll 4 in windows
+    of 2, SGD at 0.01, so that each update is the clipped gradient) of the
+    eps_bounded planner with random weights on the card against the CPU, on
+    the chunked and the LM path, leaf by leaf relative to the leaf's largest
+    entry.  With the head decoded in float64 (:func:`decode_in_float64`):
+    every updated weight within 1e-10, and every update, the gradient
+    itself, within 1e-9 (1.6e-10 seen: cuDNN's and the CPU's convolution
+    backward sum in other orders, and a LayerNorm scale's gradient cancels
+    over B·H·W terms).  Through the shipped float32 decode both are
+    reported.  Dropout 0 (each device draws its own masks)."""
+    from dgpmp2_tpu_torch import convert
+    from dgpmp2_tpu_torch.learn.losses import LossWeights
+    from dgpmp2_tpu_torch.learn.train import (TrainConfig, TrainState,
+                                              make_optimizer,
+                                              make_train_step)
+
+    imgs, start, goal = bench_inputs(b, seed=3)
+    th_opt = np.random.default_rng(3).standard_normal((b, T + 1, 4)) * 0.1
+    cov = dict(qc_inv=np.eye(2), cost_sigma=0.01, epsilon_dist=0.4,
+               k_s=0.01, k_g=0.01)
+    lkw = dict(EPS_BOUNDED, dropout_prob=0.0)
+    weights = LossWeights(ext_loss_weight=1.0, ext_obs_lambda=5.0,
+                          pos_loss_weight=0.1)
+
+    def worst(pairs):
+        errs = {p: float(np.abs(a - c).max() / max(np.abs(c).max(), 1e-300))
+                for (p, a), (_, c) in zip(*pairs)}
+        key = max(errs, key=errs.get)
+        return errs[key], key
+
+    for method in ("gauss_newton", "lm"):
+        for decode, tols in (("float64", (1e-10, 1e-9)),
+                             ("float32", (None, None))):
+            after, updates = [], []
+            for where in (dev, torch.device("cpu")):
+                planner, variables, _, th0, sdf, im = learned_setup(
+                    where, imgs, start, goal, lkw=lkw, method=method,
+                    dtype=torch.float64, weights_seed=3)
+                if decode == "float64":
+                    decode_in_float64(planner)
+                state = TrainState(0, variables, make_optimizer(
+                    "sgd", {"alpha": 0.01})(variables.parameters()))
+                step = make_train_step(planner, weights, TrainConfig(
+                    T=unroll, tk=tk))
+                batch = {"im": im, "sdf": sdf,
+                         "start": torch.tensor(start, device=where),
+                         "goal": torch.tensor(goal, device=where),
+                         "th_opt": th0 + torch.tensor(th_opt, device=where),
+                         "cov_scalars": cov}
+                before = _leaves(convert.learned_state_to_flax(variables))
+
+                def run():
+                    return step(state, batch, 0)
+
+                if where.type == "cuda":
+                    drive(f"training step ({method}, float64, B={b}, "
+                          f"{decode} decode)", run,
+                          train_step_counts(1, unroll))
+                else:
+                    run()
+                new = _leaves(convert.learned_state_to_flax(variables))
+                after.append(new)
+                updates.append([(p, a - o) for (p, a), (_, o) in zip(new,
+                                                                    before)])
+            (e_w, at_w), (e_u, at_u) = worst(after), worst(updates)
+            tol_w, tol_u = tols
+            bound = (f" (tol {tol_w:g})", f" (tol {tol_u:g})") if tol_w else (
+                " (reported)", " (reported)")
+            print(f"training step ({method}, float64, B={b}) on the card "
+                  f"against the CPU, {decode} decode, {len(after[0])} weight "
+                  f"tensors: max rel err of the updated weights {e_w:.3e} at "
+                  f"{at_w}{bound[0]}, of the updates {e_u:.3e} at "
+                  f"{at_u}{bound[1]}")
+            if tol_w is not None and not (e_w <= tol_w and e_u <= tol_u):
+                raise AssertionError(f"training step {method}: {e_w}, {e_u}")
 
 def _leaves(tree, path=""):
     """(path, array) of each leaf of a nested dict, in sorted key order."""
@@ -1881,6 +2364,11 @@ def main():
         "sdf_lookup_limbs": {
             "source": "dgpmp2_tpu_torch/csrc/sdf_lookup_limbs.cu",
             "replaces": "dgpmp2_tpu/ops/pallas/sdf_lookup.py:272"},
+        "sdf_lookup_bwd": {
+            "source": "dgpmp2_tpu_torch/csrc/sdf_lookup_bwd.cu",
+            "replaces": "none: the JAX package replays XLA "
+                        "(dgpmp2_tpu/ops/pallas/sdf_lookup.py:120 "
+                        "_mxu_replay_bwd)"},
     }
     for name, rec in recs.items():
         rec.update(name=name, route="cuda")
@@ -1899,6 +2387,7 @@ def main():
     ms_run = multistart(dev)
     per_iter = timing(smi, bench, bench3, problems, ms_run)
     learned(dev, bench_np)
+    training(dev, smi, recs["sdf_lookup_bwd"])
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
     for rec in recs.values():

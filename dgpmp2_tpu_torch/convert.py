@@ -6,7 +6,8 @@ The JAX side hands over ``{f: np.asarray(getattr(p, f)) for f in fields}``
 Network weights cross as the flax variable tree in nested dicts of numpy
 arrays: :func:`learned_state_from_flax` maps the learned planner's
 ``{"conv": {"params": ...}, "head": {"params": ...}}`` onto the state dict
-of its ``variables`` (``LearnedDiffGPMP2Planner.init_variables``) and
+of its ``variables`` (``LearnedDiffGPMP2Planner.init_variables``),
+:func:`learned_state_to_flax` back, and
 :func:`module_state_from_flax` one module's ``params`` tree (an ``InitNet``,
 an encoder, a head) onto its port's; :func:`learned_grads_to_flax` and
 :func:`module_grads_to_flax` carry gradients back as flax trees.  Flax
@@ -161,6 +162,16 @@ def learned_flax_shapes(variables: nn.ModuleDict) -> dict:
                                                        np.uint8)).shape)
 
     return {part: {"params": _module_tree(variables[part], shape)}
+            for part in ("conv", "head")}
+
+
+def learned_state_to_flax(variables: nn.ModuleDict) -> dict:
+    """The learned planner's weights as its flax variable tree of numpy
+    arrays (the inverse of :func:`learned_state_from_flax`)."""
+    def leaf(kind, name, p):
+        return _to_flax_leaf(kind, name, p.detach().cpu().numpy().copy())
+
+    return {part: {"params": _module_tree(variables[part], leaf)}
             for part in ("conv", "head")}
 
 

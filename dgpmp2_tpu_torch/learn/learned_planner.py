@@ -25,6 +25,12 @@ at the next one), the port looks the SDF up once per trajectory
 params' residuals from it: a learned ε moves the hinge, not the SDF value.
 A plan makes one lookup per iteration, plus one at the seed with LM or
 ``track_best``.
+
+In training (``train=True``) the feed-forward head's dropout draws its masks
+from the ``rng`` handed to :meth:`LearnedDiffGPMP2Planner.predict` /
+:meth:`~LearnedDiffGPMP2Planner.step`: a ``torch.Generator`` or masks drawn
+beforehand (``FeedForwardHead.dropout_masks``), as the JAX package's
+``step(..., train=True, rng=...)``.  Without ``train`` there is no dropout.
 """
 from __future__ import annotations
 
@@ -40,7 +46,8 @@ from dgpmp2_tpu_torch.core import graph as graph_lib
 from dgpmp2_tpu_torch.learn import covariances as cov_lib
 from dgpmp2_tpu_torch.models.conv_encoder import (ConvEncoder, ConvEncoder3D,
                                                   normalize_im)
-from dgpmp2_tpu_torch.models.cov_head import (FeedForwardHead, RecurrentHead,
+from dgpmp2_tpu_torch.models.cov_head import (Dropout, FeedForwardHead,
+                                              RecurrentHead,
                                               traj_positions_flat)
 from dgpmp2_tpu_torch.ops import sdf as sdf_ops
 from dgpmp2_tpu_torch.ops import tridiag
@@ -62,6 +69,10 @@ class LearnedPlannerConfig:
     costmap_eps: float = 0.4
     # Per-image [-1, 1] min-max normalisation of the conv input.
     normalize_im: bool = False
+    # Training only: the conv features are computed once per problem and
+    # detached, so that the encoder is not trained (a plan computes them
+    # once per plan in any case).
+    fixed_conv: bool = False
     dtheta_predict: bool = False  # feed the previous GN update to the head
     # Head output bias reproducing these static covariances at init:
     # (qc_inv_scalar, cost_sigma[, eps]); see static_out_bias.
@@ -73,10 +84,13 @@ class LearnedPlannerConfig:
     dtype: torch.dtype = torch.float32
 
 
-def _tree_map(fn, x):
-    """``fn`` over the tensors of nested tuples (a recurrent carry)."""
+def tree_map(fn, x):
+    """``fn`` over the tensors of nested tuples (a recurrent carry; None
+    for the feed-forward head's)."""
+    if x is None:
+        return None
     if isinstance(x, tuple):
-        return tuple(_tree_map(fn, v) for v in x)
+        return tuple(tree_map(fn, v) for v in x)
     return fn(x)
 
 
@@ -241,16 +255,18 @@ class LearnedDiffGPMP2Planner:
         return variables["conv"](im_stack)
 
     def predict(self, variables: nn.ModuleDict, th, feats, hidden=None,
-                train: bool = False, dth_prev=None):
+                train: bool = False, dth_prev=None, rng: Dropout = None):
         """Head forward + covariance decode: (covs, new_hidden).  With
         ``dtheta_predict`` the previous GN update's positions join the
-        head's input."""
+        head's input.  With ``train`` the feed-forward head's dropout masks
+        come from ``rng`` (a generator or the masks themselves); the
+        recurrent head has no dropout."""
         pos = self._head_pos(th, dth_prev)
         head = variables["head"]
         if self.recurrent:
             out, new_hidden = head(feats, pos, hidden)
         else:
-            out, new_hidden = head(feats, pos, train=train), None
+            out, new_hidden = head(feats, pos, train=train, rng=rng), None
         lc = self.learn_cfg
         covs = cov_lib.decode(out.to(torch.float32), self.spec,
                               lc.dynamics_mode, lc.learn_eps, lc.eps_max)
@@ -274,11 +290,12 @@ class LearnedDiffGPMP2Planner:
     # -- planner steps -------------------------------------------------------
 
     def _step(self, variables, params_fix, th, geom, feats, hidden, train,
-              dth_prev, delta, trust_region):
+              dth_prev, delta, trust_region, rng=None):
         """One learned GN iteration at ``th`` from its geometry."""
         spec, robot = self.spec, self.robot
         covs, new_hidden = self.predict(variables, th, feats, hidden,
-                                        train=train, dth_prev=dth_prev)
+                                        train=train, dth_prev=dth_prev,
+                                        rng=rng)
         params = self.graph_params(params_fix, covs)
         res = graph_lib.residuals_from_geometry(spec, robot, params, th, geom)
         diag, off, rhs = graph_lib.assemble_from_residuals(spec, params, res,
@@ -298,16 +315,22 @@ class LearnedDiffGPMP2Planner:
 
     def step(self, variables, params_fix: graph_lib.GraphParams, th, sdf,
              feats, hidden=None, train: bool = False, dth_prev=None,
-             delta=None):
+             delta=None, rng: Dropout = None,
+             geom: Optional[graph_lib.Geometry] = None):
         """One learned GN iteration: (dtheta, err, err_ext, params_used,
         new_hidden).  ``delta`` (B,) is a per-problem LM lambda applied as
-        trust-region damping; None keeps the scalar ``cfg.reg``."""
+        trust-region damping; None keeps the scalar ``cfg.reg``.  ``rng``:
+        the dropout source with ``train``.  ``geom``, the geometry of ``th``
+        (``graph.eval_geometry``) where the caller has it, saves the
+        lookup."""
         th = th.to(self.device)
-        geom = graph_lib.eval_geometry(self.spec, self.robot, th,
-                                       sdf.to(self.device).contiguous())
+        if geom is None:
+            geom = graph_lib.eval_geometry(self.spec, self.robot, th,
+                                           sdf.to(self.device).contiguous())
         lm = delta is not None
         return self._step(variables, params_fix, th, geom, feats, hidden,
-                          train, dth_prev, delta if lm else self.cfg.reg, lm)
+                          train, dth_prev, delta if lm else self.cfg.reg, lm,
+                          rng)
 
     def _best_score(self, params_fix, th, geom):
         """GP-MSE of the iterate if its interior is free of collision under
@@ -468,7 +491,7 @@ class LearnedDiffGPMP2Planner:
         th2, _, _, _ = self.plan(
             variables, tile_params(params_fix, b, keep), gather(th1), sdf_k,
             tile(im, keep), max_iters=iters - prune_iters, track_best=True,
-            hidden=None if hidden1 is None else _tree_map(gather, hidden1))
+            hidden=tree_map(gather, hidden1))
         pool = torch.cat([gather(best1), th2], dim=0)
         return select_best(self.spec, self.robot, pool,
                            torch.cat([sdf_k, sdf_k], dim=0), 2 * keep, b,

@@ -18,13 +18,19 @@ maps one to one onto the JAX model's, and none is learned that it lacks.
 ``out_bias`` (length ``out_dim``) zeroes the final kernel and sets its bias,
 so the forward pass at init emits exactly the bias: the static-covariance
 planner (``LearnedDiffGPMP2Planner.static_out_bias``).
+
+Dropout (the feed-forward head's, and :class:`~dgpmp2_tpu_torch.models.
+init_net.InitNet`'s) draws its keep-masks from an explicit
+``torch.Generator``, never from torch's global generator, or takes masks
+drawn beforehand (:func:`dropout_masks`), so that a recomputed forward pass
+(``torch.utils.checkpoint``) sees the masks of the first: flax's
+``nn.Dropout``, a unit kept with probability 1 − p and scaled by 1/(1 − p).
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from dgpmp2_tpu_torch.models.conv_encoder import LN_EPS
@@ -45,6 +51,51 @@ def lecun_normal_(linear: nn.Linear, generator: torch.Generator) -> None:
                           generator=generator)
     if linear.bias is not None:
         nn.init.zeros_(linear.bias)
+
+
+# The dropout source of a forward pass in training: a generator to draw the
+# keep-masks from, or the masks themselves (:func:`dropout_masks`).
+Dropout = Union[torch.Generator, Tuple[torch.Tensor, ...], None]
+
+
+def dropout_masks(batch: int, widths: Sequence[int], p: float,
+                  generator: torch.Generator, device) -> tuple:
+    """Boolean keep-masks (batch, width) for each width, each unit kept with
+    probability 1 − p: uniform draws from ``generator`` below 1 − p, as
+    flax's ``random.bernoulli``.  Empty for p = 0, where flax's dropout is
+    the identity."""
+    if p == 0.0:
+        return ()
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator or "
+                         "precomputed masks (no draw from the global RNG)")
+    return tuple(torch.rand((batch, w), generator=generator, device=device)
+                 < 1.0 - p for w in widths)
+
+
+def apply_dropout(x: torch.Tensor, keep: Optional[torch.Tensor],
+                  p: float) -> torch.Tensor:
+    """flax's ``nn.Dropout``: ``x / (1 − p)`` where kept, else 0 (x itself
+    with no mask)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def resolve_masks(rng: Dropout, batch: int, widths: Sequence[int], p: float,
+                  device) -> tuple:
+    """The keep-masks of one forward pass in training: ``rng`` itself when it
+    holds masks, else drawn from it (:func:`dropout_masks`); one None per
+    width where p = 0."""
+    if p == 0.0:
+        return (None,) * len(widths)
+    if isinstance(rng, tuple):
+        if len(rng) != len(widths):
+            raise ValueError(f"{len(rng)} dropout masks for {len(widths)} "
+                             "dropout layers")
+        return rng
+    return dropout_masks(batch, widths, p, rng, device)
 
 
 class _OutDense(nn.Linear):
@@ -92,14 +143,31 @@ class FeedForwardHead(nn.Module):
             nn.init.zeros_(norm.bias)
         self.out.init_(generator)
 
+    @property
+    def dropout_widths(self) -> Tuple[int, ...]:
+        """The widths its dropout layers mask: the input and each hidden
+        layer's output."""
+        return (self.dense[0].in_features,
+                *(d.out_features for d in self.dense))
+
+    def dropout_masks(self, batch: int, generator: torch.Generator) -> tuple:
+        """The keep-masks of one training forward pass of ``batch`` rows,
+        drawn from ``generator`` on the head's device."""
+        return dropout_masks(batch, self.dropout_widths, self.dropout_prob,
+                             generator, self.out.weight.device)
+
     def forward(self, feats: torch.Tensor, th_pos_flat: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, rng: Dropout = None) -> torch.Tensor:
+        """With ``train``, dropout before each dense layer, its masks from
+        ``rng`` (a generator, or :meth:`dropout_masks`' masks)."""
         x = torch.cat([feats, th_pos_flat], dim=-1).to(self.out.weight.dtype)
-        for dense, norm in zip(self.dense, self.norms):
-            x = F.dropout(x, self.dropout_prob, training=train)
-            x = torch.relu(norm(dense(x)))
-        x = F.dropout(x, self.dropout_prob, training=train)
-        return self.out(x)
+        p = self.dropout_prob
+        keep = (resolve_masks(rng, x.shape[0], self.dropout_widths, p,
+                              x.device) if train
+                else (None,) * (len(self.dense) + 1))
+        for dense, norm, k in zip(self.dense, self.norms, keep):
+            x = torch.relu(norm(dense(apply_dropout(x, k, p))))
+        return self.out(apply_dropout(x, keep[-1], p))
 
 
 class GRUCell(nn.ModuleDict):

@@ -3,18 +3,20 @@
 Port of ``dgpmp2_tpu/models/init_net.py``: the covariance encoder's CNN
 trunk, then Dropout/Dense(512)/LayerNorm/ReLU twice and Dense predicting the
 interior ``(num_states - 2)·state_dim`` of an initial-trajectory delta; the
-endpoint rows of the delta are zero.  Its trainer is not ported yet.
+endpoint rows of the delta are zero.  Its trainer is
+:mod:`dgpmp2_tpu_torch.learn.train_initializer`; dropout in training draws
+from an explicit generator (``models.cov_head.dropout_masks``).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from dgpmp2_tpu_torch.models.conv_encoder import LN_EPS, ConvEncoder
-from dgpmp2_tpu_torch.models.cov_head import xavier_uniform_
+from dgpmp2_tpu_torch.models.cov_head import (Dropout, apply_dropout,
+                                              resolve_masks, xavier_uniform_)
 
 
 class InitNet(nn.Module):
@@ -45,14 +47,20 @@ class InitNet(nn.Module):
         xavier_uniform_(self.out, generator)
 
     def forward(self, x: torch.Tensor, th: torch.Tensor,
-                train: bool = False) -> torch.Tensor:
+                train: bool = False, rng: Dropout = None) -> torch.Tensor:
+        """With ``train``, dropout before each dense layer, its masks from
+        ``rng`` (a generator, or masks of the three widths)."""
         feats = self.encoder(x)
         h = torch.cat([feats, th.reshape(th.shape[0], -1).to(feats.dtype)],
                       dim=-1)
-        for dense, norm in zip(self.dense, self.norms):
-            h = F.dropout(h, self.dropout_prob, training=train)
-            h = torch.relu(norm(dense(h)))
-        h = F.dropout(h, self.dropout_prob, training=train)
+        p = self.dropout_prob
+        widths = (self.dense[0].in_features, *(d.out_features
+                                               for d in self.dense))
+        keep = (resolve_masks(rng, h.shape[0], widths, p, h.device) if train
+                else (None,) * 3)
+        for dense, norm, k in zip(self.dense, self.norms, keep):
+            h = torch.relu(norm(dense(apply_dropout(h, k, p))))
+        h = apply_dropout(h, keep[-1], p)
         interior = self.out(h).reshape(-1, self.num_states - 2,
                                        self.state_dim)
         z = interior.new_zeros((interior.shape[0], 1, self.state_dim))

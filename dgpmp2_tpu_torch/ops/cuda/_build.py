@@ -44,6 +44,9 @@ _SIGNATURES = {
     "dgpmp2_sdf_lookup3d_f32": [_P] * 5,
     "dgpmp2_sdf_lookup3d_f64": [_P] * 5,
     **{f"dgpmp2_sdf_lookup_limbs_l{n}": [_P] * 5 for n in (1, 2, 3)},
+    # (plan, sdf, points, d_bar, g_bar, p_bar, s_bar or NULL, stream)
+    **{f"dgpmp2_sdf_lookup{nd}_bwd_f{bits}": [_P] * 8
+       for nd in ("", "3d") for bits in (32, 64)},
 }
 
 _lib = None

@@ -2,7 +2,8 @@
 
 Replaces the TPU kernel ``dgpmp2_tpu/ops/pallas/sdf_lookup3d.py``
 ``_make_kernel``.  The plain version is
-:func:`dgpmp2_tpu_torch.ops.sdf.trilinear_lookup`.
+:func:`dgpmp2_tpu_torch.ops.sdf.trilinear_lookup`; the backward is the
+kernel K-LOOKUP-BWD (``ops/cuda/sdf_lookup_bwd.py``).
 
 ``launches`` counts kernel launches in this process; it goes up by one in
 :func:`launch` and nowhere else.
@@ -11,8 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from dgpmp2_tpu_torch.ops import sdf as sdf_ops
-from dgpmp2_tpu_torch.ops.cuda import _tiles
+from dgpmp2_tpu_torch.ops.cuda import _tiles, sdf_lookup_bwd
 
 launches = 0
 
@@ -33,41 +33,16 @@ def launch(sdf: torch.Tensor, points: torch.Tensor, res: float, x_lims,
     return out
 
 
-class _Lookup3DKernel(torch.autograd.Function):
-    """Forward is one kernel launch.  Backward replays the plain
-    :func:`~dgpmp2_tpu_torch.ops.sdf.trilinear_lookup` under autograd, as the
-    TPU kernel's ``_replay_bwd`` does."""
-
-    @staticmethod
-    def forward(ctx, sdf, points, res, x_lims, y_lims, z_lims, oob_mode):
-        ctx.save_for_backward(sdf, points)
-        ctx.args = (res, x_lims, y_lims, z_lims, oob_mode)
-        return launch(sdf, points, res, x_lims, y_lims, z_lims, oob_mode)
-
-    @staticmethod
-    def backward(ctx, d_bar, g_bar):
-        sdf, points = ctx.saved_tensors
-        with torch.enable_grad():
-            s = sdf.detach().requires_grad_(ctx.needs_input_grad[0])
-            p = points.detach().requires_grad_(ctx.needs_input_grad[1])
-            d, g = sdf_ops.trilinear_lookup(s, p, *ctx.args)
-            wrt = [t for t in (s, p) if t.requires_grad]
-            grads = iter(torch.autograd.grad((d, g), wrt, (d_bar, g_bar),
-                                             allow_unused=True))
-        s_bar = next(grads) if ctx.needs_input_grad[0] else None
-        p_bar = next(grads) if ctx.needs_input_grad[1] else None
-        return s_bar, p_bar, None, None, None, None, None
-
-
 def trilinear_lookup_cuda(sdf: torch.Tensor, points: torch.Tensor,
                           res: float, x_lims, y_lims, z_lims,
                           oob_mode: str = "intended"):
-    """Differentiable K-LOOKUP3D of CUDA tensors (see :func:`launch`); a
-    view that is not contiguous is copied.  With no gradient to record, one
-    launch and nothing else."""
+    """Differentiable K-LOOKUP3D of CUDA tensors (see :func:`launch`), its
+    backward K-LOOKUP-BWD; a view that is not contiguous is copied.  With no
+    gradient to record, one launch and nothing else."""
     sdf, points = sdf.contiguous(), points.contiguous()
     if torch.is_grad_enabled() and (sdf.requires_grad
                                     or points.requires_grad):
-        return _Lookup3DKernel.apply(sdf, points, res, tuple(x_lims),
-                                     tuple(y_lims), tuple(z_lims), oob_mode)
+        return sdf_lookup_bwd.LookupFunction.apply(
+            sdf, points, launch, res,
+            (tuple(x_lims), tuple(y_lims), tuple(z_lims)), oob_mode)
     return launch(sdf, points, res, x_lims, y_lims, z_lims, oob_mode)

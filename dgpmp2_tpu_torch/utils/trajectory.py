@@ -50,7 +50,8 @@ def collision_metrics(obs_error: torch.Tensor, total_time_sec: float,
 
     Returns (...,) tensors ``in_coll``, ``avg_penetration``,
     ``max_penetration``, ``coll_intensity`` (+ ``in_contact``,
-    ``contact_intensity`` with ``eps``).
+    ``contact_intensity`` with ``eps``), the intensities in the residuals'
+    dtype.
     """
     interior = obs_error[..., 1:-1, :]
     num_pen = torch.sum(interior > 0, dim=(-2, -1))
@@ -59,7 +60,8 @@ def collision_metrics(obs_error: torch.Tensor, total_time_sec: float,
         "in_coll": num_pen > 0,
         "avg_penetration": torch.mean(interior, dim=(-2, -1)),
         "max_penetration": torch.amax(interior, dim=(-2, -1)),
-        "coll_intensity": num_pen * dt / float(total_time_sec),
+        "coll_intensity": num_pen.to(obs_error.dtype) * dt
+        / float(total_time_sec),
     }
     if eps is not None:
         eps_i = torch.as_tensor(eps, dtype=obs_error.dtype,
@@ -67,7 +69,8 @@ def collision_metrics(obs_error: torch.Tensor, total_time_sec: float,
         eps_i = eps_i.expand(obs_error.shape)[..., 1:-1, :]
         num_contact = torch.sum(interior > eps_i, dim=(-2, -1))
         out["in_contact"] = num_contact > 0
-        out["contact_intensity"] = num_contact * dt / float(total_time_sec)
+        out["contact_intensity"] = (num_contact.to(obs_error.dtype) * dt
+                                    / float(total_time_sec))
     return out
 
 

@@ -7,11 +7,16 @@ from __future__ import annotations
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
+import chip_smoke
 from dgpmp2_tpu.core import graph as jgraph
+from dgpmp2_tpu.learn import learned_planner as jlp_mod
+from dgpmp2_tpu.learn import train as jtrain
+from dgpmp2_tpu.learn.losses import LossWeights as JWeights
 from dgpmp2_tpu.robots import PointRobot2D as JPointRobot2D
 from dgpmp2_tpu.robots import PointRobot3D as JPointRobot3D
 from dgpmp2_tpu.ops import sdf as jsdf
@@ -19,6 +24,8 @@ from dgpmp2_tpu.utils.trajectory import straight_line_traj as j_straight
 
 from dgpmp2_tpu_torch import convert
 from dgpmp2_tpu_torch.core import graph as tgraph
+from dgpmp2_tpu_torch.learn import train as ttrain
+from dgpmp2_tpu_torch.learn.losses import LossWeights as TWeights
 from dgpmp2_tpu_torch.ops import sdf as tsdf
 from dgpmp2_tpu_torch.robots import PointRobot2D as TPointRobot2D
 from dgpmp2_tpu_torch.robots import PointRobot3D as TPointRobot3D
@@ -193,3 +200,88 @@ def learned_pair(lkw: dict, seed=0, b=3, t=10, n=32, method="gauss_newton",
         planner_t.stack_inputs(im_t, sdf_t), th_t)
     return ((planner_j, jnp_tree(tree), params_j, th_j, sdf_j, im_j),
             (planner_t, vars_t, params_t, th_t, sdf_t, im_t), tree)
+
+
+# -- one training step in both packages (test_torch_train_*.py) -------------
+
+COV = dict(qc_inv=np.eye(2), cost_sigma=0.05, epsilon_dist=0.4, k_s=0.01,
+           k_g=0.01)
+BOUNDED = dict(dynamics_mode="diag_identity", learn_eps=True, eps_max=0.8,
+               static_init=(1.0, 0.05, 0.4), dropout_prob=0.0)
+WEIGHTS = dict(ext_loss_weight=0.5, ext_obs_lambda=2.0, max_pen_weight=0.3)
+SGD = ("sgd", {"alpha": 0.01, "momentum": 0.9, "nesterov": True})
+
+
+class _Float64Jnp:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+def train_pair(lkw, cfg, method="gauss_newton", opt=SGD, three_d=False,
+                decode64=True, monkeypatch=None, b=3):
+    """One training step of each package from the same float64 problem,
+    weights and fresh optimizer (``opt``: name and ``optim`` dict): (JAX's
+    metrics, the port's, the weights before as a flax tree, JAX's after,
+    the port's after).  ``jnp.float32`` reads as float64 in the JAX
+    package's ``learn.train`` (its seed trajectory and fixed covariances)
+    and, with ``decode64``, in its ``learn.learned_planner`` (the decode),
+    the port's decode then also in float64 (``chip_smoke.decode_in_float64``);
+    ``monkeypatch`` undoes the patches."""
+    monkeypatch.setattr(jtrain, "jnp", _Float64Jnp())
+    if decode64:
+        monkeypatch.setattr(jlp_mod, "jnp", _Float64Jnp())
+    jp, tp, tree = learned_pair(lkw, b=b, t=6, n=16, method=method,
+                                three_d=three_d)
+    pj, vj, _, thj, sdfj, imj = jp
+    pt, vt, _, tht, sdft, imt = tp
+    if decode64:
+        chip_smoke.decode_in_float64(pt)
+    _, start, goal = (world3d(0, b, 16) if three_d else world(0, b, 16))
+    th_opt = np_(tht) + 0.1 * np.random.default_rng(1).standard_normal(
+        tuple(tht.shape))
+    cov = dict(COV, qc_inv=np.eye(3 if three_d else 2))
+    tx = jtrain.make_optimizer(*opt)
+    state = jtrain.TrainState(step=jnp.zeros((), jnp.int32), variables=vj,
+                              opt_state=tx.init(vj))
+    step_j = jtrain.make_train_step(pj, tx, JWeights(**WEIGHTS),
+                                    jtrain.TrainConfig(**cfg))
+    state_j, m_j = step_j(state, {
+        "im": imj, "sdf": sdfj, "start": jnp.asarray(start),
+        "goal": jnp.asarray(goal), "th_opt": jnp.asarray(th_opt),
+        "cov_scalars": cov}, jax.random.PRNGKey(0))
+    before = convert.learned_state_to_flax(vt)
+    state_t = ttrain.TrainState(0, vt, ttrain.make_optimizer(*opt)(
+        vt.parameters()))
+    step_t = ttrain.make_train_step(pt, TWeights(**WEIGHTS),
+                                    ttrain.TrainConfig(**cfg))
+    state_t, m_t = step_t(state_t, {
+        "im": imt, "sdf": sdft, "start": torch.tensor(start),
+        "goal": torch.tensor(goal), "th_opt": torch.tensor(th_opt),
+        "cov_scalars": cov}, 0)
+    assert state_t.step == 1
+    return (m_j, m_t, before, jax.tree.map(np.asarray, state_j.variables),
+            convert.learned_state_to_flax(vt))
+
+
+def check_train_step(m_j, m_t, before, after_j, after_t, tol_loss,
+                     tol_update):
+    """The metrics to ``tol_loss`` relative and each leaf's update to
+    ``tol_update`` relative to its largest entry; returns how many leaves
+    moved."""
+    assert set(m_t) == set(m_j)
+    assert abs(float(m_t["loss"]) / float(m_j["loss"]) - 1) <= tol_loss
+    for k in m_j:
+        assert abs(float(m_t[k]) - float(m_j[k])) <= tol_loss * max(
+            abs(float(m_j[k])), 1e-3), k
+    assert jax.tree.structure(after_t) == jax.tree.structure(after_j)
+    moved = 0
+    for (path, t), j, o in zip(jax.tree_util.tree_leaves_with_path(after_t),
+                               jax.tree.leaves(after_j),
+                               jax.tree.leaves(before)):
+        dj, dt = j - o, t - o
+        scale = np.abs(dj).max()
+        moved += scale > 0
+        assert np.abs(dt - dj).max() <= tol_update * max(scale, 1e-300), path
+    return moved

@@ -685,3 +685,53 @@ def test_learned_plan_on_the_card_matches_cpu(dev, lkw, method):
     tol = 1e-6 if lkw.get("eps_max") else 1e-9
     for a, b in zip(outs[0][:3], outs[1][:3]):
         assert float((a.cpu() - b).abs().max() / b.abs().max()) <= tol
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("b,p", [(1, 1), (1, 50), (3, 101), (7, 401),
+                                 (1024, 1)])
+def test_lookup_bwd_kernel_matches_the_replay(dev, ndim, dtype, tol, b, p):
+    """K-LOOKUP-BWD against autograd through the plain lookup, at the
+    lookup tiles' edge shapes, both OOB modes, far points too: the point
+    and SDF cotangents within float32 / float64 rounding relative to the
+    replay's largest (chip_smoke.check_bwd_call)."""
+    import chip_smoke
+
+    rng = np.random.default_rng(b * p + ndim)
+    grid, res, lims = (((32, 32), 10 / 32, (LIMS, LIMS)) if ndim == 2 else
+                       ((16, 12, 20), 0.5, (LIMS, (-3.0, 3.0),
+                                            (-4.0, 4.0))))
+    case = chip_smoke.bwd_cases(dev, rng, dtype, b, p, ndim, grid, res, lims)
+    for mode in tsdf.OOB_MODES:
+        assert chip_smoke.check_bwd_call("K-LOOKUP-BWD", *case, res, lims,
+                                         mode) <= tol
+
+
+@pytest.mark.parametrize("ndim", [2, 3])
+def test_lookup_backward_launches_the_bwd_kernel_once(dev, ndim):
+    """The differentiable lookup on the card: one K-LOOKUP launch forward,
+    one K-LOOKUP-BWD launch backward, the gradients the plain lookup's."""
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_bwd as k_bwd
+
+    rng = np.random.default_rng(ndim)
+    grid = (24, 24) if ndim == 2 else (12, 12, 12)
+    sdf = torch.tensor(rng.standard_normal((2, *grid)), device=dev)
+    pts = torch.tensor(rng.uniform(-4.9, 4.9, (2, 30, ndim)), device=dev)
+    lims = (LIMS,) * ndim
+    grads = []
+    for fn in (tsdf.lookup_nd, tsdf.trilinear_lookup if ndim == 3 else
+               tsdf.bilinear_lookup):
+        s = sdf.clone().requires_grad_(True)
+        p = pts.clone().requires_grad_(True)
+        n_fwd = (k_lookup if ndim == 2 else k_lookup3d).launches
+        n_bwd = k_bwd.launches
+        d, g = fn(s, p, 10 / grid[0], *lims)
+        (d.sum() + (g * g).sum()).backward()
+        if fn is tsdf.lookup_nd:
+            assert ((k_lookup if ndim == 2 else k_lookup3d).launches - n_fwd,
+                    k_bwd.launches - n_bwd) == (1, 1)
+        grads.append((s.grad, p.grad))
+    for u, v in zip(*grads):
+        assert float((u - v).abs().max()) <= 1e-10

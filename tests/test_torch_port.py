@@ -15,6 +15,7 @@ from dgpmp2_tpu_torch.ops.cuda import _build
 from dgpmp2_tpu_torch.ops.cuda import btd_solve as k_btd
 from dgpmp2_tpu_torch.ops.cuda import sdf_lookup as k_lookup
 from dgpmp2_tpu_torch.ops.cuda import sdf_lookup3d as k_lookup3d
+from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_bwd as k_bwd
 from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_limbs as k_limbs
 
 torch.set_num_threads(1)
@@ -38,9 +39,17 @@ def test_import_leaves_jax_unloaded():
         "dgpmp2_tpu_torch.ops.cuda.sdf_lookup3d, "
         "dgpmp2_tpu_torch.ops.cuda.sdf_lookup_limbs, "
         "dgpmp2_tpu_torch.core.multistart, dgpmp2_tpu_torch.utils.angles, "
-        "dgpmp2_tpu_torch.utils.mat_utils\n"
+        "dgpmp2_tpu_torch.utils.mat_utils, "
+        "dgpmp2_tpu_torch.ops.cuda.sdf_lookup_bwd, "
+        "dgpmp2_tpu_torch.learn.losses, dgpmp2_tpu_torch.learn.train, "
+        "dgpmp2_tpu_torch.learn.checkpoints, dgpmp2_tpu_torch.learn.eval, "
+        "dgpmp2_tpu_torch.learn.train_planner, "
+        "dgpmp2_tpu_torch.learn.test_planner, "
+        "dgpmp2_tpu_torch.learn.train_initializer, "
+        "dgpmp2_tpu_torch.data.dataset, dgpmp2_tpu_torch.data.png\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'dgpmp2_tpu')]\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dgpmp2_tpu', "
+        "'matplotlib')]\n"
         "assert not bad, bad\n"
         "from dgpmp2_tpu_torch.ops.cuda import _build\n"
         "assert _build._lib is None\n"
@@ -54,8 +63,8 @@ def test_package_sources_never_name_jax():
     for path in (ROOT / "dgpmp2_tpu_torch").rglob("*.py"):
         text = path.read_text()
         for word in ("import jax", "from jax", "import flax", "from flax",
-                     "import optax", "from dgpmp2_tpu ", "from dgpmp2_tpu.",
-                     "import dgpmp2_tpu\n"):
+                     "import optax", "import orbax", "from dgpmp2_tpu ",
+                     "from dgpmp2_tpu.", "import dgpmp2_tpu\n"):
             assert word not in text, f"{path}: {word!r}"
 
 
@@ -123,6 +132,24 @@ def test_new_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     assert k_lookup3d.launches == 0 and k_limbs.launches == 0
 
 
+def test_lookup_bwd_kernel_refuses_cpu_tensors_and_counts_nothing():
+    """K-LOOKUP-BWD launches on CUDA tensors only; on the CPU the lookups'
+    backward is plain autograd, and nothing counts."""
+    lims = (-5.0, 5.0)
+    sdf = torch.zeros((2, 8, 8), dtype=torch.float64)
+    pts = torch.zeros((2, 3, 2), dtype=torch.float64, requires_grad=True)
+    d_bar, g_bar = torch.zeros((2, 3)), torch.zeros((2, 3, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        k_bwd.launch(sdf, pts.detach(), d_bar.double(), g_bar.double(),
+                     10 / 8, (lims, lims))
+    with pytest.raises(ValueError, match=r"\(B, D, H, W\)"):
+        k_bwd.launch(sdf, pts.detach(), d_bar, g_bar, 10 / 8,
+                     (lims, lims, lims))
+    d, g = tsdf.lookup(sdf, pts, 10 / 8, lims, lims)
+    (d.sum() + g.sum()).backward()
+    assert pts.grad is not None and k_bwd.launches == 0
+
+
 def test_build_covers_every_source_and_binds_every_entry_point():
     """The library's hash reads every csrc source, the header included, and
     _SIGNATURES names exactly the extern "C" entry points of the sources."""
@@ -130,7 +157,8 @@ def test_build_covers_every_source_and_binds_every_entry_point():
 
     names = {p.name for p in _build._sources()}
     assert {"btd_solve.cu", "sdf_lookup.cu", "sdf_lookup3d.cu",
-            "sdf_lookup_limbs.cu", "lookup_common.cuh"} <= names
+            "sdf_lookup_limbs.cu", "sdf_lookup_bwd.cu",
+            "lookup_common.cuh"} <= names
     exported = set()
     for path in _build._sources():
         exported |= set(re.findall(r'extern "C" int (\w+)\(',
