@@ -74,17 +74,38 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     problem; then the gradient of ``err_ext`` with respect to every weight
     (B=64, 5 iterations, float64) on the card against the same on the CPU,
     with the head's output decoded in float64 and, as shipped, in float32;
-12. learned-planner training: a dataset of 96 forest worlds x 4 problems
-    (128x128, T=100) written by the port's writers, labelled by
-    ``DiffGPMP2Planner`` at sigma 0.05; ``train_planner.main`` with the
-    campaign's eps_bounded configuration at full width (batch 128, unroll 10
-    in windows of 5, Adam) for 3 epochs with a validation pass and a
-    checkpoint, resumed for a fourth, then ``test_planner.main``; one
-    training step timed (CUDA events) and profiled (device busy, the
-    encoder's share, launches); K-LOOKUP-BWD against its autograd replay in
-    both dtypes and OOB modes at the tile edges, the paths' shapes and one
-    training step's own lookups, timed; a float64 training step on the card
-    against the CPU (chunked and LM paths).
+12. data generation, every generator through the port's modules on the
+    card in float32: the JAX golden of a small forest split
+    (``tests/goldens/torch_port_data_small.npz``) remade exactly (maps,
+    starts, goals and the generator's state; labels to 1e-4); (a)
+    ``data.generate.generate_split`` at the campaign's width (forest,
+    128x128, T=100, 4 problems a world, LM of 60 iterations with
+    ``track_best``): 96 train and 16 test worlds; (b) its
+    ``--rrtstar_init`` branch on 2 worlds (the port's native RRT*); (c)
+    ``data.generate3d.generate_split3d`` (boxes3d, 32^3, T=20, LM of 40
+    iterations, 16 worlds); (d) ``data.generate_im.generate``
+    (multi_obstacle, 128x128, 200 + 50 worlds, host EDT) and
+    ``data.generate_paths.add_expert_paths`` on its test split (random
+    pairs, 2 a world, GN of 60 iterations); (e)
+    ``data.sensitivity.run_sweep`` over (a)'s test split (7 sigmas, batch
+    16); (f) ``core.seeds.rrt_seed_batch`` on 16 of its problems, fed to
+    ``core.multistart.plan_multistart`` (K=16) beside the same draws
+    without them.  Every label is read back from disk and re-checked with
+    the plain lookup on the CPU; each generator's launches equal its plans'
+    iterations (K-BTD) and their lookups plus the re-validations (K-LOOKUP,
+    K-LOOKUP3D); seconds per world, plans per world, acceptance, and one
+    expert plan's device-busy share and launches per iteration are printed;
+13. learned-planner training on phase 12's 96 train worlds:
+    ``train_planner.main`` with the campaign's eps_bounded configuration at
+    full width (batch 128, unroll 10 in windows of 5, Adam) for 3 epochs
+    with a validation pass and a checkpoint, resumed for a fourth, then
+    ``test_planner.main``; one training step timed (CUDA events) and
+    profiled (device busy, the encoder's share, launches); K-LOOKUP-BWD
+    against its autograd replay in both dtypes and OOB modes at the tile
+    edges, the paths' shapes and one training step's own lookups, timed;
+    the launch floor of K-LOOKUP and K-LOOKUP-BWD (B=1, P=1) beside a
+    one-element fill; a float64 training step on the card against the CPU
+    (chunked and LM paths).
 
 Every time printed carries the card's name and power limit.
 
@@ -95,6 +116,7 @@ device record.  Imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -1879,7 +1901,405 @@ def learned_gradient(dev, b=64, iters=5):
                                  f"{errs[worst]}")
 
 
-# -- phase 12: learned-planner training --------------------------------------
+# -- phase 12: data generation -------------------------------------------------
+
+GOLDEN_DATA = ROOT / "tests" / "goldens" / "torch_port_data_small.npz"
+# The data golden's tolerances: the host's draws exactly (maps, starts,
+# goals, the generator's state after), the SDFs and seeds to 1e-6, the
+# float32 labels of a 5-iteration LM plan to 1e-4 absolute.
+DATA_GOLDEN_TOL = {"maps": 0, "start": 0.0, "goal": 0.0, "sdf": 1e-6,
+                   "th_init": 1e-6, "th_opt": 1e-4}
+# tools/learned_campaign.py:54-55, :136-159: forest worlds at 128^2, T=100,
+# 4 problems each, an LM expert of 60 iterations with track_best, COV.  The
+# campaign writes 250 train and 40 test worlds; here TRAIN_ENVS (phase 13
+# trains on them) and 16.
+DATA_COV = dict(qc_inv=np.eye(2), cost_sigma=0.05, epsilon_dist=0.4,
+                k_s=0.01, k_g=0.01)
+DATA_PROBS, DATA_ITERS, DATA_TEST_ENVS = 4, 60, 16
+# --rrtstar_init on forest: RRT* needs the safety clearance (eps + radius,
+# 0.8 m) along its whole path, wider than forest's start/goal patches and
+# many of its gaps, so most searches find nothing and a world is drawn ~25
+# times before all 4 of its searches succeed (a CPU probe: 2 worlds in 50
+# draws); the generator's default of 20 draws in a row would end the run.
+RRT_ENVS, RRT_RETRIES = 2, 200
+# tools/learn3d_campaign.py:55-59, :130-133: boxes3d at 32^3, T=20, an LM
+# expert of 40 iterations, 4 problems a world; 60 + 16 worlds there, 16
+# here.
+DATA3D = dict(size=32, t=LEARN3D_T, max_iters=40, probs=4, envs=16)
+# data.generate_im's CLI defaults (multi_obstacle, 128^2, 200 train + 50
+# test), then data.generate_paths on its test split: random pairs, 2 a
+# world, a GN expert of 60 iterations (its CLI defaults).
+IM_TRAIN, IM_TEST, PATH_PROBS = 200, 50, 2
+# data.sensitivity's CLI batch; core.seeds on 16 test problems into a K=16
+# multistart pool (phase 9's optimiser and amplitude).
+SWEEP_B, SEEDS_B, SEEDS_K = 16, 16, 16
+
+
+@contextlib.contextmanager
+def counting_plans():
+    """Count the calls of ``core.gn.plan`` and their iterations while the
+    block runs: the terms of the generators' launch formula."""
+    from dgpmp2_tpu_torch.core import gn
+
+    plan, rec = gn.plan, {"plans": 0, "iters": 0}
+
+    def counted(spec, robot, params, th_init, sdf, cfg, *args, **kw):
+        rec["plans"] += 1
+        rec["iters"] += cfg.max_iters
+        return plan(spec, robot, params, th_init, sdf, cfg, *args, **kw)
+
+    gn.plan = counted
+    try:
+        yield rec
+    finally:
+        gn.plan = plan
+
+
+def plan_counts(rec, lookup="sdf_lookup", after=1):
+    """Launches of the counted plans: a K-BTD solve per iteration; a lookup
+    at the seed and one at each iteration's proposal, and ``after`` more per
+    plan once it ends (the re-validation of its labels, a multistart
+    scoring, or ``learn.eval.evaluate_batch``'s two)."""
+    return {"btd_solve": rec["iters"],
+            lookup: rec["iters"] + rec["plans"] * (1 + after)}
+
+
+def generation(name, smi, run, worlds=None, lookup="sdf_lookup", after=1):
+    """``run()`` through :func:`drive` with every plan counted; prints its
+    wall seconds per world (or per plan) and plans per accepted world.
+    Returns (output, plan record)."""
+    with counting_plans() as rec:
+        t0 = time.perf_counter()
+        out, _ = drive(name, run, lambda _: plan_counts(rec, lookup, after))
+        wall = time.perf_counter() - t0
+    if rec["plans"] == 0:
+        raise AssertionError(f"{name}: no plan ran")
+    per = (f"{wall / worlds:.4f} s per world, {rec['plans'] / worlds:.4f} "
+           f"plans per accepted world" if worlds else
+           f"{wall / rec['plans']:.4f} s per plan")
+    print(f"[{smi}] {name}: {wall:.3f} s wall, {rec['plans']} plans of "
+          f"{rec['iters'] // rec['plans']} iterations; {per}")
+    return out, rec
+
+
+def acceptance(name, stats, worlds, probs, rec):
+    """The generator's own counts: world draws and fresh problems per
+    accepted world and problem; its plans must be the counted ones."""
+    if stats["plans"] != rec["plans"]:
+        raise AssertionError(f"{name}: {stats} against {rec}")
+    print(f"{name}: {stats['attempts']} world draws for {worlds} worlds "
+          f"({worlds / stats['attempts']:.4f} accepted per draw), "
+          f"{worlds * probs} of {stats['problems']} problems planned kept "
+          f"({worlds * probs / stats['problems']:.4f} accepted per attempt)")
+
+
+def revalidate(name, split, probs, ndim=2, worlds=None):
+    """Every label of a split read back from disk: by the port's reader
+    (``PlanningDataset``, or ``load_split3d`` in 3-D), or, with ``worlds``
+    (a run that stopped at an unsolvable world), the files of its first
+    ``worlds`` worlds; as many label files as worlds x problems, and the
+    plain lookup on the CPU finds every state of every ``th_opt`` clear of
+    the robot radius, the generator's own guarantee.  Returns the smallest
+    clearance."""
+    import yaml
+
+    from dgpmp2_tpu_torch.data import dataset as ds
+    from dgpmp2_tpu_torch.data.generate3d import load_split3d
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+    from dgpmp2_tpu_torch.robots import PointRobot2D
+
+    labels = split / "opt_trajs_gpmp2"
+    files = len(list(labels.glob("env_*_prob_*.npz")))
+    if worlds is not None:
+        rows = [(np.load(split / "im_sdf" / f"{e}_sdf.npy"),
+                 np.load(labels / f"env_{e}_prob_{j}.npz")["th_opt"])
+                for e in range(worlds) for j in range(probs)]
+        sdf = np.stack([r[0] for r in rows]).astype(np.float32)
+        th = np.stack([r[1] for r in rows])
+    elif ndim == 2:
+        worlds = yaml.safe_load((split / "meta.yaml").read_text())["num_envs"]
+        items = ds.PlanningDataset(str(split.parent), mode=split.name)
+        batch = next(ds.as_batches(items, range(len(items)), len(items)))
+        sdf, th = batch["sdf"], batch["th_opt"]
+    else:
+        worlds = yaml.safe_load((split / "meta.yaml").read_text())["num_envs"]
+        rows = list(load_split3d(str(split)))
+        sdf = np.stack([r[1] for r in rows]).astype(np.float32)
+        th = np.stack([r[4] for r in rows])
+    n = len(th)
+    if not files == n == worlds * probs:
+        raise AssertionError(f"{name}: {files} files, {n} read back, "
+                             f"{worlds} x {probs} written")
+    lims = (LIMS,) * ndim
+    dist, _ = sdf_ops.lookup_nd(torch.tensor(sdf),
+                                torch.tensor(th[..., :ndim]),
+                                10.0 / sdf.shape[-1], *lims)
+    clear = float(dist.min())
+    print(f"{name}: {n} labels read back from disk, smallest clearance "
+          f"{clear:.4f} m (plain lookup on the CPU; robot radius 0.4)")
+    if not clear > PointRobot2D().sphere_radii[0]:
+        raise AssertionError(f"{name}: a label collides ({clear})")
+    return clear
+
+
+def profile_expert(name, smi, plan, iters):
+    """One plan under the profiler: its device-busy share of the wall and
+    device launches per iteration."""
+    _, rec = profile_run(plan)
+    print(f"[{smi}] {name}, one plan profiled: wall {rec['wall_ms']:.3f} "
+          f"ms, device busy {rec['busy_ms']:.3f} ms "
+          f"({rec['busy_ms'] / rec['wall_ms']:.4f} of the wall), "
+          f"{rec['ops'] / iters:.2f} device launches per iteration")
+
+
+def data_golden_errors(dev, root=None):
+    """The port's ``generate_split`` at the data golden's configuration on
+    ``dev`` (float32, the kernels on the card) against the JAX package's
+    output: errors of the maps (cells that differ), starts, goals, SDFs,
+    ``th_init`` and ``th_opt`` (largest absolute), ``rng`` (the generator's
+    state after equals JAX's), and the run's counts."""
+    import shutil
+
+    from dgpmp2_tpu_torch.core import gn, graph
+    from dgpmp2_tpu_torch.data import dataset as ds
+    from dgpmp2_tpu_torch.data import generate
+    from dgpmp2_tpu_torch.robots import PointRobot2D
+
+    g = np.load(GOLDEN_DATA)
+    c = json.loads(str(g["config"]))
+    root = Path(root or ROOT / "build" / "data_golden")
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(c["seed"])
+    n, probs = c["num_envs"], c["probs_per_env"]
+    cov = dict(qc_inv=np.eye(2), cost_sigma=c["cost_sigma"],
+               epsilon_dist=c["epsilon_dist"], k_s=c["k_s"], k_g=c["k_g"])
+    stats = generate.generate_split(
+        str(root / "train"), n, probs, c["family"], c["im_size"], rng,
+        graph.GraphSpec(total_time_step=c["T"]), PointRobot2D(),
+        gn.OptimConfig(reg=c["reg"], max_iters=c["max_iters"],
+                       method=c["method"]), cov, device=dev)
+    data = ds.PlanningDataset(str(root), mode="train")
+    envs = [data._load_env(e) for e in range(n)]
+    labels = [np.load(root / "train" / "opt_trajs_gpmp2"
+                      / f"env_{e}_prob_{j}.npz")
+              for e in range(n) for j in range(probs)]
+    got = {k: np.stack([z[k] for z in labels])
+           for k in ("start", "goal", "th_init", "th_opt")}
+    got["sdf"] = np.stack([s for _, s in envs])
+    errs = {k: float(np.abs(got[k] - g[k]).max()) for k in got}
+    errs["maps"] = int((np.stack([m for m, _ in envs]).astype(np.uint8)
+                        != g["maps"]).sum())
+    errs["rng"] = rng.bit_generator.state == json.loads(str(g["rng_state"]))
+    shutil.rmtree(root, ignore_errors=True)
+    return errs, stats
+
+
+def data_golden_ok(errs) -> bool:
+    return errs["rng"] and all(errs[k] <= tol
+                               for k, tol in DATA_GOLDEN_TOL.items())
+
+
+def check_data_golden(dev, smi):
+    """The JAX golden of a small forest split, remade on the card."""
+    with counting_plans() as rec:
+        (errs, stats), _ = drive(
+            "data golden (generate_split 64^2, T=20, 2 x 2, LM 5 iterations)",
+            lambda: data_golden_errors(dev),
+            lambda _: plan_counts(rec))
+    print(f"data golden on the card against the JAX package: {errs} "
+          f"(tolerances {DATA_GOLDEN_TOL}, the generator's state equal); "
+          f"{stats['plans']} plans for 2 worlds")
+    if not data_golden_ok(errs):
+        raise AssertionError(f"data golden: {errs}")
+
+
+def first_world(split, probs, dev):
+    """(start, goal, sdf batch on ``dev``) of a split's first world, read
+    from its files."""
+    sdf = np.load(split / "im_sdf" / "0_sdf.npy").astype(np.float32)
+    rows = [np.load(split / "opt_trajs_gpmp2" / f"env_0_prob_{j}.npz")
+            for j in range(probs)]
+    start = np.stack([r["start"] for r in rows])
+    goal = np.stack([r["goal"] for r in rows])
+    sdfb = torch.tensor(sdf, device=dev).expand(probs, *sdf.shape)
+    return start, goal, sdfb.contiguous()
+
+
+def datagen(dev, smi):
+    """Phase 12: the port's data generators on the card at the campaigns'
+    widths; returns the dataset root phase 13 trains on."""
+    phase(f"12 data generation ({IMSIZE}^2 forest, T={T}, LM "
+          f"{DATA_ITERS} iterations, float32)")
+    import shutil
+
+    from dgpmp2_tpu_torch import native
+    from dgpmp2_tpu_torch.core import gn, graph, multistart
+    from dgpmp2_tpu_torch.core.seeds import rrt_seed_batch
+    from dgpmp2_tpu_torch.data import dataset as ds
+    from dgpmp2_tpu_torch.data import (generate, generate3d, generate_im,
+                                       generate_paths, sensitivity)
+    from dgpmp2_tpu_torch.robots import PointRobot2D, PointRobot3D
+
+    root = ROOT / "build" / "datagen"
+    shutil.rmtree(root, ignore_errors=True)
+    data = root / "data"
+    check_data_golden(dev, smi)
+    spec, robot = graph.GraphSpec(total_time_step=T), PointRobot2D()
+    lm = gn.OptimConfig(reg=0.1, max_iters=DATA_ITERS, method="lm")
+
+    # (a) The 2-D expert datasets.
+    rng = np.random.default_rng(0)
+    for mode, n in (("train", TRAIN_ENVS), ("test", DATA_TEST_ENVS)):
+        name = f"(a) generate_split forest {mode}, {n} worlds x {DATA_PROBS}"
+        stats, rec = generation(name, smi, lambda: generate.generate_split(
+            str(data / mode), n, DATA_PROBS, "forest", IMSIZE, rng, spec,
+            robot, lm, DATA_COV, device=dev), n)
+        acceptance(name, stats, n, DATA_PROBS, rec)
+        revalidate(name, data / mode, DATA_PROBS)
+    start, goal, sdfb = first_world(data / "test", DATA_PROBS, dev)
+    params, th0 = generate.expert_problem(spec, robot, DATA_COV, start, goal,
+                                          dev)
+    with torch.no_grad():
+        profile_expert(f"(a) expert (LM, track_best, B={DATA_PROBS})", smi,
+                       lambda: gn.plan(spec, robot, params, th0, sdfb, lm,
+                                       track_best=True), DATA_ITERS)
+
+    # (b) RRT* seeds for the expert.
+    name = f"(b) generate_split --rrtstar_init, {RRT_ENVS} worlds"
+    stats, rec = generation(name, smi, lambda: generate.generate_split(
+        str(root / "rrt" / "train"), RRT_ENVS, DATA_PROBS, "forest", IMSIZE,
+        np.random.default_rng(1), spec, robot, lm, DATA_COV,
+        max_env_retries=RRT_RETRIES, rrtstar_init=True, device=dev),
+        RRT_ENVS)
+    acceptance(name, stats, RRT_ENVS, DATA_PROBS, rec)
+    lib = native.library_path()
+    if (native._lib is None or not lib.is_file()
+            or lib.parent != ROOT / "dgpmp2_tpu_torch" / "build"):
+        raise AssertionError(f"RRT* library {lib}")
+    print(f"{name}: RRT* found {stats['rrt_found']} paths in "
+          f"{stats['rrt_searches']} searches (2 s budget each); library "
+          f"{lib.relative_to(ROOT)}")
+    revalidate(name, root / "rrt" / "train", DATA_PROBS)
+
+    # (c) 3-D.
+    c3 = DATA3D
+    name = (f"(c) generate_split3d boxes3d {c3['size']}^3, T={c3['t']}, "
+            f"{c3['envs']} worlds x {c3['probs']}")
+    stats, rec = generation(name, smi, lambda: generate3d.generate_split3d(
+        str(root / "d3"), c3["envs"], c3["probs"], "boxes3d", c3["size"],
+        np.random.default_rng(2), t=c3["t"], max_iters=c3["max_iters"],
+        device=dev), c3["envs"], lookup="sdf_lookup3d")
+    print(f"{name}: {stats['attempts']} world draws for {c3['envs']} worlds "
+          f"({c3['envs'] / stats['attempts']:.4f} accepted per draw; a "
+          f"colliding world is redrawn whole)")
+    revalidate(name, root / "d3", c3["probs"], ndim=3)
+    spec3 = graph.GraphSpec(dof=3, state_dim=6, total_time_step=c3["t"],
+                            x_lims=LIMS, y_lims=LIMS, z_lims=LIMS)
+    lm3 = gn.OptimConfig(reg=0.1, max_iters=c3["max_iters"], method="lm")
+    start, goal, sdfb = first_world(root / "d3", c3["probs"], dev)
+    params, th0 = generate.expert_problem(spec3, PointRobot3D(),
+                                          generate3d.DEFAULT_COV, start, goal,
+                                          dev)
+    with torch.no_grad():
+        profile_expert(f"(c) expert (LM, track_best, B={c3['probs']})", smi,
+                       lambda: gn.plan(spec3, PointRobot3D(), params, th0,
+                                       sdfb, lm3, track_best=True),
+                       c3["max_iters"])
+
+    # (d) An image dataset, then expert paths on its test split, both at
+    # their CLIs' defaults (seed 0).  A world whose random pairs GN cannot
+    # label in max_retries draws ends the run with the generator's loud
+    # RuntimeError, by design (the JAX package stops at the same world);
+    # the labels written before it are checked.
+    t0 = time.perf_counter()
+    generate_im.generate(str(root / "im"), "multi_obstacle", IMSIZE,
+                         IM_TRAIN, IM_TEST, seed=0)
+    wall = time.perf_counter() - t0
+    print(f"(d) generate_im multi_obstacle {IMSIZE}^2: {IM_TRAIN} + "
+          f"{IM_TEST} worlds in {wall:.3f} s ({wall / (IM_TRAIN + IM_TEST):.5f}"
+          f" s per world; host EDT of the port's native library)")
+    gn_cfg = gn.OptimConfig(reg=0.1, max_iters=DATA_ITERS)
+
+    def expert_paths():
+        try:
+            return generate_paths.add_expert_paths(
+                str(root / "im" / "test"), PATH_PROBS, "random", spec, robot,
+                gn_cfg, DATA_COV, np.random.default_rng(0), device=dev), None
+        except RuntimeError as err:
+            stop = re.match(r"env (\d+): no collision-free expert path",
+                            str(err))
+            if stop is None:
+                raise
+            return int(stop.group(1)), str(err)
+
+    name = (f"(d) add_expert_paths random, {IM_TEST} worlds x {PATH_PROBS},"
+            f" GN")
+    (labelled, stop), rec = generation(name, smi, expert_paths)
+    print(f"{name}: {labelled} worlds labelled in {rec['plans']} plans "
+          f"({labelled / rec['plans']:.4f} accepted per attempt)"
+          + (f"; stopped: {stop}" if stop else ""))
+    revalidate(name, root / "im" / "test", PATH_PROBS,
+               worlds=labelled if stop else None)
+    start, goal, sdfb = first_world(root / "im" / "test", PATH_PROBS, dev)
+    params, th0 = generate.expert_problem(spec, robot, DATA_COV, start, goal,
+                                          dev)
+    with torch.no_grad():
+        profile_expert(f"(d) expert (GN, B={PATH_PROBS})", smi,
+                       lambda: gn.plan(spec, robot, params, th0, sdfb,
+                                       gn_cfg), DATA_ITERS)
+
+    # (e) The sensitivity sweep over (a)'s test split.
+    test = ds.PlanningDatasetMulti([str(data)], mode="test")
+    name = (f"(e) run_sweep over {len(test)} test problems, "
+            f"{len(sensitivity.DEFAULT_SIGMAS)} sigmas, batch {SWEEP_B}")
+    sweep, rec = generation(name, smi, lambda: sensitivity.run_sweep(
+        test, np.arange(len(test)), spec, robot, gn_cfg, batch_size=SWEEP_B,
+        device=dev), after=2)
+    rates = {s: (r["solve_rate"], r["contact_free_rate"])
+             for s, r in sweep["per_sigma"].items()}
+    print(f"{name}: (solve rate, contact-free rate) by sigma "
+          f"{json.dumps(rates)}; best sigma {sweep['best_sigma']}")
+    if not all(0.0 <= a <= 1.0 and 0.0 <= b <= 1.0
+               for a, b in rates.values()):
+        raise AssertionError(f"{name}: {sweep}")
+
+    # (f) RRT* seeds into multistart.
+    rows = [test[i] for i in range(SEEDS_B)]
+    sdf_np = np.stack([r["sdf"] for r in rows])
+    start = np.stack([r["start"] for r in rows])
+    goal = np.stack([r["goal"] for r in rows])
+    t0 = time.perf_counter()
+    extra, found = rrt_seed_batch(sdf_np, start, goal, LIMS, LIMS,
+                                  spec.total_time_sec, spec.num_traj_states,
+                                  clearance=robot.sphere_radii[0],
+                                  plan_time=1.0)
+    print(f"(f) rrt_seed_batch: {int(found.sum())} of {SEEDS_B} paths found "
+          f"in {time.perf_counter() - t0:.3f} s (1 s budget each)")
+    params, th0 = generate.expert_problem(spec, robot, DATA_COV, start, goal,
+                                          dev)
+    sdfb = torch.tensor(sdf_np, device=dev)
+    ms_cfg = gn.OptimConfig(**MS_OPTIM)
+    free = {}
+    for label, seeds_ in (("without", None), ("with", extra)):
+        name = (f"(f) plan_multistart B={SEEDS_B} K={SEEDS_K} {label} "
+                f"RRT* seeds")
+        out, _ = generation(name, smi, lambda: multistart.plan_multistart(
+            spec, robot, params, th0, sdfb, ms_cfg,
+            torch.Generator(device=dev).manual_seed(0), restarts=SEEDS_K,
+            amp=2.0, extra_seeds=None if seeds_ is None
+            else torch.tensor(seeds_, device=dev)[None]))
+        if not (bool(torch.isfinite(out.th).all())
+                and tuple(out.th.shape) == (SEEDS_B, T + 1, 4)):
+            raise AssertionError(f"{name}: {out.th.shape}")
+        free[label] = int(out.contact_free.sum())
+    print(f"(f) contact-free of {SEEDS_B}: without RRT* seeds "
+          f"{free['without']}, with them {free['with']} (the same draws)")
+    shutil.rmtree(root / "im", ignore_errors=True)
+    shutil.rmtree(root / "rrt", ignore_errors=True)
+    return data
+
+
+# -- phase 13: learned-planner training --------------------------------------
 
 # K-LOOKUP-BWD against its replay: relative to the largest cotangent of the
 # call.  The kernel sums in autograd's order but not bit for bit (1e-16
@@ -1918,43 +2338,6 @@ def eps_bounded_learn(epochs, batch=TRAIN_B, unroll=TRAIN_UNROLL,
                    "T": unroll, "tk": tk, "use_inter_loss": True,
                    "optimize_tk": False},
     }
-
-
-def training_dataset(root, dev, n_envs=TRAIN_ENVS, probs=TRAIN_PROBS,
-                     imsize=IMSIZE, t=T, iters=100, seed=0):
-    """A planning dataset under ``root`` written by the port's writers:
-    ``forest_inputs`` worlds, ``probs`` problems in each (starts near
-    (-4, -4), goals near (4, 4)), labelled by the port's DiffGPMP2Planner of
-    the repo's 2-D YAMLs (σ = 0.05, the campaign's label sigma) at T=t,
-    ``iters`` GN iterations, planned as one batch on ``dev``."""
-    from dgpmp2_tpu_torch.data import dataset as ds
-    from dgpmp2_tpu_torch.planner import DiffGPMP2Planner
-    from dgpmp2_tpu_torch.robots import make_robot
-
-    imgs, _, _ = forest_inputs(n_envs, imsize, seed)
-    rng = np.random.default_rng(seed + 1)
-    n = n_envs * probs
-    start, goal = np.zeros((n, 4)), np.zeros((n, 4))
-    start[:, :2] = rng.uniform(-4.5, -3.5, (n, 2))
-    goal[:, :2] = rng.uniform(3.5, 4.5, (n, 2))
-    lims, pp, gp, obs, opt, robot_data = load_yamls("gpmp2_2d_params.yaml")
-    pp, opt = dict(pp, total_time_step=t), dict(opt, max_iters=iters)
-    planner = DiffGPMP2Planner(gp, obs, pp, opt, lims, make_robot(robot_data),
-                               dtype=torch.float32, device=dev)
-    sdf = occupancy_sdf(imgs, dev)
-    th0 = seeds(planner.spec, start, goal, dev)
-    th_opt = planner.plan(th0, start, goal,
-                          sdf.repeat_interleave(probs, dim=0)).th
-    th_opt, sdf = th_opt.cpu().numpy(), sdf.cpu().numpy()
-    d = Path(root) / "train"
-    for e in range(n_envs):
-        ds.save_env(str(d), e, imgs[e], sdf[e])
-        for j in range(probs):
-            i = e * probs + j
-            ds.save_problem(str(d), e, j, "opt_trajs_gpmp2", start[i],
-                            goal[i], th_opt[i])
-    ds.save_meta(str(d), n_envs, probs, imsize)
-    return th_opt
 
 
 def training_argv(root, data, out, learn, t=T, iters=50, device="cuda",
@@ -2158,13 +2541,14 @@ def check_training_run(name, history, epochs, want_validation):
         raise AssertionError(f"{name}: {history}")
 
 
-def training(dev, smi, record):
-    """Phase 12: build a dataset on the card, run train_planner.main at the
-    campaign's full width for 3 epochs (a validation pass and a
+def training(dev, smi, record, data):
+    """Phase 13: run train_planner.main on phase 12's dataset ``data`` at
+    the campaign's full width for 3 epochs (a validation pass and a
     checkpoint), resume it for a fourth, evaluate it with test_planner.main,
-    time a training step, check K-LOOKUP-BWD against the replay and a
-    float64 training step on the card against the CPU."""
-    phase(f"12 learned-planner training (B={TRAIN_B}, {IMSIZE}x{IMSIZE}, "
+    time a training step, check K-LOOKUP-BWD against the replay, time the
+    launch floor of K-LOOKUP and K-LOOKUP-BWD, and check a float64 training
+    step on the card against the CPU."""
+    phase(f"13 learned-planner training (B={TRAIN_B}, {IMSIZE}x{IMSIZE}, "
           f"T={T}, float32)")
     import shutil
 
@@ -2175,11 +2559,7 @@ def training(dev, smi, record):
 
     root = ROOT / "build" / "train_run"
     shutil.rmtree(root, ignore_errors=True)
-    data, out = root / "data", root / "run"
-    n = TRAIN_ENVS * TRAIN_PROBS
-    drive(f"expert labels (DiffGPMP2Planner, B={n}, 100 iterations)",
-          lambda: training_dataset(data, dev),
-          {"btd_solve": 100, "sdf_lookup": 101})
+    out = root / "run"
     argv = training_argv(root, data, out, eps_bounded_learn(3))
     (state, history), _ = drive(
         "train_planner.main, 3 epochs of 2 steps, a validation pass",
@@ -2255,8 +2635,38 @@ def training(dev, smi, record):
           f"K-LOOKUP-BWD {bwd.get('launches', 0)} launches, "
           f"{bwd.get('us', float('nan')):.2f} us each")
     check_lookup_bwd(dev, record, smi, captured)
+    launch_floor(dev, smi)
     train_step_card_vs_cpu(dev)
     shutil.rmtree(root, ignore_errors=True)
+
+
+def launch_floor(dev, smi, rounds=2):
+    """K-LOOKUP and K-LOOKUP-BWD (point cotangent) at B=1, P=1 on a 128^2
+    float32 SDF, beside a one-element ``sqrt_`` (no kernel does less):
+    device-only (profiler, L2 flushed) and CUDA-graph times, the floor of
+    one launch of each, in ``rounds`` rounds, the order turned each
+    round."""
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup, sdf_lookup_bwd
+
+    rng = np.random.default_rng(13)
+    f32 = dict(dtype=torch.float32, device=dev)
+    sdf = torch.tensor(rng.standard_normal((1, IMSIZE, IMSIZE)), **f32)
+    pts = torch.tensor([[[0.3, -1.2]]], **f32)
+    d_bar, g_bar = torch.ones((1, 1), **f32), torch.ones((1, 1, 2), **f32)
+    one = torch.ones(1, **f32)
+    res = 10.0 / IMSIZE
+    at = f"at B=1 P=1 ({IMSIZE}^2 float32)"
+    runs = [(f"K-LOOKUP {at}", "sdf_lookup_kernel",
+             lambda: sdf_lookup.launch(sdf, pts, res, LIMS, LIMS)),
+            (f"K-LOOKUP-BWD {at}", "sdf_lookup_bwd_kernel",
+             lambda: sdf_lookup_bwd.launch(sdf, pts, d_bar, g_bar, res,
+                                           (LIMS, LIMS), "intended", False)),
+            ("sqrt_ of one element", "sqrt", lambda: one.sqrt_())]
+    for r in range(rounds):
+        for name, kernel, fn in runs[r:] + runs[:r]:
+            print(f"[{smi}] launch floor, round {r}, {name}: device-only "
+                  f"{device_ms(fn, kernel):.5f} ms (profiler, L2 flushed), "
+                  f"CUDA graph {graph_ms(fn):.5f} ms")
 
 
 def train_step_card_vs_cpu(dev, b=16, unroll=4, tk=2):
@@ -2387,7 +2797,8 @@ def main():
     ms_run = multistart(dev)
     per_iter = timing(smi, bench, bench3, problems, ms_run)
     learned(dev, bench_np)
-    training(dev, smi, recs["sdf_lookup_bwd"])
+    data = datagen(dev, smi)
+    training(dev, smi, recs["sdf_lookup_bwd"], data)
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
     for rec in recs.values():

@@ -46,13 +46,19 @@ def test_import_leaves_jax_unloaded():
         "dgpmp2_tpu_torch.learn.train_planner, "
         "dgpmp2_tpu_torch.learn.test_planner, "
         "dgpmp2_tpu_torch.learn.train_initializer, "
-        "dgpmp2_tpu_torch.data.dataset, dgpmp2_tpu_torch.data.png\n"
+        "dgpmp2_tpu_torch.data.dataset, dgpmp2_tpu_torch.data.png, "
+        "dgpmp2_tpu_torch.data.obstacles, dgpmp2_tpu_torch.data.obstacles3d, "
+        "dgpmp2_tpu_torch.data.generate, dgpmp2_tpu_torch.data.generate3d, "
+        "dgpmp2_tpu_torch.data.generate_paths, "
+        "dgpmp2_tpu_torch.data.generate_im, "
+        "dgpmp2_tpu_torch.data.sensitivity, dgpmp2_tpu_torch.core.seeds, "
+        "dgpmp2_tpu_torch.native\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dgpmp2_tpu', "
         "'matplotlib')]\n"
         "assert not bad, bad\n"
         "from dgpmp2_tpu_torch.ops.cuda import _build\n"
-        "assert _build._lib is None\n"
+        "assert _build._lib is None and dgpmp2_tpu_torch.native._lib is None\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)

@@ -24,6 +24,7 @@ from dgpmp2_tpu.robots import PointRobot2D as JRobot
 from dgpmp2_tpu_torch import convert
 from dgpmp2_tpu_torch.core import gn as tgn
 from dgpmp2_tpu_torch.core import graph as tgraph
+from dgpmp2_tpu_torch.data import generate
 from dgpmp2_tpu_torch.learn import checkpoints as tckpt
 from dgpmp2_tpu_torch.learn import eval as teval
 from dgpmp2_tpu_torch.learn import losses as tlosses
@@ -402,14 +403,17 @@ def test_checkpoints_keep_the_newest_and_restore_exactly(tmp_path):
 # -- the CLIs -------------------------------------------------------------------
 
 def _run_files(tmp_path, epochs, tag="learn"):
-    """chip_smoke.py phase 12's run at a small size on the CPU: 6 worlds of
-    32^2 x 2 problems labelled at T=8, batch 2, unroll 2 in windows of 1,
-    3 GN iterations in validation; validation and a checkpoint every
-    epoch."""
+    """chip_smoke.py phase 13's run at a small size on the CPU: 6 forest
+    worlds of 32^2 x 2 problems written by data.generate.generate_split
+    (T=8, LM of 5 iterations), batch 2, unroll 2 in windows of 1, 3 GN
+    iterations in validation; validation and a checkpoint every epoch."""
     data = tmp_path / "data"
     if not data.exists():
-        chip_smoke.training_dataset(data, CPU, n_envs=6, probs=2, imsize=32,
-                                    t=8, iters=5)
+        generate.generate_split(
+            str(data / "train"), 6, 2, "forest", 32, np.random.default_rng(0),
+            tgraph.GraphSpec(total_time_step=8), TRobot(),
+            tgn.OptimConfig(reg=0.1, max_iters=5, method="lm"),
+            chip_smoke.DATA_COV, device=CPU)
     learn = chip_smoke.eps_bounded_learn(epochs, batch=2, unroll=2, tk=1,
                                          every=1)
     return data, lambda out: chip_smoke.training_argv(

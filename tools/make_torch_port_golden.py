@@ -36,13 +36,22 @@ rebuild each problem from the stored inputs and compare their plan with it.
   track_best, T, the fixed covariance scalars), its images, start, goal,
   and the plan's ``th``, ``errs`` and ``errs_ext``.
 
-Each stores its config scalars and, after ITERS fixed-damping GN iterations
+* ``tests/goldens/torch_port_data_small.npz`` (``--data``): a small forest
+  split of ``dgpmp2_tpu.data.generate.generate_split`` (``DATA_CONFIG``:
+  64x64, T=20, 2 worlds x 2 problems, LM with 5 iterations and
+  ``track_best``, float32 as the generator plans, numpy seed 0): each
+  world's occupancy map as the dataset reads it (uint8, 1 free), its SDF,
+  the problems' start, goal, ``th_init`` and ``th_opt``, the config (JSON)
+  and the generator's state afterwards (JSON).  The card has no JAX, so
+  this is ``chip_smoke.py``'s check of the random stream there.
+
+The plan goldens store their config scalars and, after ITERS fixed-damping GN iterations
 of ``dgpmp2_tpu.core.gn.plan`` (standard engine, gather lookups), ``th``,
 ``err_init``, ``err_per_iter`` and ``err_ext_per_iter``, float64 on CPU.
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py [--learned]
+    JAX_PLATFORMS=cpu python tools/make_torch_port_golden.py [--learned|--data]
 
-(``--learned`` writes the learned planner's golden only.)
+(``--learned`` or ``--data`` writes that golden only.)
 """
 from __future__ import annotations
 
@@ -74,6 +83,13 @@ OUT = GOLDENS / "torch_port_plan_small.npz"
 OUT3D = GOLDENS / "torch_port_plan3d_small.npz"
 OUT_EXT = GOLDENS / "torch_port_plan_ext_small.npz"
 OUT_LEARNED = GOLDENS / "torch_port_learned_small.npz"
+OUT_DATA = GOLDENS / "torch_port_data_small.npz"
+# The data golden's generate_split: the campaign's COV and expert method
+# (tools/learned_campaign.py:54-55, :136-140) at a small size.
+DATA_CONFIG = dict(family="forest", im_size=64, T=20, num_envs=2,
+                   probs_per_env=2, method="lm", max_iters=5, reg=0.1,
+                   seed=0, cost_sigma=0.05, epsilon_dist=0.4, k_s=0.01,
+                   k_g=0.01)
 CONFIGS = Path(__file__).resolve().parents[1] / "dgpmp2_tpu" / "configs"
 B_EXT, IM_EXT = 4, 64
 B, T, IMSIZE, ITERS = 8, 100, 128, 5
@@ -316,9 +332,47 @@ def golden_learned(out_path):
     print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes)")
 
 
+def golden_data(out_path):
+    """generate_split at DATA_CONFIG into a temporary directory, read back
+    (the maps through the JAX package's dataset reader)."""
+    import tempfile
+
+    from dgpmp2_tpu.data import dataset as ds
+    from dgpmp2_tpu.data import generate
+
+    c = DATA_CONFIG
+    rng = np.random.default_rng(c["seed"])
+    cov = dict(qc_inv=np.eye(2), cost_sigma=c["cost_sigma"],
+               epsilon_dist=c["epsilon_dist"], k_s=c["k_s"], k_g=c["k_g"])
+    n, probs = c["num_envs"], c["probs_per_env"]
+    with tempfile.TemporaryDirectory() as root:
+        split = os.path.join(root, "train")
+        generate.generate_split(
+            split, n, probs, c["family"], c["im_size"], rng,
+            graph.GraphSpec(total_time_step=c["T"]), PointRobot2D(),
+            gn.OptimConfig(reg=c["reg"], max_iters=c["max_iters"],
+                           method=c["method"]), cov)
+        data = ds.PlanningDataset(root, mode="train")
+        envs = [data._load_env(e) for e in range(n)]
+        labels = [np.load(os.path.join(split, "opt_trajs_gpmp2",
+                                       f"env_{e}_prob_{j}.npz"))
+                  for e in range(n) for j in range(probs)]
+        arrays = {k: np.stack([z[k] for z in labels])
+                  for k in ("start", "goal", "th_init", "th_opt")}
+    np.savez_compressed(
+        out_path, config=json.dumps(c),
+        rng_state=json.dumps(rng.bit_generator.state),
+        maps=np.stack([im for im, _ in envs]).astype(np.uint8),
+        sdf=np.stack([sdf for _, sdf in envs]).astype(np.float32), **arrays)
+    print(f"wrote {out_path} ({os.path.getsize(out_path)} bytes)")
+
+
 def main():
     if sys.argv[1:] == ["--learned"]:
         golden_learned(OUT_LEARNED)
+        return
+    if sys.argv[1:] == ["--data"]:
+        golden_data(OUT_DATA)
         return
     imgs, start, goal = bench_inputs(B)
     spec = graph.GraphSpec(total_time_step=T,
@@ -338,6 +392,7 @@ def main():
     golden(OUT3D, spec, PointRobot3D(), vox, start, goal, sdf, np.eye(3))
     golden_ext(OUT_EXT)
     golden_learned(OUT_LEARNED)
+    golden_data(OUT_DATA)
 
 
 if __name__ == "__main__":
