@@ -105,7 +105,25 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     edges, the paths' shapes and one training step's own lookups, timed;
     the launch floor of K-LOOKUP and K-LOOKUP-BWD (B=1, P=1) beside a
     one-element fill; a float64 training step on the card against the CPU
-    (chunked and LM paths).
+    (chunked and LM paths);
+14. serving: ``serve.PlanningService`` on the card in float32, driven by
+    concurrent ``submit()``s through ``tools/bench_serve_torch.py``'s
+    functions, each sub-phase with its worlds registered and a warm-up
+    first: (a) the 2-D YAML planner (T=100, 50 GN iterations, batch 256,
+    window 5 ms) on the bench world at concurrency 1, 8, 64 and 256 (3
+    rounds each) through the world bank, 256 again with inline SDFs, 64
+    with warm starts, 5 requests padded to 256 against a direct plan, and
+    8 under ``pallas_v3_1`` (one limb split per dispatch); (b) 3-D (the
+    3-D YAMLs at 50 iterations, 16 worlds of 64^3 built on the card, batch
+    256, bank and inline); (c) ``MultistartPlanningAdapter`` (K=16, LM,
+    batch 64) and RRT*-seeded (2 seeds, batch 16, a binding iteration cap,
+    replayed); (d) ``LearnedPlanningAdapter`` (phase 11's eps_bounded
+    planner, random weights from a numpy seed, batch 256); (e)
+    ``TaskSpacePlanningAdapter`` (phase 8's task-space arm, LM, batch 64).
+    Every response finite and improved (95 %), its batch fill and
+    iterations right, one dispatch per full batch, bank and inline equal,
+    a request's plan the same at any row; plans/s, p50/p99, the service's
+    stats and one dispatch's device-busy share and launches per iteration.
 
 Every time printed carries the card's name and power limit.
 
@@ -1346,29 +1364,55 @@ def engines(bench):
         sdf_ops.set_lookup_method("auto")
 
 
+ARM_YAMLS = ("gpmp2_arm_params.yaml", "robot_arm.yaml")
+
+
+def yaml_planner(dev, yamls, robot=None, pp=None, gp=None, obs=None,
+                 opt=None):
+    """A float32 DiffGPMP2Planner on ``dev`` from the YAMLs ``yamls`` with
+    the ``robot`` dict (else the robot YAML's) and each section's
+    overrides."""
+    from dgpmp2_tpu_torch.planner import DiffGPMP2Planner
+    from dgpmp2_tpu_torch.robots import make_robot
+
+    lims, pp0, gp0, obs0, opt0, rd = load_yamls(*yamls)
+    return DiffGPMP2Planner(
+        dict(gp0, **(gp or {})), dict(obs0, **(obs or {})),
+        dict(pp0, **(pp or {})), dict(opt0, **(opt or {})), lims,
+        make_robot(robot or rd), dtype=torch.float32, device=dev)
+
+
+def taskspace_planner(dev):
+    """The task-space 3-link arm (workspace goal, self-collision, joint
+    limits, D=6): the arm_taskspace_example.py problem with the arm YAMLs'
+    remaining values, under LM: plain GN swings this arm by tens of radians
+    in its first steps."""
+    return yaml_planner(
+        dev, ARM_YAMLS,
+        {"type": "planar_arm", "link_lengths": [1.8, 1.4, 1.2],
+         "spheres_per_link": 2, "sphere_radius": [0.25]},
+        pp=dict(dof=3, state_dim=6, total_time_step=30,
+                use_workspace_goal=True),
+        gp=dict(Q_c_inv=np.eye(3), K_g=100.0, q_min=[-2.4] * 3,
+                q_max=[2.4] * 3),
+        obs=dict(epsilon_dist=0.25), opt=dict(method="lm"))
+
+
 def constrained_problems(dev, bench_np):
     """The four constrained paths at B=1024 in float32, each a
     DiffGPMP2Planner from the YAMLs with its inputs: name -> (planner,
     start, goal, workspace goal or None, sdf)."""
-    from dgpmp2_tpu_torch.planner import DiffGPMP2Planner
-    from dgpmp2_tpu_torch.robots import make_robot
-
     imgs, start2, goal2 = bench_np
     sdf = occupancy_sdf(imgs, dev)
     rng = np.random.default_rng(5)
     out = {}
 
-    def planner(yamls, robot, pp=None, gp=None, obs=None, opt=None):
-        lims, pp0, gp0, obs0, opt0, rd = load_yamls(*yamls)
-        return DiffGPMP2Planner(
-            dict(gp0, **(gp or {})), dict(obs0, **(obs or {})),
-            dict(pp0, **(pp or {})), dict(opt0, **(opt or {})), lims,
-            make_robot(robot or rd), dtype=torch.float32, device=dev)
+    def planner(*args, **kw):
+        return yaml_planner(dev, *args, **kw)
 
-    arm_yamls = ("gpmp2_arm_params.yaml", "robot_arm.yaml")
     # 2-link arm (self-collision, joint limits), the arm YAMLs as they are.
     out["2-link arm"] = (
-        planner(arm_yamls, None),
+        planner(ARM_YAMLS, None),
         joint_states(rng, B, 2, (-2.0, 0.0), 0.4),
         joint_states(rng, B, 2, (1.6, 0.0), 0.4), None, sdf)
     # Heading robot (nonholonomic, D=6): the XYH YAML, 3-dof robot.
@@ -1385,15 +1429,8 @@ def constrained_problems(dev, bench_np):
     # radians in its first steps.
     img96, start3, target = taskspace_inputs(B)
     out["task-space 3-link arm"] = (
-        planner(arm_yamls,
-                {"type": "planar_arm", "link_lengths": [1.8, 1.4, 1.2],
-                 "spheres_per_link": 2, "sphere_radius": [0.25]},
-                pp=dict(dof=3, state_dim=6, total_time_step=30,
-                        use_workspace_goal=True),
-                gp=dict(Q_c_inv=np.eye(3), K_g=100.0, q_min=[-2.4] * 3,
-                        q_max=[2.4] * 3),
-                obs=dict(epsilon_dist=0.25), opt=dict(method="lm")),
-        start3, start3, target, occupancy_sdf(img96, dev))
+        taskspace_planner(dev), start3, start3, target,
+        occupancy_sdf(img96, dev))
     # The bench problem with GP interpolation (4T checks: 3 per segment,
     # P = 101 + 300 points in one lookup) and velocity limits.
     out["GP interpolation + velocity limits"] = (
@@ -1404,7 +1441,7 @@ def constrained_problems(dev, bench_np):
     # 4-link arm (D=8): the arm YAMLs' weights (T=40, self-collision, joint
     # limits ±2.8) with four links of 1.2, 1.0, 0.8 and 0.6 m.
     out["4-link arm"] = (
-        planner(arm_yamls,
+        planner(ARM_YAMLS,
                 {"type": "planar_arm", "link_lengths": [1.2, 1.0, 0.8, 0.6],
                  "spheres_per_link": 2, "sphere_radius": [0.25]},
                 pp=dict(dof=4, state_dim=8),
@@ -1415,7 +1452,7 @@ def constrained_problems(dev, bench_np):
     # 5-link arm (D=10), as the 4-link one with links of 1.0, 0.9, 0.8, 0.6
     # and 0.5 m, 20 GN iterations.
     out["5-link arm"] = (
-        planner(arm_yamls,
+        planner(ARM_YAMLS,
                 {"type": "planar_arm",
                  "link_lengths": [1.0, 0.9, 0.8, 0.6, 0.5],
                  "spheres_per_link": 2, "sphere_radius": [0.25]},
@@ -1430,7 +1467,7 @@ def constrained_problems(dev, bench_np):
     # 20 iterations on the card).
     links = [0.6, 0.5, 0.5, 0.45, 0.4, 0.4, 0.35, 0.3, 0.3]
     out["9-link arm"] = (
-        planner(arm_yamls,
+        planner(ARM_YAMLS,
                 {"type": "planar_arm", "link_lengths": links,
                  "spheres_per_link": 2, "sphere_radius": [0.25]},
                 pp=dict(dof=9, state_dim=18),
@@ -1443,7 +1480,7 @@ def constrained_problems(dev, bench_np):
     links17 = np.interp(np.linspace(0, 8, 17), np.arange(9), links)
     links17 = (links17 * 3.8 / links17.sum()).tolist()
     out["17-link arm"] = (
-        planner(arm_yamls,
+        planner(ARM_YAMLS,
                 {"type": "planar_arm", "link_lengths": links17,
                  "spheres_per_link": 2, "sphere_radius": [0.25]},
                 pp=dict(dof=17, state_dim=34),
@@ -2746,6 +2783,456 @@ def train_step_card_vs_cpu(dev, b=16, unroll=4, tk=2):
             if tol_w is not None and not (e_w <= tol_w and e_u <= tol_u):
                 raise AssertionError(f"training step {method}: {e_w}, {e_u}")
 
+# -- phase 14: serving -------------------------------------------------------
+
+SERVE_B, SERVE_ITERS, SERVE_WINDOW_MS = 256, 50, 5.0
+SERVE_LEVELS, SERVE_ROUNDS = (1, 8, 64, 256), 3
+# Concurrency 1 runs this many requests one after the other: enough for its
+# p99 (serve_p99_ms_c1), ~45 s at ~150 ms a request.
+SERVE_C1_ROUNDS = 300
+SERVE_WARM_C = 64  # the level replanned from warm starts
+# benchmarks/bench_serve.py's multistart cell (:109-129): K=16, LM, amp 2.0
+# at batch 64, a 1,024-plan pool; RRT*-seeded at 2 seeds a problem, batch
+# 16, the search's iteration cap binding long before its time budget.
+SERVE_MS_B, SERVE_MS_K = 64, 16
+SERVE_RRT_B, SERVE_RRT_SEEDS, SERVE_RRT_ITERS = 16, 2, 1000
+SERVE_WORLDS3D, SERVE_TASK_B = 16, 64
+# The serving metrics of PERF.md section 2, filled by serving(): name ->
+# (value, the number of requests it was measured on).
+SERVE_METRICS = {}
+
+
+def bench_serve():
+    """``tools/bench_serve_torch.py`` as a module (``tools/`` is no
+    package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "bench_serve_torch", ROOT / "tools" / "bench_serve_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def serve_drive(name, svc, run, per_dispatch):
+    """:func:`drive` a serving run: the launch counts must be
+    ``per_dispatch`` (by kernel) times the dispatches the run made."""
+    b0 = svc.stats["batches"]
+    out, _ = drive(name, run, lambda _: {
+        k: v * (svc.stats["batches"] - b0) for k, v in per_dispatch.items()})
+    return out
+
+
+def asyncio_run(svc, coro_fn):
+    """Start ``svc``, await ``coro_fn()``, stop ``svc``: the result."""
+    import asyncio
+
+    async def main():
+        await svc.start()
+        try:
+            return await coro_fn()
+        finally:
+            await svc.stop()
+
+    return asyncio.run(main())
+
+
+def check_responses(name, responses, fills, max_iters, exact_iters=False):
+    """Finite plans and errors, ``err_final < err_init`` on at least 95 %
+    of them, each response's ``batch_fill`` as ``fills`` (one per
+    response) and its iterations in 1..``max_iters`` (exactly
+    ``max_iters`` with ``exact_iters``)."""
+    finite = all(np.isfinite(r.th).all() and np.isfinite(r.err_init)
+                 and np.isfinite(r.err_final) for r in responses)
+    better = float(np.mean([r.err_final < r.err_init for r in responses]))
+    iters = [r.iters for r in responses]
+    iters_ok = (all(i == max_iters for i in iters) if exact_iters
+                else all(1 <= i <= max_iters for i in iters))
+    fill_ok = [r.batch_fill for r in responses] == list(fills)
+    if not (finite and better >= 0.95 and iters_ok and fill_ok):
+        raise AssertionError(
+            f"{name}: finite={finite} improved={better} iters "
+            f"{min(iters)}..{max(iters)} fills ok={fill_ok}")
+    return better
+
+
+async def serve_levels(bench, smi, label, svc, make, levels, rounds,
+                       max_iters, exact_iters=False):
+    """Each level's ``rounds`` rounds of concurrent clients (``make(c,
+    seed)``'s requests), checked: every response (:func:`check_responses`;
+    full batches, then one of ``c % B``) and coalescing
+    (``rounds·ceil(c/B)`` dispatches).  Returns {level: (row, responses)}."""
+    b = svc.batch_size
+    out = {}
+    for c in levels:
+        b0 = svc.stats["batches"]
+        wall, resps = await bench.run_requests(
+            svc, [make(c, 42 + r) for r in range(rounds)])
+        row = bench.level_row(c, wall, resps)
+        n_batches = svc.stats["batches"] - b0
+        # Each round: full batches, then one of the remaining c % B.
+        fills = ([1.0] * (c - c % b) + [(c % b) / b] * (c % b)) * rounds
+        better = check_responses(f"{label} c={c}", resps, fills, max_iters,
+                                 exact_iters)
+        print(bench.row_line(smi, row) + f"  {label}; {n_batches} "
+              f"dispatches, err_final < err_init on {better:.4f}")
+        if n_batches != rounds * -(-c // b):
+            raise AssertionError(f"{label} c={c}: {n_batches} dispatches "
+                                 f"for {rounds} rounds of {c}")
+        out[c] = (row, resps)
+    return out
+
+
+def serve_stats(label, smi, svc):
+    s = svc.stats
+    print(f"[{smi}] {label} stats: {s['requests']} requests in "
+          f"{s['batches']} dispatches, padded rows {s['padded_rows']}, "
+          f"device_time_s {s['device_time_s']:.4f}, host_seed_time_s "
+          f"{s['host_seed_time_s']:.4f}")
+
+
+def profile_dispatch(label, smi, svc, reqs, iters):
+    """One full dispatch under the profiler: its device-busy share and the
+    device operations per GN iteration."""
+    _, rec = profile_run(lambda: svc.plan_batch_sync(reqs))
+    print(f"[{smi}] {label} one dispatch of {len(reqs)}: wall "
+          f"{rec['wall_ms']:.2f} ms, device busy {rec['busy_ms']:.3f} ms "
+          f"(share {rec['busy_ms'] / rec['wall_ms']:.4f}), "
+          f"{rec['ops'] / iters:.1f} device operations per GN iteration "
+          f"(profiler)")
+    return rec
+
+
+def same_th(name, a, b):
+    """Paired responses with equal plans: raises unless max |a.th - b.th|
+    is 0."""
+    diff = max(float(np.abs(x.th - y.th).max()) for x, y in zip(a, b))
+    print(f"{name}: max |th difference| {diff:.3e}")
+    if diff != 0.0:
+        raise AssertionError(f"{name}: {diff}")
+    return diff
+
+
+def serving(dev, smi):
+    """Phase 14: ``PlanningService`` on the card, float32, at full width:
+    (a) the static 2-D planner, (b) 3-D, (c) multistart and RRT*-seeded
+    multistart, (d) the learned planner, (e) the task-space arm; each
+    registers its worlds, warms up, and is driven by concurrent submit()s
+    (``tools/bench_serve_torch.py``'s functions), launch counts held to
+    the dispatches' plans."""
+    phase(f"14 serving (batch {SERVE_B}, float32)")
+    from dgpmp2_tpu_torch import serve
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+
+    bench = bench_serve()
+    iters = SERVE_ITERS
+    gn_per = {"btd_solve": iters, "sdf_lookup": iters + 1}
+
+    # (a) The static 2-D planner: gpmp2_2d_params.yaml at T=100, 50 GN
+    # iterations, the bench world (128^2), batch 256, window 5 ms.
+    planner = bench.make_planner(T, iters, dev)
+    world = bench.make_world(dev)
+    svc = serve.PlanningService(planner, SERVE_B, SERVE_WINDOW_MS)
+    svc.register_world("bench", world)
+    t0 = time.perf_counter()
+    svc.warmup()
+    print(f"[{smi}] (a) warm-up {time.perf_counter() - t0:.3f} s")
+
+    def make(inline=False):
+        return lambda c, seed: bench.make_requests(world, c, seed, inline)
+
+    async def levels_a():
+        bank = {}
+        for c in SERVE_LEVELS:
+            bank.update(await serve_levels(
+                bench, smi, "(a) bank", svc, make(), (c,),
+                SERVE_C1_ROUNDS if c == 1 else SERVE_ROUNDS, iters))
+        inline = await serve_levels(bench, smi, "(a) inline", svc,
+                                    make(True), (SERVE_B,), SERVE_ROUNDS,
+                                    iters)
+        # Warm starts: one level again, each request seeded with its bank
+        # plan.
+        cold = bank[SERVE_WARM_C][1]
+
+        def warm(c, seed):
+            reqs = bench.make_requests(world, c, seed)
+            for q, r in zip(reqs, cold[(seed - 42) * c:(seed - 41) * c]):
+                q.th_init = r.th
+            return reqs
+
+        wall, resps = await bench.run_requests(
+            svc, [warm(SERVE_WARM_C, 42 + r) for r in range(SERVE_ROUNDS)])
+        return bank, inline, (bench.level_row(SERVE_WARM_C, wall, resps),
+                              resps)
+
+    bank, inline, (wrow, warm) = serve_drive(
+        "serving (a) static 2-D", svc, lambda: asyncio_run(svc, levels_a),
+        gn_per)
+    print(bench.row_line(smi, wrow) + "  (a) warm starts")
+    cold = bank[SERVE_WARM_C][1]
+    seeded = max(abs(w.err_init - c.err_final) / c.err_final
+                 for w, c in zip(warm, cold))
+    not_worse = float(np.mean([w.err_final <= w.err_init * (1 + 1e-4)
+                               for w in warm]))
+    print(f"(a) warm starts: err_init within {seeded:.3e} (relative) of the "
+          f"seeding plan's err_final; err_final <= err_init (1 + 1e-4) on "
+          f"{not_worse:.4f}")
+    if (seeded > 1e-4 or not_worse < 0.95
+            or not all(np.isfinite(w.th).all() for w in warm)):
+        raise AssertionError(f"(a) warm starts: {seeded} {not_worse}")
+    same_th(f"(a) bank against inline at c={SERVE_B}", bank[SERVE_B][1],
+            inline[SERVE_B][1])
+    row = bank[1][0]
+    SERVE_METRICS["serve_p50_ms_c1"] = (row["p50_ms"], row["n"])
+    SERVE_METRICS["serve_p99_ms_c1"] = (row["p99_ms"], row["n"])
+    row = bank[SERVE_B][0]
+    SERVE_METRICS[f"serve_plans_per_s_b{SERVE_B}_c{SERVE_B}"] = (
+        row["plans_per_s"], row["n"])
+
+    # A padded partial batch against planner.plan on the same padded batch
+    # (exact) and on the 5 rows alone (the padding's effect, measured).
+    reqs = bench.make_requests(world, 5, 7)
+    served = svc.plan_batch_sync(reqs)
+    pad = reqs + [reqs[0]] * (SERVE_B - 5)
+    start = np.stack([q.start for q in pad])
+    goal = np.stack([q.goal for q in pad])
+    sdf = torch.as_tensor(world, device=dev).expand(SERVE_B, *world.shape)
+    th0 = seeds(planner.spec, start, goal, dev)
+    with torch.no_grad():
+        full = planner.plan(th0, start, goal, sdf.contiguous()).th[:5]
+        alone = planner.plan(th0[:5], start[:5], goal[:5],
+                             sdf[:5].contiguous()).th
+    got = torch.as_tensor(np.stack([r.th for r in served]), device=dev)
+    d_full = float((got - full).abs().max())
+    d_alone = float((got - alone).abs().max())
+    print(f"(a) 5 requests padded to {SERVE_B}: max |th - direct plan of "
+          f"the padded batch| {d_full:.3e}, of the 5 rows alone (B=5) "
+          f"{d_alone:.3e}; batch_fill {served[0].batch_fill}")
+    if d_full != 0.0 or d_alone > 1e-3 or served[0].batch_fill != 5 / SERVE_B:
+        raise AssertionError(f"(a) padding: {d_full} {d_alone}")
+    full_batch = bench.make_requests(world, SERVE_B, 99)
+    profile_dispatch("(a) static 2-D", smi, svc, full_batch, iters)
+
+    # The same service under the limb engine: a bank gather is a new
+    # tensor, so each dispatch splits its SDFs into limbs once.
+    try:
+        sdf_ops.set_lookup_method("pallas_v3_1")
+        serve_drive("serving (a) under pallas_v3_1", svc,
+                    lambda: asyncio_run(svc, lambda: serve_levels(
+                        bench, smi, "(a) pallas_v3_1", svc, make(), (8,), 2,
+                        iters)),
+                    {"btd_solve": iters, "sdf_lookup_limbs": iters + 1,
+                     "limb_splits": 1})
+    finally:
+        sdf_ops.set_lookup_method("auto")
+    serve_stats("(a) static 2-D", smi, svc)
+    del svc
+
+    # (b) 3-D: the 3-D YAMLs (T=100, 50 iterations), 16 worlds of 64^3
+    # voxels built on the card, batch 256, bank and inline.
+    planner3 = bench.make_planner(T, iters, dev, yaml="3d")
+    occ, start3, goal3 = bench3d_inputs(SERVE_WORLDS3D, dev)
+    worlds3 = sdf_ops.sdf_from_occupancy_3d(
+        occ, res=10.0 / VOX, dtype=torch.float32).cpu().numpy()
+    del occ
+    svc = serve.PlanningService(planner3, SERVE_B, SERVE_WINDOW_MS)
+    for i, w in enumerate(worlds3):
+        svc.register_world(f"vox{i}", w)
+    t0 = time.perf_counter()
+    svc.warmup()
+    print(f"[{smi}] (b) warm-up {time.perf_counter() - t0:.3f} s")
+
+    def make3(inline):
+        def make_c(c, seed):
+            rng = np.random.default_rng(seed)
+            out = []
+            for j in range(c):
+                i = j % SERVE_WORLDS3D
+                s, g = start3[i].astype(np.float32), goal3[i].astype(
+                    np.float32)
+                s[:3] += rng.uniform(-0.3, 0.3, 3)
+                g[:3] += rng.uniform(-0.3, 0.3, 3)
+                out.append(serve.PlanRequest(
+                    start=s, goal=g, sdf=worlds3[i] if inline else None,
+                    world=None if inline else f"vox{i}"))
+            return out
+        return make_c
+
+    async def levels_b():
+        bank = await serve_levels(bench, smi, "(b) 3-D bank", svc,
+                                  make3(False), (SERVE_B,), 2, iters)
+        inline = await serve_levels(bench, smi, "(b) 3-D inline", svc,
+                                    make3(True), (SERVE_B,), 2, iters)
+        return bank, inline
+
+    bank, inline = serve_drive(
+        "serving (b) 3-D", svc, lambda: asyncio_run(svc, levels_b),
+        {"btd_solve": iters, "sdf_lookup3d": iters + 1})
+    same_th("(b) 3-D bank against inline", bank[SERVE_B][1],
+            inline[SERVE_B][1])
+    profile_dispatch("(b) 3-D", smi, svc, make3(False)(SERVE_B, 99), iters)
+    serve_stats("(b) 3-D", smi, svc)
+    del svc, worlds3
+
+    # (c) Multistart: K=16, LM, amp 2.0, batch 64 (a 1,024-plan pool): the
+    # plan, one scoring lookup and the adapter's two errors.
+    ms_per = {"btd_solve": iters, "sdf_lookup": iters + 4}
+    adapter = bench.make_multistart_adapter(T, iters, SERVE_MS_K, dev)
+    svc = serve.PlanningService(adapter, SERVE_MS_B, SERVE_WINDOW_MS)
+    svc.register_world("bench", world)
+    svc.warmup()
+    serve_drive("serving (c) multistart", svc, lambda: asyncio_run(
+        svc, lambda: serve_levels(bench, smi, "(c) multistart K=16", svc,
+                                  make(), (1, 8, SERVE_MS_B), SERVE_ROUNDS,
+                                  iters)), ms_per)
+    # The same request at rows 0 and 5 of one dispatch.
+    q = bench.make_requests(world, 1, 3)[0]
+    rows = svc.plan_batch_sync([q] + bench.make_requests(world, 4, 4) + [q])
+    same_th("(c) multistart: one request at rows 0 and 5", rows[:1],
+            rows[5:])
+    profile_dispatch("(c) multistart K=16", smi, svc,
+                     bench.make_requests(world, SERVE_MS_B, 99), iters)
+    serve_stats("(c) multistart", smi, svc)
+    del svc
+
+    # RRT*-seeded: 2 seeds a problem, batch 16, the iteration cap binding;
+    # one round dispatched twice must replay.
+    adapter = bench.make_multistart_adapter(
+        T, iters, SERVE_MS_K, dev, rrt_seeds=SERVE_RRT_SEEDS,
+        rrt_plan_time=60.0, rrt_max_iters=SERVE_RRT_ITERS)
+    svc = serve.PlanningService(adapter, SERVE_RRT_B, SERVE_WINDOW_MS)
+    svc.register_world("bench", world)
+    svc.warmup()
+    once = serve_drive("serving (c) RRT*-seeded multistart", svc,
+                       lambda: asyncio_run(svc, lambda: serve_levels(
+                           bench, smi, "(c) RRT*-seeded", svc,
+                           lambda c, seed: bench.make_requests(world, c, 42),
+                           (SERVE_RRT_B,), 2, iters)), ms_per)
+    resps = once[SERVE_RRT_B][1]
+    same_th("(c) RRT*-seeded: one round dispatched twice",
+            resps[:SERVE_RRT_B], resps[SERVE_RRT_B:])
+    pool = adapter.host_extra_seeds(
+        np.stack([r.start for r in bench.make_requests(world, 4, 42)]),
+        np.stack([r.goal for r in bench.make_requests(world, 4, 42)]),
+        np.stack([world] * 4))
+    print(f"(c) RRT*-seeded: pool {pool.shape}; host seconds per dispatch "
+          f"{svc.stats['host_seed_time_s'] / svc.stats['batches']:.3f}")
+    serve_stats("(c) RRT*-seeded multistart", smi, svc)
+    del svc
+
+    # (d) The learned planner: the campaign's eps_bounded configuration
+    # (head 1000/640, 128^2, T=100, 50 GN iterations, track_best), random
+    # weights about its static init from a numpy seed, batch 256.
+    lplanner, variables = learned_setup(dev, *bench_inputs(2), iters=iters,
+                                        weights_seed=5)[:2]
+    adapter = serve.LearnedPlanningAdapter(lplanner, variables, bench.COV)
+    svc = serve.PlanningService(adapter, SERVE_B, SERVE_WINDOW_MS)
+    svc.register_world("bench", world)
+    svc.warmup()
+    serve_drive("serving (d) learned", svc, lambda: asyncio_run(
+        svc, lambda: serve_levels(bench, smi, "(d) learned", svc, make(),
+                                  (1, SERVE_B), 2, iters, exact_iters=True)),
+        gn_per)
+    profile_dispatch("(d) learned", smi, svc,
+                     bench.make_requests(world, SERVE_B, 99), iters)
+    serve_stats("(d) learned", smi, svc)
+    del svc, adapter, lplanner, variables
+
+    serve_taskspace(dev, smi, bench)
+
+
+def serve_taskspace(dev, smi, bench):
+    """Phase 14 (e)."""
+    from dgpmp2_tpu_torch import serve
+    from dgpmp2_tpu_torch.core import gn
+
+    # (e) The task-space 3-link arm of phase 8 (its YAMLs, LM), batch 64, on
+    # phase 8's first 2·64 problems; the tip target rides in the goal state.
+    # Served cold (no th_init), a row is seeded by the host straight line to
+    # its goal state, whose joint angles are then the target's coordinates
+    # (~2.6 rad, past the ±2.4 rad joint limits).  Served with phase 8's
+    # seed (the arm at rest at its start), the plans must equal phase 8's
+    # computation, gn.plan on make_params, of the same problems.
+    tplanner = taskspace_planner(dev)
+    gp, obs = tplanner.gp_params, tplanner.obs_params
+    cov = dict(qc_inv=gp["Q_c_inv"], cost_sigma=obs["cost_sigma"],
+               epsilon_dist=obs["epsilon_dist"], k_s=gp["K_s"],
+               k_wg=gp["K_wg"], k_self=gp["K_self"],
+               eps_self=obs["self_collision_eps"], k_jl=gp["K_jl"],
+               q_min=gp["q_min"], q_max=gp["q_max"])
+    adapter = serve.TaskSpacePlanningAdapter(
+        tplanner.spec, tplanner.robot, cov, optim_cfg=tplanner.cfg,
+        k_goal_off=gp["K_g"], device=dev)
+    n_arm, nb = tplanner.cfg.max_iters, SERVE_TASK_B
+    img96, start_all, target_all = taskspace_inputs(B)
+    rest = seeds(tplanner.spec, start_all[:2 * nb], start_all[:2 * nb],
+                 dev).cpu().numpy()
+    arm_world = occupancy_sdf(img96[:1], dev)[0].cpu().numpy()
+    svc = serve.PlanningService(adapter, nb, SERVE_WINDOW_MS)
+    svc.register_world("arm", arm_world)
+    svc.warmup()
+
+    def make_arm(rested):
+        def make_c(c, seed):
+            return [serve.PlanRequest(
+                start=start_all[i].astype(np.float32),
+                goal=np.concatenate([target_all[i], np.zeros(4)]).astype(
+                    np.float32),
+                world="arm", th_init=rest[i] if rested else None)
+                for i in range((seed - 42) * c, (seed - 41) * c)]
+        return make_c
+
+    async def levels_e():
+        cold = await serve_levels(bench, smi, "(e) task-space arm (LM)",
+                                  svc, make_arm(False), (nb,), 2, n_arm)
+        rested = await serve_levels(
+            bench, smi, "(e) task-space arm (LM), seeded at rest", svc,
+            make_arm(True), (nb,), 2, n_arm)
+        return cold[nb][1], rested[nb][1]
+
+    cold, rested = serve_drive(
+        "serving (e) task-space arm", svc, lambda: asyncio_run(svc, levels_e),
+        {"btd_solve": n_arm, "sdf_lookup": n_arm + 1})
+    targets = torch.tensor(target_all[:2 * nb], dtype=torch.float32,
+                           device=dev)
+
+    def tip_share(th):
+        tips = tplanner.robot.fk(th[:, -1])[0][:, -1]
+        return float(((tips - targets).norm(dim=-1) < 0.1).double().mean())
+
+    direct = []
+    sdf = torch.as_tensor(arm_world, device=dev).expand(nb, *arm_world.shape)
+    with torch.no_grad():
+        for r in range(2):
+            rows = slice(r * nb, (r + 1) * nb)
+            st = start_all[rows]
+            direct.append(gn.plan(
+                tplanner.spec, tplanner.robot,
+                tplanner.make_params(st, st, workspace_goal=target_all[rows]),
+                torch.as_tensor(rest[rows], device=dev), sdf.contiguous(),
+                tplanner.cfg).th)
+    direct = torch.cat(direct)
+    served = {name: torch.as_tensor(np.stack([q.th for q in resps]),
+                                    device=dev)
+              for name, resps in (("cold", cold), ("rested", rested))}
+    shares = {name: tip_share(th) for name, th in served.items()}
+    d_share = tip_share(direct)
+    diff = float((served["rested"] - direct).abs().max())
+    print(f"(e) task-space arm, phase 8's problems 0..{2 * nb - 1}: tip "
+          f"within 0.1 m of its target on {shares['rested']:.4f} of requests "
+          f"seeded at rest (phase 8's gn.plan of the same problems "
+          f"{d_share:.4f}, max |th difference| {diff:.3e}); on "
+          f"{shares['cold']:.4f} served cold (seeded toward the target's "
+          f"coordinates read as joint angles)")
+    if diff != 0.0 or shares["rested"] != d_share:
+        raise AssertionError(f"(e) task-space arm: served at rest {diff} "
+                             f"from phase 8's plan, shares "
+                             f"{shares['rested']} != {d_share}")
+    profile_dispatch("(e) task-space arm", smi, svc,
+                     make_arm(True)(nb, 42), n_arm)
+    serve_stats("(e) task-space arm", smi, svc)
+
+
 def _leaves(tree, path=""):
     """(path, array) of each leaf of a nested dict, in sorted key order."""
     if isinstance(tree, dict):
@@ -2799,12 +3286,15 @@ def main():
     learned(dev, bench_np)
     data = datagen(dev, smi)
     training(dev, smi, recs["sdf_lookup_bwd"], data)
+    serving(dev, smi)
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
     for rec in recs.values():
         print(f"[{smi}] {rec['name']}: {times_line(rec)}")
     for key, ms in per_iter.items():
         print(f"[{smi}] gn_iter_ms_b1024{key} {ms:.4f}")
+    for key, (value, n) in SERVE_METRICS.items():
+        print(f"[{smi}] {key} {value:.4f} (n={n} requests)")
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",

@@ -5,8 +5,9 @@ GP-prior factor graph, differentiable through the unrolled optimizer, with
 the block-tridiagonal solve and the bilinear SDF lookup as hand-written CUDA
 kernels for NVIDIA Hopper (``csrc/``) beside plain PyTorch versions.  The
 port covers the planners (``DiffGPMP2Planner``, ``GPMP2Planner``), every
-robot and factor of the JAX package in 2-D and 3-D workspaces, and batched
-multistart; see ROADMAP.md for what is still to come.
+robot and factor of the JAX package in 2-D and 3-D workspaces, batched
+multistart, the learned planner and its training, data generation and
+serving (``serve``); see ROADMAP.md for what is still to come.
 
 Imports PyTorch only.  The kernels are built at their first launch, never
 at import.

@@ -32,9 +32,9 @@ from dgpmp2_tpu_torch.ops import sdf as sdf_ops
 def inits_from_normals(th0: torch.Tensor, z: torch.Tensor, amp: float,
                        total_time_sec: float) -> torch.Tensor:
     """The deterministic part of :func:`perturbed_inits`: (B, T+1, 2·dof)
-    base and standard-normal draws z (K, B, H, dof) -> (K, B, T+1, 2·dof)
-    seeds.  Harmonic h of dof d gets the amplitude ``amp·z/h``; restart 0
-    is the base."""
+    base and standard-normal draws z (K, B, H, dof), or (K, 1, H, dof)
+    shared by every problem, -> (K, B, T+1, 2·dof) seeds.  Harmonic h of
+    dof d gets the amplitude ``amp·z/h``; restart 0 is the base."""
     b, t1, sd = th0.shape
     dof = sd // 2
     harmonics = z.shape[-2]
@@ -110,7 +110,8 @@ def plan_multistart(spec: graph_lib.GraphSpec, robot,
                     amp: float = 1.5, harmonics: int = 3,
                     contact_weight: float = 1e6, prune_iters: int = 0,
                     keep: int = 0, select_margin: float = 0.0,
-                    extra_seeds: Optional[torch.Tensor] = None
+                    extra_seeds: Optional[torch.Tensor] = None,
+                    normals: Optional[torch.Tensor] = None
                     ) -> MultistartResult:
     """Plan ``restarts`` perturbed seeds per problem as one batch and select
     the best per problem; the planner runs with ``track_best`` so each
@@ -118,7 +119,11 @@ def plan_multistart(spec: graph_lib.GraphSpec, robot,
     its final one, whose tip error the score reads).
 
     ``extra_seeds`` (E, B, T+1, 2·dof) appends E informed candidates per
-    problem (candidate indices ``restarts .. restarts+E-1``).  Score per
+    problem (candidate indices ``restarts .. restarts+E-1``).  ``normals``
+    (K, B, H, dof), or (K, 1, H, dof) shared by every problem, are the
+    standard-normal draws of the perturbations, taken in place of
+    ``generator``'s (which may then be None); restart 0 stays the
+    unperturbed base either way.  Score per
     candidate: ``contact_weight · Σ interior contact depth`` + velocity
     smoothness (:func:`score_candidates`).
 
@@ -131,8 +136,11 @@ def plan_multistart(spec: graph_lib.GraphSpec, robot,
     taken.
     """
     b = th_init.shape[0]
-    th0s = perturbed_inits(th_init, generator, restarts, amp,
-                           spec.total_time_sec, harmonics)
+    if normals is None:
+        th0s = perturbed_inits(th_init, generator, restarts, amp,
+                               spec.total_time_sec, harmonics)
+    else:
+        th0s = inits_from_normals(th_init, normals, amp, spec.total_time_sec)
     if extra_seeds is not None:
         th0s = torch.cat([th0s, extra_seeds.to(th0s)], dim=0)
     restarts = th0s.shape[0]  # pool size: restarts (+ E informed)

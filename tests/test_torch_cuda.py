@@ -735,3 +735,56 @@ def test_lookup_backward_launches_the_bwd_kernel_once(dev, ndim):
         grads.append((s.grad, p.grad))
     for u, v in zip(*grads):
         assert float((u - v).abs().max()) <= 1e-10
+
+
+def test_service_serves_a_small_batch_on_the_card(dev):
+    """PlanningService on the card: 3 concurrent requests through the world
+    bank in a batch of 4, float64, against the same service on the CPU;
+    one K-BTD launch per iteration and one lookup more, per dispatch."""
+    import asyncio
+
+    from pathlib import Path
+
+    from dgpmp2_tpu_torch.planner import DiffGPMP2Planner
+    from dgpmp2_tpu_torch.robots import make_robot
+    from dgpmp2_tpu_torch.serve import PlanningService, PlanRequest
+    from dgpmp2_tpu_torch.utils.config import load_params
+
+    cfg = Path(__file__).resolve().parents[1] / "dgpmp2_tpu" / "configs"
+    env, pp, gp, obs, opt, rd = load_params(
+        cfg / "gpmp2_2d_params.yaml", cfg / "robot_2d.yaml",
+        cfg / "env_2d_params.yaml")
+
+    img = np.ones((32, 32))
+    img[12:20, 12:20] = 0.0
+    world = tsdf.sdf_from_occupancy(torch.tensor(img), res=10 / 32,
+                                    dtype=torch.float64).numpy()
+    rng = np.random.default_rng(0)
+    reqs = [PlanRequest(start=np.r_[rng.uniform(-4.3, -3.7, 2), 0.0, 0.0],
+                        goal=np.r_[rng.uniform(3.7, 4.3, 2), 0.0, 0.0],
+                        world="lab") for _ in range(3)]
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        planner = DiffGPMP2Planner(
+            gp, obs, dict(pp, total_time_step=15), dict(opt, max_iters=12),
+            {"x_lims": env["x_lims"], "y_lims": env["y_lims"]},
+            make_robot(rd), dtype=torch.float64, device=device)
+        svc = PlanningService(planner, batch_size=4, window_ms=50.0)
+        svc.register_world("lab", world)
+
+        async def run():
+            await svc.start()
+            try:
+                return await asyncio.gather(*(svc.submit(r) for r in reqs))
+            finally:
+                await svc.stop()
+
+        n0 = (k_btd.launches, k_lookup.launches)
+        out[device.type] = asyncio.run(run())
+        if device.type == "cuda":
+            assert (k_btd.launches - n0[0], k_lookup.launches - n0[1]) == (
+                12, 13)
+        assert svc.stats["batches"] == 1
+    for g, c in zip(out["cuda"], out["cpu"]):
+        assert g.batch_fill == 0.75 and g.err_final < g.err_init
+        np.testing.assert_allclose(g.th, c.th, rtol=0, atol=1e-9)

@@ -127,6 +127,30 @@ def test_plan_multistart_matches_jax(problems, staged):
     assert not bool((got.k_best == 5).any()) or staged
 
 
+def test_plan_multistart_takes_normals_in_place_of_its_generator(problems):
+    """``normals=`` JAX's own draws of its key reproduces JAX's perturbed
+    pool (restarts=4, 1e-8); a (K, 1, H, dof) draw is the same draw for
+    every problem."""
+    (spec_j, robot_j, p_j, th_j, sdf_j), (spec_t, robot_t, p_t, th_t,
+                                          sdf_t) = problems
+    cfg = dict(reg=0.1, max_iters=6)
+    key = jax.random.PRNGKey(5)
+    want = jax.jit(lambda p, t, s: jms.plan_multistart(
+        spec_j, robot_j, p, t, s, jgn.OptimConfig(engine="standard", **cfg),
+        key, restarts=4))(p_j, th_j, sdf_j)
+    z = torch.tensor(np_(jax.random.normal(key, (4, B, 3, 2), jnp.float64)))
+
+    def plan(normals):
+        return tms.plan_multistart(spec_t, robot_t, p_t, th_t, sdf_t,
+                                   tgn.OptimConfig(**cfg), None, restarts=4,
+                                   normals=normals)
+
+    compare(plan(z), want)
+    shared = plan(z[:, :1])
+    np.testing.assert_array_equal(np_(shared.th),
+                                  np_(plan(z[:, :1].expand(-1, B, -1, -1)).th))
+
+
 def test_select_margin_matches_jax(problems):
     (spec_j, robot_j, p_j, th_j, sdf_j), (spec_t, robot_t, p_t, th_t,
                                           sdf_t) = problems
