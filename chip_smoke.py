@@ -119,16 +119,42 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     batch 64) and RRT*-seeded (2 seeds, batch 16, a binding iteration cap,
     replayed); (d) ``LearnedPlanningAdapter`` (phase 11's eps_bounded
     planner, random weights from a numpy seed, batch 256); (e)
-    ``TaskSpacePlanningAdapter`` (phase 8's task-space arm, LM, batch 64).
+    ``TaskSpacePlanningAdapter`` (phase 8's task-space arm, LM, batch 64),
+    cold (the adapter's cold seed, the arm at rest) and seeded at rest as
+    phase 8 seeds it: both equal phase 8's ``gn.plan`` of the same problems
+    bit for bit, tip share included.
     Every response finite and improved (95 %), its batch fill and
     iterations right, one dispatch per full batch, bank and inline equal,
     a request's plan the same at any row; plans/s, p50/p99, the service's
-    stats and one dispatch's device-busy share and launches per iteration.
+    stats and one dispatch's device-busy share and launches per iteration;
+15. oracle, envs, capture, mesh: (a) ``core.dense.assemble_dense`` on the
+    card in float64 for 4 problems of each family at its path's own T and
+    robot (the 2-D bench, the heading robot, GP interpolation with velocity
+    limits, the 2-, task-space 3-, 4- and 9-link arms):
+    ``ops.tridiag.btd_to_dense`` of the block assembly equals AᵀKA and its
+    rhs AᵀKb to 1e-10 relative, the damped K-BTD solve ``solve_dense`` to
+    1e-9; (b) ``envs.Env2D`` on a campaign forest world (128²) queried at
+    phase 5's 1024x101 trajectory points and ``envs.Env3D`` on phase 6's
+    64³ world at 1024x101 3-D seeds, through K-LOOKUP and K-LOOKUP3D, each
+    bit-equal to the plain lookup on the card; transforms round-tripped to
+    1e-12, ``slice_env2d`` the 3-D field's slice; (c) 20 GN steps of the
+    2-D bench (B=1024, float32) captured in one CUDA graph
+    (``utils.profiling.CapturedSteps``): a replay bit-equal to the eager
+    steps; ms per iteration captured (``time_compiled``) and eager; (d)
+    ``PlanningService(mesh=)`` with phase 14 (a)'s planner at batch 256 on
+    a mesh of the one card, on a mesh of two entries of it (two shards of
+    128 rows) and on one of every visible card when there are more: 256
+    requests by the bank, 256 inline and 200 by the bank (56 pad rows, all
+    in the last shard) bit-equal to the unsharded service; batch 255 on a
+    mesh of two entries refused.
 
 Every time printed carries the card's name and power limit.
 
 Every path phase sets all kernel launch counters, and K-LOOKUP-LIMB's
-count of SDF splits, to 0 just before it and reads them just after.  The last two lines are JSON: the kernels' record
+count of SDF splits, to 0 just before it and reads them just after.  A
+CUDA-graph capture counts its launches once, at capture, where nothing
+runs: that count stands for the graph's first replay, and phase 15 (c)
+replays its graph once inside its window.  The last two lines are JSON: the kernels' record
 (launches summed over the paths, times, bounds, library times), then the
 device record.  Imports no JAX.
 """
@@ -245,12 +271,13 @@ def flush_l2():
     _FLUSH[0].zero_()
 
 
-def cuda_ms(fn, reps=20, warmup=3, inner=1, flush=False):
-    """Median milliseconds of one call of ``fn``: CUDA events around
-    ``inner`` back-to-back calls, over ``reps`` runs after ``warmup``
-    untimed ones, the L2 flushed before each run with ``flush``.  The
-    window holds the host's work of the call as well: for a kernel whose
-    wrapper takes longer than the kernel, it is host-inclusive."""
+def cuda_ms(fn, reps=20, warmup=3, inner=1, flush=False, best=False):
+    """Median (the least with ``best``) milliseconds of one call of
+    ``fn``: CUDA events around ``inner`` back-to-back calls, over ``reps``
+    runs after ``warmup`` untimed ones, the L2 flushed before each run with
+    ``flush``.  The window holds the host's work of the call as well: for
+    a kernel whose wrapper takes longer than the kernel, it is
+    host-inclusive."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -266,7 +293,7 @@ def cuda_ms(fn, reps=20, warmup=3, inner=1, flush=False):
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    return min(times) if best else statistics.median(times)
 
 
 def device_ms(fn, kernel, reps=20):
@@ -3148,11 +3175,10 @@ def serve_taskspace(dev, smi, bench):
 
     # (e) The task-space 3-link arm of phase 8 (its YAMLs, LM), batch 64, on
     # phase 8's first 2·64 problems; the tip target rides in the goal state.
-    # Served cold (no th_init), a row is seeded by the host straight line to
-    # its goal state, whose joint angles are then the target's coordinates
-    # (~2.6 rad, past the ±2.4 rad joint limits).  Served with phase 8's
-    # seed (the arm at rest at its start), the plans must equal phase 8's
-    # computation, gn.plan on make_params, of the same problems.
+    # Served with phase 8's seed (the arm at rest at its start), the plans
+    # must equal phase 8's computation, gn.plan on make_params, of the same
+    # problems.  Served cold (no th_init), a row gets the adapter's
+    # cold_seed, the arm at rest: the same plans, bit for bit.
     tplanner = taskspace_planner(dev)
     gp, obs = tplanner.gp_params, tplanner.obs_params
     cov = dict(qc_inv=gp["Q_c_inv"], cost_sigma=obs["cost_sigma"],
@@ -3218,19 +3244,308 @@ def serve_taskspace(dev, smi, bench):
     shares = {name: tip_share(th) for name, th in served.items()}
     d_share = tip_share(direct)
     diff = float((served["rested"] - direct).abs().max())
+    cold_diff = float((served["cold"] - served["rested"]).abs().max())
     print(f"(e) task-space arm, phase 8's problems 0..{2 * nb - 1}: tip "
           f"within 0.1 m of its target on {shares['rested']:.4f} of requests "
           f"seeded at rest (phase 8's gn.plan of the same problems "
           f"{d_share:.4f}, max |th difference| {diff:.3e}); on "
-          f"{shares['cold']:.4f} served cold (seeded toward the target's "
-          f"coordinates read as joint angles)")
-    if diff != 0.0 or shares["rested"] != d_share:
+          f"{shares['cold']:.4f} served cold (the adapter's cold seed, the "
+          f"arm at rest; max |th difference| from the rested plans "
+          f"{cold_diff:.3e})")
+    if (diff != 0.0 or shares["rested"] != d_share or cold_diff != 0.0
+            or shares["cold"] != shares["rested"]):
         raise AssertionError(f"(e) task-space arm: served at rest {diff} "
-                             f"from phase 8's plan, shares "
-                             f"{shares['rested']} != {d_share}")
+                             f"from phase 8's plan, cold {cold_diff} from "
+                             f"the rested plans, shares {shares} != "
+                             f"{d_share}")
     profile_dispatch("(e) task-space arm", smi, svc,
                      make_arm(True)(nb, 42), n_arm)
     serve_stats("(e) task-space arm", smi, svc)
+
+
+# Phase 15: 4 problems of each family through the dense oracle (float64,
+# T=100; the 17-link arm's K alone would be gigabytes a problem), 20
+# captured GN steps of the 2-D bench.
+ORACLE_FAMILIES = ("2-D bench", "heading robot",
+                   "GP interpolation + velocity limits", "2-link arm",
+                   "task-space 3-link arm", "4-link arm", "9-link arm")
+ORACLE_B, CAPTURE_STEPS, SHARD_PARTIAL = 4, 20, 200
+ORACLE_TOL, ORACLE_SOLVE_TOL = 1e-10, 1e-9
+
+
+def oracle_case(dev, name, planner, start, goal, wg, sdf):
+    """15 (a) for one family: the first ORACLE_B problems in float64 at a
+    perturbed straight line; relative errors of the block assembly and of
+    the damped K-BTD solve against the dense oracle."""
+    from dgpmp2_tpu_torch.core import dense, gn, graph
+    from dgpmp2_tpu_torch.ops import tridiag
+    from dgpmp2_tpu_torch.utils.tree import tree_map
+
+    k = ORACLE_B
+    spec, robot = planner.spec, planner.robot
+    params = tree_map(torch.Tensor.double, planner.make_params(
+        start[:k], goal[:k], workspace_goal=None if wg is None else wg[:k]))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    th = seeds(spec, start[:k], goal[:k], dev, torch.float64)
+    th = th + 0.1 * torch.randn(th.shape, generator=gen, dtype=th.dtype,
+                                device=dev)
+    sdf = sdf[:k].double().contiguous()
+    out = {}
+
+    def run():
+        res = graph.eval_residuals(spec, robot, params, th, sdf)
+        out["sys"] = graph.assemble_from_residuals(spec, params, res)
+        out["dth"] = tridiag.btd_solve_auto(*gn.damped_system(*out["sys"],
+                                                              0.1))
+        out["dense"] = [dense.assemble_dense(
+            spec, robot, tree_map(lambda x, i=i: x[i], params), th[i],
+            sdf[i])
+            for i in range(k)]
+
+    # One lookup and one solve for the batch; one lookup a problem in the
+    # oracle, two under GP interpolation.
+    drive(f"15 (a) oracle {name}", run, {
+        "btd_solve": 1,
+        "sdf_lookup": 1 + k * (2 if spec.use_gp_inter else 1)})
+    diag, off, rhs = out["sys"]
+    errs = {"AtKA": 0.0, "AtKb": 0.0, "solve": 0.0}
+    for i, (A, b, K) in enumerate(out["dense"]):
+        atk = A.T @ K
+        errs["AtKA"] = max(errs["AtKA"], rel_err(
+            tridiag.btd_to_dense(diag[i], off[i]), atk @ A))
+        errs["AtKb"] = max(errs["AtKb"], rel_err(rhs[i].reshape(-1),
+                                                 atk @ b))
+        errs["solve"] = max(errs["solve"], rel_err(
+            out["dth"][i].reshape(-1), dense.solve_dense(A, b, K, 0.1)))
+    m, n = spec.M, spec.N
+    print(f"15 (a) {name}: D={spec.state_dim}, M={m}, N={n}, {k} problems "
+          f"in float64; relative errors against the dense oracle "
+          f"{json.dumps(errs)} (limits {ORACLE_TOL} / {ORACLE_SOLVE_TOL})")
+    if not (errs["AtKA"] <= ORACLE_TOL and errs["AtKb"] <= ORACLE_TOL
+            and errs["solve"] <= ORACLE_SOLVE_TOL):
+        raise AssertionError(f"15 (a) {name}: {errs}")
+
+
+def oracle(dev, bench_np):
+    """15 (a): the dense oracle on the card, float64, each family at its
+    path's own T=100 and robot."""
+    imgs, start, goal = bench_np
+    problems = constrained_problems(dev, bench_np)
+    problems["2-D bench"] = (planner_from_yaml("2d", dev), start, goal, None,
+                             occupancy_sdf(imgs[:ORACLE_B], dev))
+    for name in ORACLE_FAMILIES:
+        oracle_case(dev, name, *problems[name])
+        torch.cuda.empty_cache()
+
+
+def bench_paths(dev, bench_np):
+    """Phase 5's bench trajectories: the float32 bench problem planned as
+    phase 5 plans it (``core.gn.plan``, reg 0.1, 50 iterations)."""
+    from dgpmp2_tpu_torch.core import gn
+
+    bench = port_problem(*bench_np, dev, torch.float32)
+    with torch.no_grad():
+        out = gn.plan(*bench, gn.OptimConfig(reg=0.1, max_iters=50,
+                                             tol_delta=0.0))
+    return bench, out.th
+
+
+def environments(dev, bench_np, paths):
+    """15 (b): Env2D on a campaign forest world (128²) queried at phase 5's
+    1024x101 trajectory points, Env3D on phase 6's 64³ world at its
+    1024x101 straight-line seeds; each query equal to the plain lookup on
+    the card bit for bit, transforms round-tripped, a slice of the 3-D
+    field."""
+    from dgpmp2_tpu_torch import envs
+    from dgpmp2_tpu_torch.data import obstacles
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+
+    forest = obstacles.make_map("forest", np.random.default_rng(15), IMSIZE)
+    env2 = envs.Env2D({"x_lims": LIMS, "y_lims": LIMS}, device=dev)
+    env2.initialize_from_image(forest)
+    occ, start3, goal3 = bench3d_inputs(B, dev)
+    env3 = envs.Env3D({"x_lims": LIMS, "y_lims": LIMS, "z_lims": LIMS},
+                      device=dev)
+    env3.initialize_from_voxels(occ[0].cpu().numpy())
+    spec3 = planner_from_yaml("3d", dev).spec
+    pts2 = paths[..., :2].contiguous()
+    pts3 = seeds(spec3, start3, goal3, dev)[..., :3].contiguous()
+    out = {}
+
+    def run():
+        out["2d"] = env2.get_signed_obstacle_distance(pts2)
+        out["3d"] = env3.get_signed_obstacle_distance(pts3)
+        out["feasible"] = [env2.is_feasible(p) for p in ((-4.5, -4.5),
+                                                         (0.0, 0.0))]
+
+    drive("15 (b) environments", run, {"sdf_lookup": 3, "sdf_lookup3d": 1})
+    plain2 = sdf_ops.bilinear_lookup(env2.sedt[None],
+                                     pts2.reshape(1, -1, 2), env2.res, LIMS,
+                                     LIMS)
+    plain3 = sdf_ops.trilinear_lookup(env3.sedt[None],
+                                      pts3.reshape(1, -1, 3), env3.res,
+                                      LIMS, LIMS, LIMS)
+    for name, (d, g), (dp, gp), shape in (
+            ("Env2D", out["2d"], plain2, pts2.shape),
+            ("Env3D", out["3d"], plain3, pts3.shape)):
+        if tuple(g.shape) != tuple(shape):
+            raise AssertionError(f"15 (b) {name}: shape {tuple(g.shape)}")
+        diff = max(float((d.reshape(-1) - dp.reshape(-1)).abs().max()),
+                   float((g.reshape(-1) - gp.reshape(-1)).abs().max()))
+        print(f"15 (b) {name}: {d.numel()} points, max |query - plain "
+              f"lookup| {diff:.3e}, min distance {float(d.min()):.4f} m")
+        if diff != 0.0 or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"15 (b) {name}: {diff}")
+    trips = {
+        "Env2D pixel": float((env2.to_world(env2.to_pixel(pts2))
+                              - pts2.double()).abs().max()),
+        "Env3D voxel": float((env3.to_world(env3.to_voxel_xyz(pts3))
+                              - pts3.double()).abs().max())}
+    slices = []
+    for z in (-4.0, 0.0, 3.3):
+        sl = env3.slice_env2d(z)
+        iz = int(round(-LIMS[0] / env3.res + z / env3.res))
+        slices.append(torch.equal(sl.sedt, env3.sedt[iz])
+                      and sl.sedt.device == env3.sedt.device)
+    print(f"15 (b) round trips {json.dumps(trips)}; slices are the 3-D "
+          f"field's {slices}; is_feasible {out['feasible']}")
+    if max(trips.values()) > 1e-12 or not all(slices):
+        raise AssertionError(f"15 (b): {trips} {slices}")
+
+
+def capture(dev, smi, bench):
+    """15 (c): CAPTURE_STEPS GN steps of the 2-D bench problem (B=1024,
+    float32, reg 0.1) captured in one CUDA graph by
+    ``utils.profiling.CapturedSteps``: the replay's th equals the eager
+    steps bit for bit; ms per iteration captured (``time_compiled``) and
+    eager."""
+    from dgpmp2_tpu_torch.core import gn
+    from dgpmp2_tpu_torch.utils import profiling
+
+    spec, robot, params, th0, sdf = bench
+    delta = torch.tensor(0.1, dtype=th0.dtype, device=dev)
+
+    def step(th, p, s):
+        return th + gn.gn_step(spec, robot, p, th, s, delta)
+
+    def eager():
+        th = th0
+        for _ in range(CAPTURE_STEPS):
+            th = step(th, params, sdf)
+        return th
+
+    out = {}
+
+    def run():
+        with torch.no_grad():
+            out["eager"] = eager()
+            out["steps"] = profiling.CapturedSteps(
+                step, th0, params, sdf, iters=CAPTURE_STEPS)
+            out["replay"] = out["steps"].replay().clone()
+
+    # One solve and one lookup a step: the eager steps, the warm-up step,
+    # and the captured steps, counted at capture (where nothing runs) for
+    # the one replay that runs them.
+    n = 2 * CAPTURE_STEPS + 1
+    drive("15 (c) capture", run, {"btd_solve": n, "sdf_lookup": n})
+    per_replay = out["steps"].launches
+    print(f"15 (c) one replay of the captured graph launches "
+          f"{json.dumps(per_replay)} (counted once, at capture)")
+    if per_replay != {**dict.fromkeys(KERNELS, 0),
+                      "btd_solve": CAPTURE_STEPS,
+                      "sdf_lookup": CAPTURE_STEPS}:
+        raise AssertionError(f"15 (c) captured launches {per_replay}")
+    diff = float((out["replay"] - out["eager"]).abs().max())
+    finite = bool(torch.isfinite(out["replay"]).all())
+    print(f"15 (c) {CAPTURE_STEPS} captured GN steps (B={B}) against the "
+          f"eager steps: max |th difference| {diff:.3e}, finite {finite}")
+    if diff != 0.0 or not finite:
+        raise AssertionError(f"15 (c) capture: {diff}")
+    with torch.no_grad():
+        # Best (time_compiled's statistic) and median of 5 runs each.
+        ms = {"captured": (
+            profiling.time_compiled(step, th0, params, sdf,
+                                    iters=CAPTURE_STEPS, repeats=5),
+            cuda_ms(out["steps"].replay, reps=5, warmup=1) / CAPTURE_STEPS),
+            "eager": (
+            cuda_ms(eager, reps=5, warmup=1, best=True) / CAPTURE_STEPS,
+            cuda_ms(eager, reps=5, warmup=1) / CAPTURE_STEPS)}
+    for kind, (best, median) in ms.items():
+        print(f"[{smi}] 15 (c) 2-D GN step B={B} T={T} float32, {kind}: "
+              f"{best:.4f} ms per iteration best, {median:.4f} median, of 5 "
+              f"runs of {CAPTURE_STEPS} steps")
+    del out
+
+
+def sharded_service(dev, smi):
+    """15 (d): phase 14 (a)'s 2-D YAML planner at batch SERVE_B on a mesh
+    of the one card, on a mesh of two entries of it (two shards of
+    SERVE_B / 2 rows: the split, each shard's bank gather and the final
+    gather at work) and on one of every visible card if there are more:
+    SERVE_B requests by the bank, SERVE_B inline and SHARD_PARTIAL by the
+    bank (the pad rows all in the last shard of two), equal to the
+    unsharded service's bit for bit, launches shards × per dispatch ×
+    dispatches; a batch the mesh does not divide is refused."""
+    from dgpmp2_tpu_torch import serve
+    from dgpmp2_tpu_torch.parallel.sharding import make_mesh
+
+    bench = bench_serve()
+    planner = bench.make_planner(T, SERVE_ITERS, dev)
+    world = bench.make_world(dev)
+    bank = bench.make_requests(world, SERVE_B, 15)
+    reqs = {"bank": bank,
+            "inline": bench.make_requests(world, SERVE_B, 16, True),
+            f"{SHARD_PARTIAL} by the bank": bank[:SHARD_PARTIAL]}
+    plain = serve.PlanningService(planner, SERVE_B, SERVE_WINDOW_MS)
+    plain.register_world("bench", world)
+    want = {k: plain.plan_batch_sync(r) for k, r in reqs.items()}
+    meshes = [("the one card", make_mesh([dev])),
+              ("two entries of the one card", make_mesh([dev, dev]))]
+    if torch.cuda.device_count() > 1:
+        meshes.append((f"{torch.cuda.device_count()} cards", make_mesh()))
+    print(f"15 (d) {torch.cuda.device_count()} CUDA device(s) visible")
+    for label, mesh in meshes:
+        svc = serve.PlanningService(planner, SERVE_B, SERVE_WINDOW_MS,
+                                    mesh=mesh)
+        svc.register_world("bench", world)
+        svc.warmup()
+        shards = len(mesh.data_devices())
+        got = serve_drive(
+            f"15 (d) sharded service, mesh of {label}", svc,
+            lambda: {k: svc.plan_batch_sync(r) for k, r in reqs.items()},
+            {"btd_solve": shards * SERVE_ITERS,
+             "sdf_lookup": shards * (SERVE_ITERS + 1)})
+        for kind, a in got.items():
+            b = want[kind]
+            same_th(f"15 (d) mesh of {label} ({shards} shards), {kind}, "
+                    f"against the unsharded service", a, b)
+            errs = max(max(abs(x.err_final - y.err_final),
+                           abs(x.err_init - y.err_init)) for x, y in zip(a, b))
+            if errs != 0.0 or [x.iters for x in a] != [y.iters for y in b]:
+                raise AssertionError(f"15 (d) {label} {kind}: {errs}")
+            check_responses(f"15 (d) mesh of {label}, {kind}", a,
+                            [len(a) / SERVE_B] * len(a), SERVE_ITERS)
+        serve_stats(f"15 (d) mesh of {label}", smi, svc)
+    try:
+        serve.PlanningService(planner, SERVE_B - 1, SERVE_WINDOW_MS,
+                              mesh=make_mesh([dev, dev]))
+    except ValueError as exc:
+        print(f"15 (d) batch {SERVE_B - 1} on a mesh of two entries: "
+              f"refused ({exc})")
+    else:
+        raise AssertionError("15 (d): a batch the mesh does not divide was "
+                             "taken")
+
+
+def oracle_envs_capture_mesh(dev, smi, bench_np):
+    """Phase 15: (a) the dense oracle, (b) Env2D/Env3D, (c) a captured GN
+    step (``utils.profiling``), (d) the service on a mesh."""
+    phase("15 oracle, envs, capture, mesh")
+    oracle(dev, bench_np)
+    bench, paths = bench_paths(dev, bench_np)
+    environments(dev, bench_np, paths)
+    capture(dev, smi, bench)
+    sharded_service(dev, smi)
 
 
 def _leaves(tree, path=""):
@@ -3287,6 +3602,7 @@ def main():
     data = datagen(dev, smi)
     training(dev, smi, recs["sdf_lookup_bwd"], data)
     serving(dev, smi)
+    oracle_envs_capture_mesh(dev, smi, bench_np)
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
     for rec in recs.values():

@@ -51,6 +51,7 @@ from dgpmp2_tpu_torch.models.cov_head import (Dropout, FeedForwardHead,
                                               traj_positions_flat)
 from dgpmp2_tpu_torch.ops import sdf as sdf_ops
 from dgpmp2_tpu_torch.ops import tridiag
+from dgpmp2_tpu_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,16 +83,6 @@ class LearnedPlannerConfig:
     num_hidden: int = 1
     dropout_prob: float = 0.5
     dtype: torch.dtype = torch.float32
-
-
-def tree_map(fn, x):
-    """``fn`` over the tensors of nested tuples (a recurrent carry; None
-    for the feed-forward head's)."""
-    if x is None:
-        return None
-    if isinstance(x, tuple):
-        return tuple(tree_map(fn, v) for v in x)
-    return fn(x)
 
 
 class LearnedDiffGPMP2Planner:

@@ -44,10 +44,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from dgpmp2_tpu_torch.core import graph
-from dgpmp2_tpu_torch.learn.learned_planner import (LearnedDiffGPMP2Planner,
-                                                    tree_map)
+from dgpmp2_tpu_torch.learn.learned_planner import LearnedDiffGPMP2Planner
 from dgpmp2_tpu_torch.learn.losses import LossTerms, LossWeights, one_step_loss
 from dgpmp2_tpu_torch.utils.trajectory import straight_line_traj
+from dgpmp2_tpu_torch.utils.tree import tree_map
 
 
 @dataclasses.dataclass

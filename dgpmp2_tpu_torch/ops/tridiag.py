@@ -133,3 +133,18 @@ def btd_matvec(diag: torch.Tensor, off: torch.Tensor,
     pad_lo = [0, 0, 1, 0]
     return (y + torch.nn.functional.pad(upper, pad_hi)
             + torch.nn.functional.pad(lower, pad_lo))
+
+
+def btd_to_dense(diag: torch.Tensor, off: torch.Tensor) -> torch.Tensor:
+    """Expand block-tridiagonal storage to a dense (..., T·D, T·D) matrix
+    (a test and debug helper: the dense oracle ``core.dense`` holds the
+    block assembly against it)."""
+    t, d = diag.shape[-3], diag.shape[-1]
+    dense = diag.new_zeros((*diag.shape[:-3], t, d, t, d))
+    idx = torch.arange(t, device=diag.device)
+    dense[..., idx, :, idx, :] = diag.movedim(-3, 0)
+    if t > 1:
+        dense[..., idx[:-1], :, idx[1:], :] = off.movedim(-3, 0)
+        dense[..., idx[1:], :, idx[:-1], :] = off.transpose(-1, -2).movedim(
+            -3, 0)
+    return dense.reshape(*diag.shape[:-3], t * d, t * d)

@@ -22,20 +22,29 @@ the planner was built on the CPU).
 * **One hand-off.**  A dispatch uploads its inputs once and reads every
   output back in one device-to-host copy.
 
+* **A mesh.**  With ``mesh=`` (``parallel.sharding.make_mesh``) the batch
+  is split into one shard per data row of the mesh: each shard is planned
+  on its device, every shard's plan launched before any output is
+  gathered, the world bank replicated on each device, and every output
+  gathered in one host copy.
+
 Each dispatch runs eagerly: there is no ``jax.jit``.  Capturing the four
 dispatch paths (cold or warm seed, inline SDF or bank row) as CUDA graphs is
-ROADMAP.md Queue 1 item 1.  Multi-device serving (the JAX ``mesh=``) waits
-for ``parallel/sharding.py``.
+ROADMAP.md Queue 1 item 6.
 
 Unlike the JAX package, a served plan does not depend on the request's row:
 the multistart adapter draws one set of perturbations per dispatch, shared
 by every row, and one RRT* seed for every row; and the RRT* pool is built
-from the same SDF the device plans against.
+from the same SDF the device plans against.  A cold task-space request is
+seeded with the arm held at its start (``TaskSpacePlanningAdapter.
+cold_seed``), not with a line toward its target's coordinates read as
+joint angles.
 """
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import copy
 import dataclasses
 import threading
 import time
@@ -100,6 +109,37 @@ class _AdapterResult(NamedTuple):
 
 def _device(device) -> torch.device:
     return torch.device("cuda" if device is None else device)
+
+
+def _canonical(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _device_context(device):
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def _replica(planner, device: torch.device):
+    """``planner`` on ``device``: itself when it is there already, else a
+    shallow copy whose tensors, modules and wrapped planner (an adapter's
+    ``lplanner``) are moved there."""
+    if _canonical(planner.device) == device:
+        return planner
+    rep = copy.copy(planner)
+    for name, value in vars(planner).items():
+        if isinstance(value, torch.Tensor):
+            setattr(rep, name, value.to(device))
+        elif isinstance(value, torch.nn.Module):
+            setattr(rep, name, copy.deepcopy(value).to(device))
+        elif hasattr(value, "device") and hasattr(value, "spec"):
+            setattr(rep, name, _replica(value, device))
+    rep.device = device
+    return rep
 
 
 class LearnedPlanningAdapter:
@@ -253,6 +293,10 @@ class TaskSpacePlanningAdapter:
     ``cov_scalars`` must hold ``k_wg`` (the workspace-goal weight);
     ``k_jl``/``q_min``/``q_max`` and ``k_self``/``eps_self`` engage the
     joint-limit and self-collision factors where the spec enables them.
+
+    A request without ``th_init`` is seeded by :meth:`cold_seed`, the arm
+    held at its start: the straight line toward ``goal[:dof]`` would head
+    for the target's coordinates read as joint angles.
     """
 
     def __init__(self, spec, robot, cov_scalars: dict,
@@ -268,6 +312,14 @@ class TaskSpacePlanningAdapter:
         self.k_goal_off = k_goal_off
         self.dtype = dtype
         self.device = _device(device)
+
+    def cold_seed(self, start, goal):
+        """The seed of a request without ``th_init``: the straight line
+        from ``start[:dof]`` to ``start[:dof]`` (``goal`` carries the
+        workspace target, no joint angles)."""
+        s = start[..., :self.spec.dof]
+        return straight_line_traj(s, s, self.spec.total_time_sec,
+                                  self.spec.total_time_step)
 
     def plan(self, th0, start, goal, sdf):
         cov = dict(self.cov)
@@ -292,18 +344,37 @@ class PlanningService:
       planner: a ``DiffGPMP2Planner`` or an adapter of this module (any
         object with ``plan(th_init, start, goal, sdf)`` over a leading batch
         axis, returning ``th``, ``err_init``, ``err_final`` and ``iters``,
-        and ``spec``, ``dtype`` and ``device`` attributes).
+        and ``spec``, ``dtype`` and ``device`` attributes; an optional
+        ``cold_seed(start, goal)`` seeds the rows without ``th_init``).
       batch_size: the dispatched batch width; also the coalescing target.
       window_ms: the longest the dispatcher waits after the first request
         of a batch before it dispatches a partial one.
+      mesh: a ``parallel.sharding.Mesh``: each dispatch plans one shard of
+        ``batch_size / (data rows)`` rows on each data row's first device
+        (a replica of the planner there).  ``batch_size`` must divide by
+        the mesh's size.
     """
 
     def __init__(self, planner, batch_size: int = 64,
-                 window_ms: float = 2.0):
+                 window_ms: float = 2.0, mesh=None):
         self.planner = planner
         self.batch_size = int(batch_size)
         self.window_s = float(window_ms) / 1e3
-        self.device = torch.device(planner.device)
+        if mesh is None:
+            devices = [_canonical(planner.device)]
+        else:
+            if self.batch_size % mesh.size:
+                raise ValueError(
+                    f"batch_size {self.batch_size} not divisible by mesh "
+                    f"size {mesh.size}")
+            devices = [_canonical(d) for d in mesh.data_devices()]
+        # One (device, planner) per shard; the shards of one device share
+        # its planner replica and its bank.
+        replicas = {}
+        for d in devices:
+            replicas.setdefault(d, _replica(planner, d))
+        self._shards = [(d, replicas[d]) for d in devices]
+        self.device = devices[0]
         self._np_dtype = _NP_DTYPES[planner.dtype]
         # A planner whose seed pool needs host work (the RRT* expert of
         # MultistartPlanningAdapter) exposes host_extra_seeds; the service
@@ -316,8 +387,7 @@ class PlanningService:
         self._lock = threading.Lock()  # dispatches are serialised
         self._world_index: dict = {}   # name -> row of the device bank
         self._world_np: dict = {}      # name -> host copy, for host seeds
-        self._world_bank: Optional[torch.Tensor] = None  # (n, H, W) or
-        # (n, D, H, W) on the planner's device
+        self._banks: dict = {}         # device -> (n, H, W) or (n, D, H, W)
         self.stats = {
             "requests": 0,
             "batches": 0,
@@ -329,54 +399,54 @@ class PlanningService:
     # -- the world bank ------------------------------------------------------
 
     def register_world(self, name: str, sdf) -> None:
-        """Upload one environment SDF to the device once; requests then
-        name it as ``PlanRequest(world=name)`` and carry no SDF.
-        Re-registering a name replaces its row in place."""
+        """Upload one environment SDF to every device of the service once;
+        requests then name it as ``PlanRequest(world=name)`` and carry no
+        SDF.  Re-registering a name replaces its row in place."""
         host = np.array(sdf, self._np_dtype)  # a copy: the caller's
         # array may change later, and on the CPU a tensor would share it
-        row = torch.tensor(host, device=self.device)
         with self._lock:
             if self._host_seeds is not None:
                 # The RRT* expert reads this copy, not the device row.
                 self._world_np[name] = host
-            if name in self._world_index:
-                self._world_bank[self._world_index[name]].copy_(row)
-            elif self._world_bank is None:
-                self._world_index[name] = 0
-                self._world_bank = row[None].contiguous()
-            else:
-                self._world_index[name] = self._world_bank.shape[0]
-                self._world_bank = torch.cat([self._world_bank, row[None]])
+            for dev in {d for d, _ in self._shards}:
+                row = torch.tensor(host, device=dev)
+                bank = self._banks.get(dev)
+                if name in self._world_index:
+                    bank[self._world_index[name]].copy_(row)
+                elif bank is None:
+                    self._banks[dev] = row[None].contiguous()
+                else:
+                    self._banks[dev] = torch.cat([bank, row[None]])
+            if name not in self._world_index:
+                self._world_index[name] = len(self._world_index)
 
-    def _upload(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x, self._np_dtype),
-                               device=self.device)
+    def _upload(self, x, device) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x, self._np_dtype), device=device)
 
-    def _resolve_sdfs(self, requests, pad) -> torch.Tensor:
-        """The (batch, H, W) or (batch, D, H, W) SDFs of a dispatch on the
-        device: a bank gather when every request names a registered world,
+    def _resolve_sdfs(self, requests, device, bank_mode) -> torch.Tensor:
+        """The (rows, H, W) or (rows, D, H, W) SDFs of ``requests`` (one
+        shard's rows, pad rows included) on ``device``: a bank gather in
+        bank mode (every request of the dispatch names a registered world),
         else one upload of the inline arrays (a named world's row read back
         from the bank where a request has no inline SDF)."""
-        if all(r.world is not None for r in requests):
+        if bank_mode:
             try:
                 idx = [self._world_index[r.world] for r in requests]
             except KeyError as exc:
                 raise KeyError(f"unregistered world {exc}") from exc
-            idx += [idx[0]] * pad
-            return self._world_bank.index_select(
-                0, torch.tensor(idx, device=self.device))
+            return self._banks[device].index_select(
+                0, torch.tensor(idx, device=device))
         rows = []
         for r in requests:
             if r.sdf is not None:
                 rows.append(np.asarray(r.sdf))
             elif r.world in self._world_index:
-                rows.append(self._world_bank[self._world_index[r.world]]
+                rows.append(self._banks[device][self._world_index[r.world]]
                             .cpu().numpy())
             else:
                 raise ValueError(
                     "request carries neither sdf nor a registered world")
-        rows += [rows[0]] * pad
-        return self._upload(np.stack(rows))
+        return self._upload(np.stack(rows), device)
 
     def _host_sdf(self, request, bank_mode: bool) -> np.ndarray:
         """The SDF the host seed expert plans a request in: the one the
@@ -388,36 +458,45 @@ class PlanningService:
             return self._world_np[request.world]
         raise ValueError("request carries neither sdf nor a registered world")
 
-    def _device_context(self):
-        return (torch.cuda.device(self.device) if self.device.type == "cuda"
-                else contextlib.nullcontext())
+    def _cold_seed(self, planner, start, goal):
+        """Seeds of rows without ``th_init``: the planner's ``cold_seed``
+        where it has one, else the straight line to the goal state."""
+        cold = getattr(planner, "cold_seed", None)
+        if cold is not None:
+            return cold(start, goal)
+        spec = planner.spec
+        return straight_line_traj(start[..., :spec.dof], goal[..., :spec.dof],
+                                  spec.total_time_sec, spec.total_time_step)
 
-    def _dispatch(self, start, goal, th0, sdf, extra):
-        """One dispatch on the device: straight-line seeds where ``th0`` is
-        None (cold), the plan, and every output in one host copy.  ``sdf``
-        is already on the device (inline upload or bank gather).  Returns
-        numpy (th, err_init, err_final, iters)."""
-        spec = self.planner.spec
+    def _dispatch(self, start, goal, th0, sdfs, extra):
+        """One dispatch: every shard's plan launched on its device (the
+        seeds of a cold batch made there), then every output gathered in
+        one host copy.  ``sdfs(k, device)`` gives shard ``k``'s SDFs on its
+        device.  Returns numpy (th, err_init, err_final, iters)."""
         dt = self.planner.dtype
-        start, goal = self._upload(start), self._upload(goal)
-        if th0 is None:
-            th0 = straight_line_traj(start[:, :spec.dof], goal[:, :spec.dof],
-                                     spec.total_time_sec,
-                                     spec.total_time_step)
-        else:
-            th0 = self._upload(th0)
-        if extra is None:
-            res = self.planner.plan(th0, start, goal, sdf)
-        else:
-            res = self.planner.plan(th0, start, goal, sdf,
-                                    extra_seeds=self._upload(extra))
-        b = th0.shape[0]
-        # One device-to-host copy for every output (iterations are exact
-        # in the planner's dtype).
-        out = torch.cat([res.th.reshape(b, -1), res.err_init[:, None],
-                         res.err_final[:, None],
-                         res.iters[:, None].to(dt)], dim=1).cpu().numpy()
-        th = out[:, :-3].reshape(th0.shape)
+        rows = self.batch_size // len(self._shards)
+        outs = []
+        for k, (dev, planner) in enumerate(self._shards):
+            sl = slice(k * rows, (k + 1) * rows)
+            with _device_context(dev):
+                st, gl = self._upload(start[sl], dev), self._upload(goal[sl],
+                                                                    dev)
+                th = (self._cold_seed(planner, st, gl) if th0 is None
+                      else self._upload(th0[sl], dev))
+                if extra is None:
+                    res = planner.plan(th, st, gl, sdfs(k, dev))
+                else:
+                    res = planner.plan(th, st, gl, sdfs(k, dev),
+                                       extra_seeds=self._upload(extra[sl],
+                                                                dev))
+                # Iterations are exact in the planner's dtype.
+                outs.append(torch.cat([
+                    res.th.reshape(rows, -1), res.err_init[:, None],
+                    res.err_final[:, None], res.iters[:, None].to(dt)],
+                    dim=1))
+        # One device-to-host copy for every output of every shard.
+        out = torch.cat([o.to(self.device) for o in outs]).cpu().numpy()
+        th = out[:, :-3].reshape(self.batch_size, *res.th.shape[1:])
         return th, out[:, -3], out[:, -2], out[:, -1].astype(np.int64)
 
     # -- synchronous path ----------------------------------------------------
@@ -430,6 +509,7 @@ class PlanningService:
         against ones of ``sdf_shape``.  Counts nothing in ``stats``."""
         spec = self.planner.spec
         b, d = self.batch_size, spec.state_dim
+        rows = b // len(self._shards)
         start = np.zeros((b, d))
         goal = np.ones((b, d))
         extra = None
@@ -437,15 +517,17 @@ class PlanningService:
             # A pool of the right shape; the warm-up plan is discarded.
             extra = np.zeros((b, int(self.planner.rrt_seeds),
                               spec.num_traj_states, d))
-        with self._lock, torch.no_grad(), self._device_context():
-            if sdf_shape is None and self._world_bank is not None:
-                sdf = self._world_bank.index_select(
-                    0, torch.zeros(b, dtype=torch.int64, device=self.device))
-            elif sdf_shape is None:
-                raise ValueError("no registered worlds: pass sdf_shape")
-            else:
-                sdf = self._upload(np.ones((b,) + tuple(sdf_shape)))
-            self._dispatch(start, goal, None, sdf, extra)
+        if sdf_shape is None and self._banks.get(self.device) is None:
+            raise ValueError("no registered worlds: pass sdf_shape")
+
+        def sdfs(k, dev):
+            if sdf_shape is None:
+                return self._banks[dev].index_select(
+                    0, torch.zeros(rows, dtype=torch.int64, device=dev))
+            return self._upload(np.ones((rows,) + tuple(sdf_shape)), dev)
+
+        with self._lock, torch.no_grad():
+            self._dispatch(start, goal, None, sdfs, extra)
 
     def plan_batch_sync(self, requests: Sequence[PlanRequest]):
         """Plan up to ``batch_size`` requests in one dispatch and return
@@ -455,27 +537,26 @@ class PlanningService:
             return []
         if n > self.batch_size:
             raise ValueError(f"{n} requests > batch width {self.batch_size}")
-        spec = self.planner.spec
         pad = self.batch_size - n
+        padded = list(requests) + [requests[0]] * pad
 
         def stack(rows):
             return np.stack(rows + [rows[0]] * pad)
 
         start = stack([np.asarray(r.start) for r in requests])
         goal = stack([np.asarray(r.goal) for r in requests])
-        bank_mode = self._world_bank is not None and all(
+        bank_mode = self._banks.get(self.device) is not None and all(
             r.world in self._world_index for r in requests)
         th0 = None
         if any(r.th_init is not None for r in requests):
-            # Rows without a seed get the straight line, built on the host.
+            # Rows without a seed get the cold seed, built on the host.
             th0 = stack([
                 np.asarray(r.th_init) if r.th_init is not None
-                else _straight_np(np.asarray(r.start), np.asarray(r.goal),
-                                  spec, self._np_dtype)
-                for r in requests])
+                else self._cold_seed_np(r) for r in requests])
 
         # The host seed expert (RRT*) before the dispatch, on the real rows
-        # only (pad rows copy row 0's pool), in the SDFs the device plans.
+        # only (pad rows copy row 0's pool), in the SDFs the device plans;
+        # one pool for the whole batch, split with it.
         extra = None
         if self._host_seeds is not None:
             t_h = time.perf_counter()
@@ -485,12 +566,18 @@ class PlanningService:
             extra = np.concatenate([extra] + [extra[:1]] * pad)
             self.stats["host_seed_time_s"] += time.perf_counter() - t_h
 
+        rows = self.batch_size // len(self._shards)
+        gather = all(r.world is not None for r in requests)
+
+        def sdfs(k, dev):
+            return self._resolve_sdfs(padded[k * rows:(k + 1) * rows], dev,
+                                      gather)
+
         t0 = time.perf_counter()
-        # The dispatch may run in an executor thread: grad mode and the
-        # current CUDA device are per thread, so both are set here.
-        with self._lock, torch.no_grad(), self._device_context():
-            sdf = self._resolve_sdfs(requests, pad)
-            th, err0, errf, n_iters = self._dispatch(start, goal, th0, sdf,
+        # The dispatch may run in an executor thread, whose grad mode is its
+        # own (each shard also enters its CUDA device there).
+        with self._lock, torch.no_grad():
+            th, err0, errf, n_iters = self._dispatch(start, goal, th0, sdfs,
                                                      extra)
         dt_dev = time.perf_counter() - t0
 
@@ -506,6 +593,18 @@ class PlanningService:
                          batch_fill=fill, latency_s=dt_dev)
             for i in range(n)
         ]
+
+    def _cold_seed_np(self, request) -> np.ndarray:
+        """The cold seed of one request of a warm batch, on the host: the
+        planner's ``cold_seed`` on the CPU, else the straight line to the
+        goal state (``_straight_np``), in the planner's dtype."""
+        start, goal = np.asarray(request.start), np.asarray(request.goal)
+        cold = getattr(self.planner, "cold_seed", None)
+        if cold is None:
+            return _straight_np(start, goal, self.planner.spec,
+                                self._np_dtype)
+        return cold(torch.as_tensor(start)[None], torch.as_tensor(goal)[None]
+                    )[0].numpy().astype(self._np_dtype)
 
     # -- async micro-batching path ------------------------------------------
 

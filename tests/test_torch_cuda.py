@@ -788,3 +788,69 @@ def test_service_serves_a_small_batch_on_the_card(dev):
     for g, c in zip(out["cuda"], out["cpu"]):
         assert g.batch_fill == 0.75 and g.err_final < g.err_init
         np.testing.assert_allclose(g.th, c.th, rtol=0, atol=1e-9)
+
+
+def test_captured_gn_steps_equal_the_eager_steps(dev):
+    """utils.profiling.CapturedSteps: 5 GN steps of a small bench problem
+    captured in one CUDA graph; a replay's th equals the eager steps bit
+    for bit, and the capture counted one launch of each kernel a step."""
+    import chip_smoke
+    from dgpmp2_tpu_torch.utils import profiling
+
+    spec, robot, params, th0, sdf = chip_smoke.port_problem(
+        *chip_smoke.bench_inputs(16), dev, torch.float32, t=20)
+    delta = torch.tensor(0.1, dtype=torch.float32, device=dev)
+
+    def step(th, p, s):
+        return th + gn.gn_step(spec, robot, p, th, s, delta)
+
+    with torch.no_grad():
+        th = th0
+        for _ in range(5):
+            th = step(th, params, sdf)
+        steps = profiling.CapturedSteps(step, th0, params, sdf, iters=5)
+        n0 = k_btd.launches
+        got = steps.replay().clone()
+        torch.cuda.synchronize()
+        assert k_btd.launches == n0
+        assert torch.equal(got, th)
+        assert (steps.launches["btd_solve"], steps.launches["sdf_lookup"]) \
+            == (5, 5)
+        # A second replay continues from the first one's result.
+        again = steps.replay().clone()
+        for _ in range(5):
+            th = step(th, params, sdf)
+        assert torch.equal(again, th)
+        assert profiling.time_compiled(step, th0, params, sdf, iters=5,
+                                       repeats=2) > 0.0
+
+
+def test_envs_on_the_card_launch_their_kernel_once_per_query(dev):
+    from dgpmp2_tpu_torch import envs
+
+    img = np.ones((64, 64))
+    img[20:30, 40:50] = 0.0
+    env2 = envs.Env2D({"x_lims": LIMS, "y_lims": LIMS}, device=dev)
+    env2.initialize_from_image(img)
+    vox = np.ones((16, 16, 16))
+    vox[6:10, 6:10, 6:10] = 0.0
+    env3 = envs.Env3D({"x_lims": LIMS, "y_lims": LIMS, "z_lims": LIMS},
+                      device=dev)
+    env3.initialize_from_voxels(vox)
+    rng = np.random.default_rng(0)
+    pts2 = torch.tensor(rng.uniform(-5.5, 5.5, (7, 33, 2)),
+                        dtype=torch.float32, device=dev)
+    pts3 = torch.tensor(rng.uniform(-5.5, 5.5, (129, 3)),
+                        dtype=torch.float32, device=dev)
+    n2, n3 = k_lookup.launches, k_lookup3d.launches
+    d2, g2 = env2.get_signed_obstacle_distance(pts2)
+    d3, g3 = env3.get_signed_obstacle_distance(pts3)
+    assert env2.is_feasible((-4.0, -4.0), 0.3)
+    assert (k_lookup.launches - n2, k_lookup3d.launches - n3) == (2, 1)
+    p2 = tsdf.bilinear_lookup(env2.sedt[None], pts2.reshape(1, -1, 2),
+                              env2.res, LIMS, LIMS)
+    p3 = tsdf.trilinear_lookup(env3.sedt[None], pts3[None], env3.res, LIMS,
+                               LIMS, LIMS)
+    assert torch.equal(d2.reshape(-1), p2[0].reshape(-1))
+    assert torch.equal(g2.reshape(-1), p2[1].reshape(-1))
+    assert torch.equal(d3, p3[0][0]) and torch.equal(g3, p3[1][0])

@@ -52,7 +52,9 @@ def test_import_leaves_jax_unloaded():
         "dgpmp2_tpu_torch.data.generate_paths, "
         "dgpmp2_tpu_torch.data.generate_im, "
         "dgpmp2_tpu_torch.data.sensitivity, dgpmp2_tpu_torch.core.seeds, "
-        "dgpmp2_tpu_torch.native\n"
+        "dgpmp2_tpu_torch.native, dgpmp2_tpu_torch.core.dense, "
+        "dgpmp2_tpu_torch.envs, dgpmp2_tpu_torch.utils.profiling, "
+        "dgpmp2_tpu_torch.parallel.sharding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'dgpmp2_tpu', "
         "'matplotlib')]\n"
@@ -63,6 +65,36 @@ def test_import_leaves_jax_unloaded():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# Public names of dgpmp2_tpu that the port does not export: none.
+NOT_PORTED_NAMES = frozenset()
+
+
+def test_all_covers_the_reference_public_names():
+    """The port's ``__all__`` holds every public name of dgpmp2_tpu (its
+    non-module attributes and ``__version__``), less NOT_PORTED_NAMES, and
+    each of them imports; ``from dgpmp2_tpu_torch import PlanningService,
+    Env2D, plan_multistart`` works."""
+    import types
+
+    import dgpmp2_tpu
+    import dgpmp2_tpu_torch
+
+    from dgpmp2_tpu_torch import Env2D, PlanningService, plan_multistart
+
+    public = {n for n, v in vars(dgpmp2_tpu).items()
+              if (not n.startswith("_") or n == "__version__")
+              and not isinstance(v, types.ModuleType)}
+    assert {"PlanningService", "Env2D", "Env3D", "plan_multistart",
+            "MultistartResult", "PlanRequest"} <= public
+    assert public - NOT_PORTED_NAMES <= set(dgpmp2_tpu_torch.__all__)
+    assert all(hasattr(dgpmp2_tpu_torch, n) for n in dgpmp2_tpu_torch.__all__)
+    assert dgpmp2_tpu_torch.__version__ == dgpmp2_tpu.__version__
+    assert (Env2D.__module__, PlanningService.__module__,
+            plan_multistart.__module__) == (
+        "dgpmp2_tpu_torch.envs", "dgpmp2_tpu_torch.serve",
+        "dgpmp2_tpu_torch.core.multistart")
 
 
 def test_package_sources_never_name_jax():

@@ -17,6 +17,7 @@ pool, that depend on the request's row; a host RRT* pool built from the
 inline SDF while the device plans the registered world).
 """
 import asyncio
+import dataclasses
 import os
 import subprocess
 import sys
@@ -190,22 +191,44 @@ def taskspace_pair(t=15, iters=12):
     return out
 
 
-def test_taskspace_adapter_matches_jax():
+def taskspace_requests(n=3, seed=3):
     """Tip targets ride in the goal state; the 96² world of the task-space
     example with its obstacle on the tip's sweep."""
     img = np.ones((96, 96))
     img[31:42, 79:90] = 0.0
     sdf = np.asarray(jsdf.sdf_from_occupancy(jnp.asarray(img), res=10 / 96))
-    rng = np.random.default_rng(3)
+    rng = np.random.default_rng(seed)
     reqs = []
-    for target in 2.6 + rng.uniform(-0.4, 0.4, (3, 2)):
+    for target in 2.6 + rng.uniform(-0.4, 0.4, (n, 2)):
         start = np.zeros(6)
         start[:3] = (-0.4, 0.0, 0.0) + rng.uniform(-0.2, 0.2, 3)
         reqs.append(tserve.PlanRequest(
             start=start, goal=np.concatenate([target, np.zeros(4)]), sdf=sdf))
+    return reqs
+
+
+def at_rest(adapter, reqs):
+    """The requests seeded with the arm held at its start (phase 8's seed,
+    the port's cold seed under a task-space goal)."""
+    spec = adapter.spec
+    out = []
+    for r in reqs:
+        s = torch.tensor(r.start[None, :spec.dof])
+        th = straight_line_traj(s, s, spec.total_time_sec,
+                                spec.total_time_step)[0].numpy()
+        out.append(dataclasses.replace(r, th_init=th))
+    return out
+
+
+def test_taskspace_adapter_matches_jax():
+    """Served cold by the port (seeded at rest, ``cold_seed``) against the
+    JAX service handed the same seed as a warm ``th_init``: the reference
+    seeds a cold row toward the target's coordinates read as joint angles
+    (ROADMAP Queue 3, F1), so its cold path is not the one to hold."""
+    reqs = taskspace_requests()
     ja, ta = taskspace_pair()
     want = jserve.PlanningService(ja, batch_size=4).plan_batch_sync(
-        as_jax(reqs))
+        as_jax(at_rest(ta, reqs)))
     got = tserve.PlanningService(ta, batch_size=4).plan_batch_sync(reqs)
     assert_responses_match(got, want)
     for r, q in zip(got, reqs):
@@ -270,7 +293,7 @@ def test_3d_service_matches_jax():
     named = [tserve.PlanRequest(start=start[i], goal=goal[i],
                                 world=f"vox{i}") for i in range(3)]
     assert_responses_match(svc.plan_batch_sync(named), want)
-    assert tuple(svc._world_bank.shape) == (3, 16, 16, 16)
+    assert tuple(svc._banks[svc.device].shape) == (3, 16, 16, 16)
 
 
 # -- the port alone -----------------------------------------------------------
@@ -306,7 +329,7 @@ def test_warm_start_seed_is_used_and_reregistering_replaces(planners, world):
         assert w.err_init == pytest.approx(c.err_final, rel=1e-9)
         assert w.err_final <= c.err_final * (1 + 1e-9)
     svc.register_world("lab", world + 1.0)
-    assert svc._world_bank.shape[0] == 1
+    assert svc._banks[svc.device].shape[0] == 1
     moved = svc.plan_batch_sync([tserve.PlanRequest(
         start=reqs[0].start, goal=reqs[0].goal, world="lab")])[0]
     assert not np.allclose(moved.th, cold[0].th)
@@ -450,6 +473,134 @@ def test_rrt_pool_comes_from_the_world_the_device_plans(world, monkeypatch):
     a, b = svc.plan_batch_sync(both)[0], svc.plan_batch_sync(named)[0]
     np.testing.assert_array_equal(seen[0], world[None])
     np.testing.assert_array_equal(a.th, b.th)
+
+
+def test_cold_taskspace_request_equals_the_warm_one_at_rest():
+    """Repaired fault (F1): a cold task-space request is seeded with the arm
+    held at its start, so it equals the request seeded at rest bit for bit;
+    in a warm batch, a row without a seed gets the same seed on the host."""
+    _, ta = taskspace_pair(t=10, iters=6)
+    reqs = taskspace_requests(n=2, seed=8)
+    rested = at_rest(ta, reqs)
+    svc = tserve.PlanningService(ta, batch_size=2)
+    cold = svc.plan_batch_sync(reqs)
+    warm = svc.plan_batch_sync(rested)
+    mixed = svc.plan_batch_sync([reqs[0], rested[1]])
+    for a, b, c in zip(cold, warm, mixed):
+        np.testing.assert_array_equal(a.th, b.th)
+        np.testing.assert_array_equal(a.th, c.th)
+        assert a.err_init == b.err_init == c.err_init
+        assert a.err_final == b.err_final < a.err_init
+    seed = ta.cold_seed(torch.tensor(np.stack([r.start for r in reqs])),
+                        None)
+    np.testing.assert_array_equal(seed.numpy(),
+                                  np.stack([r.th_init for r in rested]))
+    assert torch.equal(seed[:, 0], seed[:, -1])
+
+
+MESH8 = [torch.device("cpu")] * 8
+
+
+@pytest.mark.parametrize("mode", ["bank", "inline", "warm"])
+def test_sharded_service_matches_unsharded(planners, world, mode):
+    """A mesh of 8 repeated CPU devices (JAX's 8 virtual CPU devices) plans
+    one row per shard; every response equals the unsharded service's to
+    1e-12 (tests/test_serve.py:290-310), 5 requests padded to 8."""
+    from dgpmp2_tpu_torch.parallel.sharding import make_mesh
+
+    mesh = make_mesh(MESH8)
+    plain = tserve.PlanningService(planners[1], batch_size=8)
+    sharded = tserve.PlanningService(planners[1], batch_size=8, mesh=mesh)
+    # A world of its own for each request: the obstacle moved along x.
+    worlds = [np.roll(world, 3 * i, axis=1) for i in range(5)]
+    for svc in (plain, sharded):
+        for i, w in enumerate(worlds):
+            svc.register_world(f"w{i}", w)
+    reqs = requests(None, 5)
+    for i, r in enumerate(reqs):
+        if mode == "bank":
+            r.world = f"w{i}"
+        else:
+            r.sdf = worlds[i]
+    if mode == "warm":
+        for r, c in zip(reqs, plain.plan_batch_sync(reqs)):
+            r.th_init = c.th
+    a, b = plain.plan_batch_sync(reqs), sharded.plan_batch_sync(reqs)
+    assert_responses_match(b, a, tol=1e-12)
+    assert len(sharded._shards) == 8 and sharded._banks.keys() == {
+        torch.device("cpu")}
+    assert sharded.stats["batches"] == 1
+
+
+def test_sharded_service_refuses_a_batch_the_mesh_does_not_divide(planners):
+    from dgpmp2_tpu_torch.parallel.sharding import make_mesh
+
+    with pytest.raises(ValueError, match="not divisible by mesh size 8"):
+        tserve.PlanningService(planners[1], batch_size=6,
+                               mesh=make_mesh(MESH8))
+    with pytest.raises(ValueError, match="mesh size 2"):
+        tserve.PlanningService(planners[1], batch_size=255,
+                               mesh=make_mesh(MESH8[:2]))
+
+
+def test_sharded_multistart_splits_one_host_pool(world, monkeypatch):
+    """The RRT*-seeded multistart adapter on a mesh of 2: one host pool
+    for the whole batch, split with it; the plans equal the unsharded
+    service's."""
+    from dgpmp2_tpu_torch.parallel.sharding import make_mesh
+
+    _, ta = multistart_pair(2, rrt_seeds=1, **RRT)
+    plain = tserve.PlanningService(ta, batch_size=4)
+    sharded = tserve.PlanningService(ta, batch_size=4,
+                                     mesh=make_mesh(MESH8[:2]))
+    calls = []
+    pool = sharded._host_seeds
+    monkeypatch.setattr(sharded, "_host_seeds",
+                        lambda s, g, sdf: calls.append(len(s)) or pool(
+                            s, g, sdf))
+    reqs = requests(world, 3)
+    assert_responses_match(sharded.plan_batch_sync(reqs),
+                           plain.plan_batch_sync(reqs), tol=1e-12)
+    assert calls == [3]
+
+
+@pytest.mark.parametrize("kind", ["learned", "multistart"])
+def test_a_mesh_of_two_devices_plans_on_planner_replicas(world, kind):
+    """``cpu`` and ``cpu:0`` are two entries the service tells apart: the
+    second shard plans on a replica of the adapter (its modules copied, its
+    tensors and wrapped planner moved) with a bank of its own, and the
+    responses equal the unsharded service's to 1e-12."""
+    from chip_smoke import EPS_BOUNDED
+    from dgpmp2_tpu_torch.parallel.sharding import make_mesh
+
+    if kind == "learned":
+        _, (pt, vt, *_), _ = learned_pair(EPS_BOUNDED, seed=2, b=3, t=10,
+                                          n=32)
+        adapter = tserve.LearnedPlanningAdapter(
+            pt, vt, dict(COV, cost_sigma=0.05), dtype=F64)
+    else:
+        _, adapter = multistart_pair(4)
+    second = torch.device("cpu", 0)
+    plain = tserve.PlanningService(adapter, batch_size=4)
+    sharded = tserve.PlanningService(adapter, batch_size=4,
+                                     mesh=make_mesh(["cpu", second]))
+    worlds = [np.roll(world, 5 * i, axis=0) for i in range(3)]
+    for svc in (plain, sharded):
+        for i, w in enumerate(worlds):
+            svc.register_world(f"w{i}", w)
+    reqs = requests(None, 3)
+    for i, r in enumerate(reqs):
+        r.world = f"w{i}"
+    assert_responses_match(sharded.plan_batch_sync(reqs),
+                           plain.plan_batch_sync(reqs), tol=1e-12)
+    (d0, p0), (d1, p1) = sharded._shards
+    assert p0 is adapter and p1 is not adapter and p1.device == second
+    assert set(sharded._banks) == {torch.device("cpu"), second}
+    if kind == "learned":
+        assert p1.lplanner is not pt and p1.lplanner.device == second
+        assert p1.variables is not vt
+        for a, b in zip(p1.variables.parameters(), vt.parameters()):
+            assert torch.equal(a, b)
 
 
 def test_serving_modules_import_without_jax():
