@@ -146,7 +146,25 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     128 rows) and on one of every visible card when there are more: 256
     requests by the bank, 256 inline and 200 by the bank (56 pad rows, all
     in the last shard) bit-equal to the unsharded service; batch 255 on a
-    mesh of two entries refused.
+    mesh of two entries refused;
+16. mesh execution, on entries of the one card: (a) the campaign's head
+    (Linear 2250→1000→640→302, B=128) tensor-parallel over (1, 2) and
+    (1, 4) meshes (``models.cov_head.TensorParallelHead``): forward and
+    every gradient within 1e-12 of the replicated head in float64, the
+    float32 gap stated; (b) one eps_bounded training step (B=128, 128²,
+    T=100, unroll 10 in windows of 5) through ``make_train_step(mesh=)``
+    on (2, 1) and (2, 2) meshes: in float64 (SGD, the head decoded in
+    float64) metrics, every updated weight and gradient within 1e-10 of
+    the unsharded step, the replicas bit-equal, launches the unsharded
+    step's times the data shards; in float32 (Adam) ms per step, sharded
+    and unsharded, median of 5; (c) two child processes of this script
+    (``--mesh-process``), joined through gloo on the card
+    (``make_multihost_mesh``, dcn = 2), each planning its 512 rows of the
+    phase 5 bench through ``core.gn.plan`` and ``gather_batch``, against
+    the one-process plan (float32 gap stated, float64 within 1e-10), then
+    one float64 data-parallel training step at B=64 across them (the head
+    split over two entries in each) within 1e-10 of the one-process step,
+    the weights equal on both.
 
 Every time printed carries the card's name and power limit.
 
@@ -177,7 +195,7 @@ GOLDEN = ROOT / "tests" / "goldens" / "torch_port_plan_small.npz"
 GOLDEN3D = ROOT / "tests" / "goldens" / "torch_port_plan3d_small.npz"
 GOLDEN_EXT = ROOT / "tests" / "goldens" / "torch_port_plan_ext_small.npz"
 GOLDEN_LEARNED = ROOT / "tests" / "goldens" / "torch_port_learned_small.npz"
-CONFIGS = ROOT / "dgpmp2_tpu" / "configs"
+CONFIGS = ROOT / "dgpmp2_tpu_torch" / "configs"
 B, T, IMSIZE, VOX = 1024, 100, 128, 64
 LIMS = (-5.0, 5.0)
 KERNELS = ("btd_solve", "sdf_lookup", "sdf_lookup3d", "sdf_lookup_limbs",
@@ -3548,6 +3566,427 @@ def oracle_envs_capture_mesh(dev, smi, bench_np):
     sharded_service(dev, smi)
 
 
+# -- phase 16: mesh execution ---------------------------------------------------
+
+# The meshes of (b), (data, model) entries of the one card; (a) splits the
+# head over (1, 2) and (1, 4).
+MESH_TRAIN = ((2, 1), (2, 2))
+MESH_TP = (2, 4)
+MESH_STEP_REPS = 5
+# (c): two processes on the card through gloo, each planning its half of
+# the phase 5 bench and taking its half of a float64 step at batch 64.
+PROC_WORLD, PROC_TRAIN_B, PROC_TIMEOUT_S = 2, 64, 120
+# The campaign's eps_bounded losses (eps_bounded_learn), a small imitation
+# term added so that final_pos_mse moves too.
+MESH_WEIGHTS = dict(ext_loss_weight=1.0, ext_obs_lambda=5.0,
+                    pos_loss_weight=0.1, vel_loss_lambda=0.1)
+MESH_COV = dict(qc_inv=np.eye(2), cost_sigma=0.01, epsilon_dist=0.4,
+                k_s=0.01, k_g=0.01)
+
+
+def mesh_of(dev, data, mp):
+    """A (data, model) mesh of ``data * mp`` entries of ``dev``."""
+    from dgpmp2_tpu_torch.parallel.sharding import make_mesh
+
+    return make_mesh([dev] * (data * mp), model_parallel=mp)
+
+
+def rel_max(a, b):
+    """The largest |a - b| over the largest |b|."""
+    a, b = a.detach(), b.detach()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def tp_head(dev, smi, b=TRAIN_B):
+    """16 (a): the campaign's head (Linear 2250→1000→640→302, random
+    weights about the static init) on the card, replicated and
+    tensor-parallel over (1, 2) and (1, 4) meshes of entries of it: the
+    forward and every parameter's gradient (reduced and joined) against the
+    replicated head's, within 1e-12 relative in float64; the largest gap
+    in float32 stated."""
+    import copy
+
+    from dgpmp2_tpu_torch.models.cov_head import TensorParallelHead
+    from dgpmp2_tpu_torch.parallel import sharding as sh
+
+    _, variables, _, th0, _, _ = learned_setup(
+        dev, *bench_inputs(2), dtype=torch.float64, weights_seed=16)
+    rng = np.random.default_rng(16)
+    head64 = variables["head"]
+    n_in = head64.dense[0].in_features
+    pos_len = 2 * th0.shape[1]
+    x = [torch.tensor(rng.standard_normal((b, n)), device=dev)
+         for n in (n_in - pos_len, pos_len)]
+    cot = torch.tensor(rng.standard_normal((b, head64.out.out_features)),
+                       device=dev)
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, None)):
+        head = copy.deepcopy(head64).to(dtype)
+        feats, pos, c = (t.to(dtype) for t in (*x, cot))
+        want = head(feats, pos)
+        (want * c).sum().backward()
+        grads = {n: p.grad for n, p in head.named_parameters()}
+        for mp in MESH_TP:
+            sp = sh.shard_params(torch.nn.ModuleDict({"head": head}),
+                                 mesh_of(dev, 1, mp))
+            tp = TensorParallelHead([s["head"] for s in sp.group(0)])
+            got = tp(feats, pos)
+            (got * c).sum().backward()
+            sh.reduce_grads(sp)
+            joined = sh.join_params(sp)["head"]
+            errs = {"forward": rel_max(got, want)}
+            errs.update({n: rel_max(p.grad, grads[n])
+                         for n, p in joined.named_parameters()})
+            worst = max(errs, key=errs.get)
+            print(f"[{smi}] 16 (a) tensor-parallel head (B={b}, "
+                  f"{n_in}->1000->640->{head.out.out_features}) on a (1, "
+                  f"{mp}) mesh of the card, {str(dtype)[6:]}: forward and "
+                  f"{len(errs) - 1} gradients against the replicated head, "
+                  f"max rel err {errs[worst]:.3e} at {worst}"
+                  + (f" (tol {tol:g})" if tol else " (stated)"))
+            if tol is not None and not errs[worst] <= tol:
+                raise AssertionError(f"16 (a) mp={mp}: {errs[worst]}")
+
+
+def replicas_equal(state) -> bool:
+    """Every device holding a part of a parameter holds the same bits of
+    it and of its optimizer state."""
+    from dgpmp2_tpu_torch.parallel import sharding as sh
+
+    sp, opt = state.variables, state.opt_state
+    for name in sp.specs:
+        keys = [name] + [k for k in opt.specs if k.startswith(name + ".")]
+        for group in sh.holders(sp, name):
+            for k in group[1:]:
+                if not torch.equal(sp.named(k)[name],
+                                   sp.named(group[0])[name]):
+                    return False
+                if not all(torch.equal(opt.named(k)[key],
+                                       opt.named(group[0])[key])
+                           for key in keys[1:]):
+                    return False
+    return True
+
+
+def mesh_train_batch(dev, b, dtype, seed, t=T):
+    """The eps_bounded planner (random weights about the static init from
+    ``seed``) and a batch of ``b`` bench problems whose expert paths are
+    the seeds plus noise: (planner, variables, batch)."""
+    imgs, start, goal = bench_inputs(b, seed=seed)
+    planner, variables, _, th0, sdf, im = learned_setup(
+        dev, imgs, start, goal, lkw=EPS_BOUNDED, t=t, dtype=dtype,
+        weights_seed=seed)
+    noise = np.random.default_rng(seed).standard_normal(tuple(th0.shape))
+    batch = {"im": im, "sdf": sdf, "start": torch.tensor(start, device=dev),
+             "goal": torch.tensor(goal, device=dev),
+             "th_opt": th0 + 0.1 * torch.tensor(noise, dtype=dtype,
+                                                device=dev),
+             "cov_scalars": MESH_COV}
+    return planner, variables, batch
+
+
+# The optimizer of the float64 comparisons: SGD, whose update is the
+# clipped gradient (as in train_step_card_vs_cpu).  Adam's first step,
+# g / (|g| + 1e-8) per element, turns a gradient's last-bit rounding where
+# |g| ~ 1e-8 into ~1e-12 of its learning rate; it runs the float32 timing.
+MESH_SGD = ("sgd", {"alpha": 0.01})
+MESH_ADAM = ("adam", {"alpha": 3e-4})
+
+
+def train_steps(planner, variables, batch, unroll, tk, mesh=None,
+                opt=MESH_SGD):
+    """A fresh optimizer state (``opt``: name and settings) over a copy of
+    ``variables``, sharded over ``mesh`` when given, and its training step
+    (unroll in windows of ``tk``, remat, clipping at 2)."""
+    import copy
+
+    from dgpmp2_tpu_torch.learn.losses import LossWeights
+    from dgpmp2_tpu_torch.learn.train import (TrainConfig, TrainState,
+                                              make_optimizer,
+                                              make_train_step)
+    from dgpmp2_tpu_torch.parallel import sharding as sh
+
+    v = copy.deepcopy(variables)
+    state = TrainState(0, v, make_optimizer(*opt)(v.parameters()))
+    if mesh is not None:
+        state = sh.shard_state(state, mesh)
+    step = make_train_step(planner, LossWeights(**MESH_WEIGHTS),
+                           TrainConfig(T=unroll, tk=tk), mesh=mesh)
+    return state, step
+
+
+def joined_weights(state) -> dict:
+    """The weights after a step and the gradients that stepped them, by
+    name (``<name>.grad``), a sharded state's joined."""
+    from dgpmp2_tpu_torch.parallel import sharding as sh
+
+    v = state.variables
+    v = sh.join_params(v) if isinstance(v, sh.ShardedParams) else v
+    out = {n: p.detach() for n, p in v.named_parameters()}
+    out.update({f"{n}.grad": p.grad for n, p in v.named_parameters()})
+    return out
+
+
+def step_errors(metrics, weights, want_metrics, want_weights) -> dict:
+    """Relative gaps of a step's metrics, updated weights and gradients
+    (each to its largest entry) from a reference step's."""
+    errs = {k: abs(float(metrics[k]) / float(want_metrics[k]) - 1)
+            for k in want_metrics}
+    errs.update({n: rel_max(w, want_weights[n]) for n, w in weights.items()})
+    return errs
+
+
+def step_verdict(errs, tol):
+    """(the worst metric or weight, the worst gradient, whether the metrics
+    and updated weights are within ``tol`` and the gradients within 10 ×
+    ``tol``): a gradient whose terms cancel over B·H·W (a convolution's
+    bias or a LayerNorm's scale before a LayerNorm) keeps the rounding of a
+    sum over the shard's rows in another order, which phase 16 (c) states
+    (train_step_card_vs_cpu holds gradients at 1e-9 for the same
+    reason)."""
+    grads = {k: v for k, v in errs.items() if k.endswith(".grad")}
+    rest = {k: v for k, v in errs.items() if k not in grads}
+    w, g = max(rest, key=rest.get), max(grads, key=grads.get)
+    return ((w, rest[w]), (g, grads[g]),
+            rest[w] <= tol and grads[g] <= 10 * tol)
+
+
+def sharded_training(dev, smi):
+    """16 (b): one eps_bounded training step (B=TRAIN_B, 128², T=100,
+    unroll 10 in windows of 5, remat, clipping) unsharded and on the (2, 1)
+    and (2, 2) meshes of entries of the card.  In float64 (the head decoded
+    in float64, SGD): loss, grad_norm, final_err, final_pos_mse and every
+    updated weight joined back within 1e-10 of the unsharded step, the
+    gradients within 1e-9 (:func:`step_verdict`), the replicas bit-equal,
+    launches the unsharded step's times the data shards.  In float32 (Adam,
+    as the campaign): ms per step, median of MESH_STEP_REPS, one step
+    profiled, the replicas bit-equal after."""
+    one = train_step_counts(1)
+    ref = None
+    for dtype in (torch.float64, torch.float32):
+        planner, variables, batch = mesh_train_batch(dev, TRAIN_B, dtype, 16)
+        if dtype == torch.float64:
+            decode_in_float64(planner)
+        for shape in (None, *MESH_TRAIN):
+            mesh = None if shape is None else mesh_of(dev, *shape)
+            shards = 1 if shape is None else shape[0]
+            label = "unsharded" if shape is None else f"{shape} mesh"
+            if dtype == torch.float32:
+                state, step = train_steps(planner, variables, batch,
+                                          TRAIN_UNROLL, TRAIN_TK, mesh,
+                                          MESH_ADAM)
+                ms = cuda_ms(lambda: step(state, batch, 0),
+                             reps=MESH_STEP_REPS, warmup=1)
+                _, prof = profile_run(lambda: step(state, batch, 0))
+                same = "" if mesh is None else (
+                    f"; replicas bit-equal after {MESH_STEP_REPS + 3} Adam "
+                    f"steps: {replicas_equal(state)}")
+                print(f"[{smi}] 16 (b) training step, {label} (float32, "
+                      f"Adam, B={TRAIN_B}, {shards} data shard(s) one after "
+                      f"another on the card): {ms:.3f} ms per step (CUDA "
+                      f"events, median of n={MESH_STEP_REPS}); one "
+                      f"profiled step: wall {prof['wall_ms']:.3f} ms, device "
+                      f"busy {prof['busy_ms']:.3f} ms, {prof['ops']} device "
+                      f"launches{same}")
+                if mesh is not None and not replicas_equal(state):
+                    raise AssertionError(f"16 (b) {shape}: replicas differ")
+                continue
+            state, step = train_steps(planner, variables, batch, TRAIN_UNROLL,
+                                      TRAIN_TK, mesh)
+            (state, metrics), _ = drive(
+                f"16 (b) training step, {label} (float64, B={TRAIN_B})",
+                lambda: step(state, batch, 0),
+                {k: v * shards for k, v in one.items()})
+            if shape is None:
+                ref = metrics, joined_weights(state)
+                continue
+            errs = step_errors(metrics, joined_weights(state), *ref)
+            (w, ew), (g, eg), ok = step_verdict(errs, 1e-10)
+            same = replicas_equal(state)
+            print(f"[{smi}] 16 (b) training step on a {shape} mesh of the "
+                  f"card against the unsharded step, float64, SGD: 4 "
+                  f"metrics and {(len(errs) - 4) // 2} updated weight "
+                  f"tensors max rel err {ew:.3e} at {w} (tol 1e-10), their "
+                  f"gradients {eg:.3e} at {g} (tol 1e-9); grad_norm "
+                  f"{float(metrics['grad_norm']):.6g}; replicas bit-equal: "
+                  f"{same}")
+            if not (ok and same):
+                raise AssertionError(f"16 (b) {shape}: {errs}, {same}")
+
+
+def mesh_process(rank, world, port, dev, b=B, t=T, iters=50,
+                 train_b=PROC_TRAIN_B, unroll=TRAIN_UNROLL, tk=TRAIN_TK,
+                 tol64=1e-10, timeout_s=PROC_TIMEOUT_S):
+    """16 (c) in process ``rank`` of ``world``, joined through gloo at
+    tcp://localhost:``port`` on ``dev`` (``make_multihost_mesh``: dcn =
+    world): ``core.gn.plan`` of this process's rows of the phase 5 bench
+    (``b`` problems, ``iters`` iterations) gathered over the processes,
+    against the whole batch planned here, float32 (the gap stated) and
+    float64 (within ``tol64``); then one float64 data-parallel training
+    step over the processes (``train_b`` problems, the head split over two
+    entries of ``dev`` in each) against the one-process step within
+    ``tol64`` (its gradients within 10 × ``tol64``: :func:`step_verdict`),
+    the weights bit-equal on every process.  A collective that
+    waits ``timeout_s`` raises.  Prints one line ``mesh_process {json}``
+    with its launches."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from dgpmp2_tpu_torch.core import gn
+    from dgpmp2_tpu_torch.parallel import sharding as sh
+
+    mods = counters()
+
+    def counted(run):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        for m in mods.values():
+            m.launches = 0
+        out = run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return out, {k: m.launches for k, m in mods.items()}
+
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    try:
+        mesh = sh.make_multihost_mesh(devices=[dev])
+        cfg = gn.OptimConfig(reg=0.1, max_iters=iters, tol_delta=0.0)
+        imgs, start, goal = bench_inputs(b)
+        rec = {"rank": rank, "mesh": mesh.shape, "launches": {}}
+        for dtype in (torch.float32, torch.float64):
+            spec, robot, params, th0, sdf = port_problem(imgs, start, goal,
+                                                         dev, dtype, t)
+            want = gn.plan(spec, robot, params, th0, sdf, cfg).th
+
+            def run():
+                shards = sh.shard_batch((params, th0, sdf), mesh)
+                return sh.gather_batch([gn.plan(spec, robot, *s, cfg).th
+                                        for s in shards], mesh=mesh)
+
+            got, counts = counted(run)
+            rec[f"plan_{str(dtype)[6:]}_max_abs_gap"] = float(
+                (got - want).abs().max())
+            rec["launches"][f"plan_{str(dtype)[6:]}"] = counts
+            if dtype == torch.float64 and not rel_max(got, want) <= tol64:
+                raise AssertionError(f"process {rank}: float64 plan "
+                                     f"{rel_max(got, want)}")
+        planner, variables, batch = mesh_train_batch(dev, train_b,
+                                                     torch.float64, 5, t)
+        decode_in_float64(planner)
+        state, step = train_steps(planner, variables, batch, unroll, tk)
+        state, want_m = step(state, batch, 0)
+        want_w = joined_weights(state)
+        mesh2 = sh.make_multihost_mesh(2, devices=[dev, dev])
+        state, step = train_steps(planner, variables, batch, unroll, tk,
+                                  mesh2)
+        (state, metrics), counts = counted(lambda: step(state, batch, 0))
+        rec["launches"]["train_step"] = counts
+        (w, ew), (g, eg), ok = step_verdict(
+            step_errors(metrics, joined_weights(state), want_m, want_w),
+            tol64)
+        flat = torch.cat([w.reshape(-1) for w in
+                          joined_weights(state).values()])
+        every = sh.process_all_gather(flat[None], mesh2)
+        rec.update(train_max_rel_err=ew, train_worst=w,
+                   train_grad_max_rel_err=eg, train_grad_worst=g,
+                   weights_equal_on_every_process=bool(
+                       (every == every[0]).all()),
+                   replicas_equal=replicas_equal(state),
+                   train_mesh=mesh2.shape)
+        if not (ok and rec["replicas_equal"]
+                and rec["weights_equal_on_every_process"]):
+            raise AssertionError(f"process {rank}: training step {rec}")
+        print("mesh_process " + json.dumps(rec), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def process_split(dev, smi):
+    """16 (c): :func:`mesh_process` in PROC_WORLD child processes of this
+    script on the card (the kernels built here first: two builds into
+    ``dgpmp2_tpu_torch/build/`` at once could clobber each other), each
+    with a timeout; a child that fails or times out fails the phase.  Their
+    launches join the kernels line: per process, the plan's iterations
+    (K-BTD) and iterations + 1 (K-LOOKUP) for each dtype, and one
+    training step of its rows."""
+    import socket
+
+    from dgpmp2_tpu_torch.ops.cuda import _build
+
+    _build.library()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    logs = [ROOT / "build" / f"mesh_process_{r}.log"
+            for r in range(PROC_WORLD)]
+    logs[0].parent.mkdir(parents=True, exist_ok=True)
+    procs = []
+    try:
+        for r, log in enumerate(logs):
+            with open(log, "w") as fp:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--mesh-process", str(r), str(PROC_WORLD), str(port)],
+                    stdout=fp, stderr=subprocess.STDOUT, cwd=ROOT))
+        deadline = time.monotonic() + PROC_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = []
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        text = log.read_text()
+        line = [x for x in text.splitlines()
+                if x.startswith("mesh_process ")]
+        if p.returncode != 0 or len(line) != 1:
+            raise AssertionError(f"16 (c) process {r} exited "
+                                 f"{p.returncode}:\n{text[-4000:]}")
+        recs.append(json.loads(line[0][len("mesh_process "):]))
+    per_plan = {"btd_solve": 50, "sdf_lookup": 51}
+    per_step = train_step_counts(1)
+    for rec in recs:
+        want = {"plan_float32": per_plan, "plan_float64": per_plan,
+                "train_step": per_step}
+        for run, counts in rec["launches"].items():
+            expect = {k: want[run].get(k, 0) for k in counts}
+            print(f"16 (c) process {rec['rank']}, {run} launches "
+                  f"{json.dumps(counts)}, expected {json.dumps(expect)}")
+            if counts != expect:
+                raise AssertionError(f"16 (c) {run}: {counts}")
+            for k in KERNELS:
+                TOTALS[k] += counts[k]
+        print(f"[{smi}] 16 (c) process {rec['rank']} of {PROC_WORLD} (mesh "
+              f"{rec['mesh']}, gloo on the one card): its {B // PROC_WORLD} "
+              f"rows of the B={B} bench gathered against the one-process "
+              f"plan, max |gap| float32 {rec['plan_float32_max_abs_gap']:.3e}"
+              f", float64 {rec['plan_float64_max_abs_gap']:.3e}; a float64 "
+              f"training step (B={PROC_TRAIN_B}, mesh {rec['train_mesh']}) "
+              f"against the one-process step: metrics and updated weights "
+              f"max rel err {rec['train_max_rel_err']:.3e} at "
+              f"{rec['train_worst']} (tol 1e-10), gradients "
+              f"{rec['train_grad_max_rel_err']:.3e} at "
+              f"{rec['train_grad_worst']} (tol 1e-9), weights equal on "
+              f"every process "
+              f"{rec['weights_equal_on_every_process']}, replicas "
+              f"{rec['replicas_equal']}")
+
+
+def mesh_execution(dev, smi):
+    """Phase 16: (a) the tensor-parallel head, (b) the sharded training
+    step, (c) planning and a training step across processes."""
+    phase("16 mesh execution: (a) the tensor-parallel head")
+    tp_head(dev, smi)
+    phase("16 (b) the sharded training step")
+    sharded_training(dev, smi)
+    phase("16 (c) planning and a training step across processes")
+    process_split(dev, smi)
+
+
 def _leaves(tree, path=""):
     """(path, array) of each leaf of a nested dict, in sorted key order."""
     if isinstance(tree, dict):
@@ -3603,6 +4042,7 @@ def main():
     training(dev, smi, recs["sdf_lookup_bwd"], data)
     serving(dev, smi)
     oracle_envs_capture_mesh(dev, smi, bench_np)
+    mesh_execution(dev, smi)
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
     for rec in recs.values():
@@ -3622,4 +4062,8 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-process"]:
+        # A child of phase 16 (c): rank, world size, port.
+        mesh_process(*map(int, sys.argv[2:5]), torch.device("cuda", 0))
+    else:
+        main()

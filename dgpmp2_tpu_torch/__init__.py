@@ -7,7 +7,9 @@ kernels for NVIDIA Hopper (``csrc/``) beside plain PyTorch versions.  The
 port covers the planners (``DiffGPMP2Planner``, ``GPMP2Planner``), every
 robot and factor of the JAX package in 2-D and 3-D workspaces, batched
 multistart, the learned planner and its training, data generation and
-serving (``serve``, sharded over a device mesh by ``parallel.sharding``),
+serving, each sharded over a device mesh by ``parallel.sharding`` (the
+learned head tensor-parallel, a data-parallel training step, processes
+joined by ``torch.distributed``),
 the environments (``envs``), the dense oracle (``core.dense``) and the
 capture timer (``utils.profiling``).
 

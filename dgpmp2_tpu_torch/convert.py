@@ -16,7 +16,10 @@ names map one to one: ``Conv_i`` → ``convs.i``, ``LayerNorm_i`` →
 ``cell{i}/{ir, …}`` → ``cells.i.{ir, …}``, ``ConvEncoder_0`` → ``encoder``.
 Kernels transpose: a Dense (in, out) is a Linear weight (out, in), a conv
 (k…, cin, cout) a (cout, cin, k…) weight; LayerNorm's ``scale`` is
-``weight``.
+``weight``.  Weights sharded over a device mesh
+(``parallel.sharding.ShardedParams``) cross as the same tree of full
+kernels: :func:`learned_sharded_to_flax` joins the slices,
+:func:`learned_sharded_from_flax` loads the tree and shards it.
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ from torch import nn
 
 from dgpmp2_tpu_torch.core.gn import PlanResult
 from dgpmp2_tpu_torch.core.graph import GraphParams
+from dgpmp2_tpu_torch.parallel import sharding
 
 
 def graph_params_from_numpy(arrays: dict, device: torch.device | str,
@@ -180,6 +184,23 @@ def learned_grads_to_flax(variables: nn.ModuleDict) -> dict:
     ``{"conv": {"params": ...}, "head": {"params": ...}}``."""
     return {part: {"params": module_grads_to_flax(variables[part])}
             for part in ("conv", "head")}
+
+
+def learned_sharded_to_flax(sharded: "sharding.ShardedParams") -> dict:
+    """Sharded learned-planner weights as the JAX package's flax variable
+    tree of full kernels (the slices joined on the CPU,
+    ``sharding.join_params``)."""
+    return learned_state_to_flax(sharding.join_params(sharded, "cpu"))
+
+
+def learned_sharded_from_flax(variables_np: dict, planner, im_stack, th,
+                              mesh: "sharding.Mesh"
+                              ) -> "sharding.ShardedParams":
+    """The inverse of :func:`learned_sharded_to_flax`: the flax tree loaded
+    into ``planner``'s network (``load_variables`` for ``im_stack`` and
+    ``th``) and sharded over ``mesh``."""
+    return sharding.shard_params(planner.load_variables(
+        learned_state_from_flax(variables_np), im_stack, th), mesh)
 
 
 def seeded_flax_tree(shapes: dict, seed: int, out_path=None, out_bias=None,

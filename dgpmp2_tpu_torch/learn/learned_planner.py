@@ -31,9 +31,17 @@ from the ``rng`` handed to :meth:`LearnedDiffGPMP2Planner.predict` /
 :meth:`~LearnedDiffGPMP2Planner.step`: a ``torch.Generator`` or masks drawn
 beforehand (``FeedForwardHead.dropout_masks``), as the JAX package's
 ``step(..., train=True, rng=...)``.  Without ``train`` there is no dropout.
+
+On a device mesh the weights are ``parallel.sharding.ShardedParams``
+(``shard_params`` of ``variables``): :meth:`LearnedDiffGPMP2Planner.plan`
+splits the batch's rows over the mesh's data shards (and processes), runs
+each shard's plan on its data row (:func:`row_variables`: the encoder and
+decode on the row's first device, the feed-forward head tensor-parallel
+over the row's model devices) and gathers the plans.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Optional
@@ -48,9 +56,11 @@ from dgpmp2_tpu_torch.models.conv_encoder import (ConvEncoder, ConvEncoder3D,
                                                   normalize_im)
 from dgpmp2_tpu_torch.models.cov_head import (Dropout, FeedForwardHead,
                                               RecurrentHead,
+                                              TensorParallelHead,
                                               traj_positions_flat)
 from dgpmp2_tpu_torch.ops import sdf as sdf_ops
 from dgpmp2_tpu_torch.ops import tridiag
+from dgpmp2_tpu_torch.parallel import sharding
 from dgpmp2_tpu_torch.utils.tree import tree_map
 
 
@@ -111,6 +121,13 @@ class LearnedDiffGPMP2Planner:
     @property
     def recurrent(self) -> bool:
         return self.learn_cfg.model_type != "feed_forward"
+
+    def replica(self, device) -> "LearnedDiffGPMP2Planner":
+        """This planner on ``device`` (it holds no tensors: a shallow copy
+        whose tensors are made there)."""
+        rep = copy.copy(self)
+        rep.device = torch.device(device)
+        return rep
 
     def static_out_bias(self, qc_inv_scalar, cost_sigma, eps=0.4):
         """Head-output bias reproducing the static covariances at init.
@@ -340,11 +357,19 @@ class LearnedDiffGPMP2Planner:
         ``return_final``.
 
         ``track_best`` returns the best non-colliding iterate by GP-MSE,
-        judged under the fixed ``params_fix``, where there is one.  Under
+        judged under the fixed ``params_fix``, where there is one.
+        ``variables`` may be ``parallel.sharding.ShardedParams``: the rows
+        then split evenly over the mesh's data shards, every process given
+        the whole batch, and the plan comes back whole on the mesh's first
+        device of every process.  Under
         ``cfg.method == "lm"`` each problem keeps a lambda (×10 on a
         rejected step, ÷10 on an accepted one), both errors of the test
         taken under this iteration's predicted covariances.
         """
+        if isinstance(variables, sharding.ShardedParams):
+            return self._plan_sharded(variables, params_fix, th_init, sdf, im,
+                                      max_iters, hidden, track_best,
+                                      return_final)
         spec, robot = self.spec, self.robot
         iters = max_iters or self.cfg.max_iters
         lm = self.cfg.method == "lm"
@@ -405,6 +430,23 @@ class LearnedDiffGPMP2Planner:
 
         out = (th, trace(errs), trace(errs_ext), hidden)
         return out + (th_final,) if return_final else out
+
+    def _plan_sharded(self, sharded, params_fix, th_init, sdf, im,
+                      max_iters, hidden, track_best, return_final):
+        """:meth:`plan` of each data shard's rows on its data row, the
+        outputs gathered (the error traces along their batch axis)."""
+        mesh = sharded.mesh
+        shards = sharding.shard_batch((params_fix, th_init, sdf, im, hidden),
+                                      mesh)
+        outs = []
+        for i, (dev, (p, th, s, m, hid)) in enumerate(
+                zip(mesh.data_devices(), shards)):
+            th, errs, errs_ext, *rest = self.replica(dev).plan(
+                row_variables(sharded, i), p, th, s, m, max_iters=max_iters,
+                hidden=hid, track_best=track_best, return_final=return_final)
+            outs.append((th, errs.T, errs_ext.T, *rest))
+        th, errs, errs_ext, *rest = sharding.gather_batch(outs, mesh=mesh)
+        return (th, errs.T, errs_ext.T, *rest)
 
     def plan_multistart(self, variables, params_fix: graph_lib.GraphParams,
                         th_init, sdf, im, generator: torch.Generator,
@@ -487,3 +529,17 @@ class LearnedDiffGPMP2Planner:
         return select_best(self.spec, self.robot, pool,
                            torch.cat([sdf_k, sdf_k], dim=0), 2 * keep, b,
                            contact_weight=contact_weight)
+
+
+def row_variables(sharded: sharding.ShardedParams, row: int) -> nn.ModuleDict:
+    """Data row ``row``'s view of the sharded weights of a learned planner
+    (``parallel.sharding.shard_params`` of its ``variables``), used as
+    ``variables``: the encoder of the row's first device, and the head as a
+    :class:`~dgpmp2_tpu_torch.models.cov_head.TensorParallelHead` over the
+    row's model devices (with one model device, or for a recurrent head,
+    which has no split, its first device's replica)."""
+    group = sharded.group(row)
+    head = group[0]["head"]
+    if isinstance(head, FeedForwardHead) and len(group) > 1:
+        head = TensorParallelHead([g["head"] for g in group])
+    return nn.ModuleDict({"conv": group[0]["conv"], "head": head})

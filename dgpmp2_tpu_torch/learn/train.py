@@ -29,6 +29,11 @@ checkpointed window's recompute and the sliding path's recompute see the
 masks of the first pass.  The port updates the weights and the optimizer
 state in place; ``TrainState.step`` counts the steps.
 
+On a device mesh (``make_train_step(mesh=)``) the step is data-parallel
+over a ``parallel.sharding.ShardedState``, the feed-forward head
+tensor-parallel inside each data row, and equals the unsharded step to
+rounding (:func:`_sharded_step`).
+
 Where the JAX package fixes float32 for the fixed covariances and the seed
 trajectory, the port takes the planner's ``learn_cfg.dtype`` (float32 in the
 shipped configurations), so that a float64 planner trains in float64.
@@ -205,69 +210,56 @@ def _step_loss(spec, robot, params_fix, geom_new, dth, th, th_new, th_opt,
                          spec.dof, r_obs=res.r_obs)
 
 
-def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
-                    train_cfg: TrainConfig):
-    """The training step ``train_step(state, batch, seed) -> (state,
-    metrics)``.
+class _Unroll:
+    """The unrolled GN steps of a training step on one planner (and so one
+    device): the batch's inputs there, the windows of ``tk`` steps, their
+    losses and the final metrics.  A sharded step has one a data shard."""
 
-    ``batch``: ``im`` (B, *spatial), ``sdf`` (B, *spatial), ``start`` /
-    ``goal`` (B, D), ``th_opt`` (B, T+1, D) tensors and ``cov_scalars``
-    (the keywords of ``graph.default_params``).  ``seed`` with the state's
-    step seeds the dropout masks.  Metrics (0-d tensors): ``loss``,
-    ``final_err``, ``final_pos_mse`` and, when clipping, ``grad_norm``.
-    """
-    spec, robot = planner.spec, planner.robot
-    n_chunks = train_cfg.T // train_cfg.tk
-    if n_chunks * train_cfg.tk != train_cfg.T:
-        raise ValueError("tk must divide T")
-    sliding = train_cfg.tk2 is not None
-    if sliding and train_cfg.tk2 < train_cfg.tk:
-        raise ValueError("tk2 must be >= tk")
-    lm = planner.cfg.method == "lm"
-    if lm and (sliding or train_cfg.optimize_tk):
-        raise NotImplementedError(
-            "method='lm' training supports the chunked tk path only "
-            "(unset tk2 / optimize_tk)")
-    if train_cfg.optimize_tk and sliding:
-        raise ValueError("optimize_tk does not compose with sliding tk2")
-    tk, dtype = train_cfg.tk, planner.learn_cfg.dtype
-    denom = tk if train_cfg.use_inter_loss else 1
+    def __init__(self, planner: LearnedDiffGPMP2Planner, weights: LossWeights,
+                 train_cfg: TrainConfig):
+        self.planner, self.weights, self.cfg = planner, weights, train_cfg
+        self.spec, self.robot = planner.spec, planner.robot
+        self.lm = planner.cfg.method == "lm"
+        self.tk, self.dtype = train_cfg.tk, planner.learn_cfg.dtype
+        self.denom = train_cfg.tk if train_cfg.use_inter_loss else 1
 
-    def prepare(batch):
-        dev = planner.device
+    def prepare(self, batch):
+        spec, dev = self.spec, self.planner.device
         start, goal = batch["start"].to(dev), batch["goal"].to(dev)
-        params_fix = graph.default_params(spec, robot, start, goal,
+        params_fix = graph.default_params(spec, self.robot, start, goal,
                                           **batch["cov_scalars"],
-                                          dtype=dtype)
+                                          dtype=self.dtype)
         th0 = straight_line_traj(start[:, :spec.dof], goal[:, :spec.dof],
                                  spec.total_time_sec,
-                                 spec.total_time_step).to(dtype)
-        sdf = batch["sdf"].to(device=dev, dtype=dtype).contiguous()
-        return (params_fix, th0, sdf, batch["th_opt"].to(dev, dtype),
+                                 spec.total_time_step).to(self.dtype)
+        sdf = batch["sdf"].to(device=dev, dtype=self.dtype).contiguous()
+        return (params_fix, th0, sdf, batch["th_opt"].to(dev, self.dtype),
                 batch["im"].to(dev))
 
-    def features(variables, im, sdf):
+    def features(self, variables, im, sdf):
+        planner = self.planner
         stack = planner.stack_inputs(im, sdf)
         if planner.learn_cfg.fixed_conv:
             with torch.no_grad():
                 return planner.conv_features(variables, stack)
         return planner.conv_features(variables, stack)
 
-    def geometry(th, sdf):
-        return graph.eval_geometry(spec, robot, th, sdf)
+    def geometry(self, th, sdf):
+        return graph.eval_geometry(self.spec, self.robot, th, sdf)
 
-    def window(variables, params_fix, sdf, th_opt, feats, masks, t0, th,
-               geom, hid, dth_prev, lam):
+    def window(self, variables, params_fix, sdf, th_opt, feats, masks, t0,
+               th, geom, hid, dth_prev, lam):
         """tk GN steps from the detached carry, steps t0.. of the unroll:
         (window loss, th, geometry, hidden, dth, lam)."""
+        spec, robot, lm = self.spec, self.robot, self.lm
         loss_acc = 0.0
-        for i in range(tk):
-            dth, err, _, params_used, hid = planner.step(
+        for i in range(self.tk):
+            dth, err, _, params_used, hid = self.planner.step(
                 variables, params_fix, th, sdf, feats, hid, train=True,
                 dth_prev=dth_prev, delta=lam if lm else None,
                 rng=masks[t0 + i], geom=geom)
             th_new = th + dth
-            geom_new = geometry(th_new, sdf)
+            geom_new = self.geometry(th_new, sdf)
             if lm:
                 # The moving-surface accept test of the LM plan: both
                 # errors under this iteration's predicted covariances.
@@ -281,45 +273,48 @@ def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
                                   torch.zeros_like(dth))
                 lam = torch.where(accept, lam / 10.0, lam * 10.0)
                 geom_new = graph.select(accept, geom_new, geom)
-            if train_cfg.use_inter_loss or i == tk - 1:
+            if self.cfg.use_inter_loss or i == self.tk - 1:
                 loss_acc = loss_acc + _step_loss(
                     spec, robot, params_fix, geom_new, dth, th, th_new,
-                    th_opt, weights).total
+                    th_opt, self.weights).total
             th, dth_prev, geom = th_new, dth, geom_new
-        return loss_acc / denom, th, geom, hid, dth_prev, lam
+        return loss_acc / self.denom, th, geom, hid, dth_prev, lam
 
-    def run_window(*args):
-        if train_cfg.remat:
-            return checkpoint(window, *args, use_reentrant=False)
-        return window(*args)
+    def start(self, variables, th0, sdf):
+        """The carry before the first window: (th, geometry, hidden,
+        dth)."""
+        return (th0, self.geometry(th0, sdf),
+                self.planner.init_hidden(variables, th0.shape[0]),
+                torch.zeros_like(th0))
 
-    def chunked_losses(variables, params_fix, th0, sdf, th_opt, feats,
+    def chunked_losses(self, variables, params_fix, th0, sdf, th_opt, feats,
                        masks):
-        b = th0.shape[0]
-        th, hid = th0, planner.init_hidden(variables, b)
-        geom = geometry(th0, sdf)
-        dth_prev = torch.zeros_like(th0)
-        lam = torch.full((b,), planner.cfg.lm_lambda_init, dtype=th0.dtype,
-                         device=th0.device)
+        tk = self.tk
+        th, geom, hid, dth_prev = self.start(variables, th0, sdf)
+        lam = torch.full((th0.shape[0],), self.planner.cfg.lm_lambda_init,
+                         dtype=th0.dtype, device=th0.device)
         losses = []
-        for k in range(n_chunks):
-            loss, th, geom, hid, dth_prev, lam = run_window(
-                variables, params_fix, sdf, th_opt, feats, masks, k * tk,
-                th.detach(), _detach_geometry(geom),
-                tree_map(torch.detach, hid), dth_prev.detach(), lam)
+        for k in range(self.cfg.T // tk):
+            args = (variables, params_fix, sdf, th_opt, feats, masks, k * tk,
+                    th.detach(), _detach_geometry(geom),
+                    tree_map(torch.detach, hid), dth_prev.detach(), lam)
+            loss, th, geom, hid, dth_prev, lam = (
+                checkpoint(self.window, *args, use_reentrant=False)
+                if self.cfg.remat else self.window(*args))
             losses.append(loss)
         return losses, th.detach(), _detach_geometry(geom)
 
-    def sliding_losses(variables, params_fix, th0, sdf, th_opt, feats,
+    def sliding_losses(self, variables, params_fix, th0, sdf, th_opt, feats,
                        masks):
-        tk2 = train_cfg.tk2
+        planner, cfg, tk = self.planner, self.cfg, self.tk
+        tk2 = cfg.tk2
         # The rollout with no gradient: each step's start state.
         ths, hids, dths, geoms = [], [], [], []
         th, hid = th0, planner.init_hidden(variables, th0.shape[0])
         dth_prev = torch.zeros_like(th0)
         with torch.no_grad():
-            geom = geometry(th0, sdf)
-            for t in range(train_cfg.T):
+            geom = self.geometry(th0, sdf)
+            for t in range(cfg.T):
                 ths.append(th)
                 hids.append(hid)
                 dths.append(dth_prev)
@@ -328,7 +323,7 @@ def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
                     variables, params_fix, th, sdf, feats, hid, train=True,
                     dth_prev=dth_prev, rng=masks[t], geom=geom)
                 th = th + dth_prev
-                geom = geometry(th, sdf)
+                geom = self.geometry(th, sdf)
 
         def window_k(k):
             t_end = (k + 1) * tk  # exclusive: the loss step is t_end - 1
@@ -342,22 +337,28 @@ def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
                     variables, params_fix, th, sdf, feats, hid, train=True,
                     dth_prev=dth_prev, rng=masks[s + j], geom=geom)
                 th_new = th + dth
-                geom_new = geometry(th_new, sdf)
+                geom_new = self.geometry(th_new, sdf)
                 # The loss steps (the window's trailing tk) all have s+j>=0.
-                if (train_cfg.use_inter_loss and j >= tk2 - tk) or (
-                        j == tk2 - 1):
+                if (cfg.use_inter_loss and j >= tk2 - tk) or (j == tk2 - 1):
                     loss_acc = loss_acc + _step_loss(
-                        spec, robot, params_fix, geom_new, dth, th, th_new,
-                        th_opt, weights).total
+                        self.spec, self.robot, params_fix, geom_new, dth, th,
+                        th_new, th_opt, self.weights).total
                 th, dth_prev, geom = th_new, dth, geom_new
-            return loss_acc / denom
+            return loss_acc / self.denom
 
         losses = [checkpoint(window_k, k, use_reentrant=False)
-                  if train_cfg.remat else window_k(k)
-                  for k in range(n_chunks)]
+                  if cfg.remat else window_k(k)
+                  for k in range(cfg.T // tk)]
         return losses, th, geom
 
-    def final_metrics(params_fix, th, geom, th_opt):
+    def losses(self, variables, params_fix, th0, sdf, th_opt, feats, masks):
+        """The windows' losses, the final iterate and its geometry."""
+        fn = (self.sliding_losses if self.cfg.tk2 is not None
+              else self.chunked_losses)
+        return fn(variables, params_fix, th0, sdf, th_opt, feats, masks)
+
+    def final_metrics(self, params_fix, th, geom, th_opt):
+        spec, robot = self.spec, self.robot
         with torch.no_grad():
             final_err = torch.mean(graph.error_from_residuals(
                 spec, params_fix, graph.residuals_from_geometry(
@@ -365,16 +366,49 @@ def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
             pos_mse = torch.mean((th[..., :2] - th_opt[..., :2]) ** 2)
         return final_err, pos_mse
 
+
+def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
+                    train_cfg: TrainConfig, mesh=None):
+    """The training step ``train_step(state, batch, seed) -> (state,
+    metrics)``.
+
+    ``batch``: ``im`` (B, *spatial), ``sdf`` (B, *spatial), ``start`` /
+    ``goal`` (B, D), ``th_opt`` (B, T+1, D) tensors and ``cov_scalars``
+    (the keywords of ``graph.default_params``).  ``seed`` with the state's
+    step seeds the dropout masks.  Metrics (0-d tensors): ``loss``,
+    ``final_err``, ``final_pos_mse`` and, when clipping, ``grad_norm``.
+
+    With ``mesh`` (``parallel.sharding.make_mesh`` or
+    ``make_multihost_mesh``) the step is data-parallel over a
+    ``parallel.sharding.ShardedState`` (``shard_state``) and equals the
+    unsharded step to rounding (:func:`_sharded_step`).
+    """
+    n_chunks = train_cfg.T // train_cfg.tk
+    if n_chunks * train_cfg.tk != train_cfg.T:
+        raise ValueError("tk must divide T")
+    sliding = train_cfg.tk2 is not None
+    if sliding and train_cfg.tk2 < train_cfg.tk:
+        raise ValueError("tk2 must be >= tk")
+    if planner.cfg.method == "lm" and (sliding or train_cfg.optimize_tk):
+        raise NotImplementedError(
+            "method='lm' training supports the chunked tk path only "
+            "(unset tk2 / optimize_tk)")
+    if train_cfg.optimize_tk and sliding:
+        raise ValueError("optimize_tk does not compose with sliding tk2")
+    if mesh is not None:
+        return _sharded_step(planner, weights, train_cfg, mesh)
+    u = _Unroll(planner, weights, train_cfg)
+    tk = train_cfg.tk
+
     def train_step(state: TrainState, batch, seed: int):
         variables, optimizer = state.variables, state.optimizer
-        params_fix, th0, sdf, th_opt, im = prepare(batch)
+        params_fix, th0, sdf, th_opt, im = u.prepare(batch)
         masks = dropout_masks(planner, variables, th0.shape[0], seed,
                               state.step, train_cfg.T)
         optimizer.zero_grad(set_to_none=True)
-        feats = features(variables, im, sdf)
-        losses_fn = sliding_losses if sliding else chunked_losses
-        losses, th, geom = losses_fn(variables, params_fix, th0, sdf, th_opt,
-                                     feats, masks)
+        feats = u.features(variables, im, sdf)
+        losses, th, geom = u.losses(variables, params_fix, th0, sdf, th_opt,
+                                    feats, masks)
         total = torch.stack(losses).mean()
         total.backward()
         zero_missing_grads(variables)
@@ -383,7 +417,7 @@ def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
             metrics["grad_norm"] = clip_by_global_norm(variables,
                                                        train_cfg.clip_val)
         optimizer.step()
-        metrics["final_err"], metrics["final_pos_mse"] = final_metrics(
+        metrics["final_err"], metrics["final_pos_mse"] = u.final_metrics(
             params_fix, th, geom, th_opt)
         return dataclasses.replace(state, step=state.step + 1), metrics
 
@@ -392,19 +426,17 @@ def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
         summed since the batch began, later windows seeing the updated
         weights."""
         variables, optimizer = state.variables, state.optimizer
-        params_fix, th0, sdf, th_opt, im = prepare(batch)
+        params_fix, th0, sdf, th_opt, im = u.prepare(batch)
         masks = dropout_masks(planner, variables, th0.shape[0], seed,
                               state.step, train_cfg.T)
         params = list(variables.parameters())
         gsum = [torch.zeros_like(p) for p in params]
-        th, hid = th0, planner.init_hidden(variables, th0.shape[0])
-        geom = geometry(th0, sdf)
-        dth_prev = torch.zeros_like(th0)
+        th, geom, hid, dth_prev = u.start(variables, th0, sdf)
         losses = []
         for k in range(n_chunks):
             optimizer.zero_grad(set_to_none=True)
-            feats = features(variables, im, sdf)
-            loss, th, geom, hid, dth_prev, _ = window(
+            feats = u.features(variables, im, sdf)
+            loss, th, geom, hid, dth_prev, _ = u.window(
                 variables, params_fix, sdf, th_opt, feats, masks, k * tk,
                 th.detach(), _detach_geometry(geom),
                 tree_map(torch.detach, hid), dth_prev.detach(), None)
@@ -418,8 +450,137 @@ def make_train_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
             optimizer.step()
             losses.append(loss.detach())
         metrics = {"loss": torch.stack(losses).mean()}
-        metrics["final_err"], metrics["final_pos_mse"] = final_metrics(
+        metrics["final_err"], metrics["final_pos_mse"] = u.final_metrics(
             params_fix, th.detach(), _detach_geometry(geom), th_opt)
+        return dataclasses.replace(state, step=state.step + 1), metrics
+
+    return train_step_tk if train_cfg.optimize_tk else train_step
+
+
+def _sharded_step(planner: LearnedDiffGPMP2Planner, weights: LossWeights,
+                  train_cfg: TrainConfig, mesh):
+    """:func:`make_train_step`'s step over a ``ShardedState`` on ``mesh``.
+
+    The batch's rows split over every data shard of the mesh (``dcn`` ×
+    ``data``; ``sharding.row_bounds``, sizes differing by at most one).
+    Each of this process's shards runs the unsharded step's forward and
+    backward on its data row's devices: the encoder, decode and GN steps on
+    the row's first device, the feed-forward head tensor-parallel over its
+    model group (``learned_planner.row_variables``), one after another.
+    What keeps the step the unsharded one:
+
+    * the dropout masks are drawn for the whole batch, as the unsharded
+      step draws them, and each shard takes its rows (the head its column
+      slice);
+    * each shard's loss, a mean over its rows, is weighted by its rows / B
+      before the backward pass, so that the gradients' sum over the shards
+      is the whole batch's; the metrics are reduced the same way;
+    * ``sharding.reduce_grads`` sums the gradients over the devices that
+      hold each part of a parameter, and over processes, before clipping,
+      whose norm counts each slice and replica once
+      (``sharding.clip_grads``);
+    * every device steps its own optimizer on equal gradients, so that the
+      replicas stay equal bit for bit.
+    """
+    from dgpmp2_tpu_torch.learn.learned_planner import row_variables
+    from dgpmp2_tpu_torch.parallel import sharding
+
+    units = [_Unroll(planner.replica(d), weights, train_cfg)
+             for d in mesh.data_devices()]
+    first = mesh.data_devices()[0]
+    tk = train_cfg.tk
+
+    def shards(state, batch, seed):
+        """Per shard of this process: (unroll, variables, inputs, masks,
+        rows / B)."""
+        b = batch["th_opt"].shape[0]
+        views = [row_variables(state.variables, i)
+                 for i in range(len(units))]
+        masks = dropout_masks(planner, views[0], b, seed, state.step,
+                              train_cfg.T)
+        out = []
+        for (lo, hi), u, view in zip(sharding.row_bounds(b, mesh), units,
+                                     views):
+            rows = {k: v[lo:hi] if isinstance(v, torch.Tensor) else v
+                    for k, v in batch.items()}
+            dev = u.planner.device
+            m = [None if mk is None else
+                 tuple(x[lo:hi].to(dev) for x in mk) for mk in masks]
+            out.append((u, view, u.prepare(rows), m, (hi - lo) / b))
+        return out
+
+    def reduced(values):
+        """Each shard's weighted values summed here and over processes."""
+        total = sum(torch.stack(v).to(first) for v in values)
+        return sharding.process_all_reduce(total, mesh).unbind()
+
+    def zero_grad(state):
+        for opt in state.optimizers:
+            opt.zero_grad(set_to_none=True)
+
+    def finish(state):
+        if train_cfg.clip_grad:
+            gnorm = sharding.clip_grads(state.variables, train_cfg.clip_val)
+        else:
+            gnorm = None
+        for opt in state.optimizers:
+            opt.step()
+        return gnorm
+
+    def train_step(state, batch, seed: int):
+        parts = shards(state, batch, seed)
+        zero_grad(state)
+        values = []
+        for u, view, (params_fix, th0, sdf, th_opt, im), masks, w in parts:
+            feats = u.features(view, im, sdf)
+            losses, th, geom = u.losses(view, params_fix, th0, sdf, th_opt,
+                                        feats, masks)
+            total = torch.stack(losses).mean()
+            (total * w).backward()
+            values.append([w * x for x in (total.detach(), *u.final_metrics(
+                params_fix, th, geom, th_opt))])
+        sharding.reduce_grads(state.variables)
+        loss, final_err, pos_mse = reduced(values)
+        metrics = {"loss": loss}
+        gnorm = finish(state)
+        if gnorm is not None:
+            metrics["grad_norm"] = gnorm
+        metrics["final_err"], metrics["final_pos_mse"] = final_err, pos_mse
+        return dataclasses.replace(state, step=state.step + 1), metrics
+
+    def train_step_tk(state, batch, seed: int):
+        parts = shards(state, batch, seed)
+        params = [list(s.parameters()) for s in state.variables.shards]
+        gsum = [[torch.zeros_like(p) for p in ps] for ps in params]
+        carry = [u.start(view, inputs[1], inputs[2])
+                 for u, view, inputs, _, _ in parts]
+        losses = []
+        for k in range(train_cfg.T // tk):
+            zero_grad(state)
+            values = []
+            for i, (u, view, inputs, masks, w) in enumerate(parts):
+                params_fix, _, sdf, th_opt, im = inputs
+                th, geom, hid, dth_prev = carry[i]
+                loss, th, geom, hid, dth_prev, _ = u.window(
+                    view, params_fix, sdf, th_opt, u.features(view, im, sdf),
+                    masks, k * tk, th.detach(), _detach_geometry(geom),
+                    tree_map(torch.detach, hid), dth_prev.detach(), None)
+                (loss * w).backward()
+                carry[i] = (th, geom, hid, dth_prev)
+                values.append([w * loss.detach()])
+            sharding.reduce_grads(state.variables)
+            for accs, ps in zip(gsum, params):
+                for acc, p in zip(accs, ps):
+                    acc.add_(p.grad)
+                    p.grad = acc.clone()
+            finish(state)
+            losses.append(reduced(values)[0])
+        final_err, pos_mse = reduced([
+            [w * x for x in u.final_metrics(
+                inputs[0], th.detach(), _detach_geometry(geom), inputs[3])]
+            for (u, _, inputs, _, w), (th, geom, _, _) in zip(parts, carry)])
+        metrics = {"loss": torch.stack(losses).mean(),
+                   "final_err": final_err, "final_pos_mse": pos_mse}
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step_tk if train_cfg.optimize_tk else train_step

@@ -12,10 +12,10 @@ count and the batch shuffle's generator state.
 
     python -m dgpmp2_tpu_torch.learn.train_planner \\
         --dataset_folders data/forest --out_folder runs/exp1 \\
-        --plan_param_file dgpmp2_tpu/configs/gpmp2_2d_params.yaml \\
-        --robot_param_file dgpmp2_tpu/configs/robot_2d.yaml \\
-        --env_param_file dgpmp2_tpu/configs/env_2d_params.yaml \\
-        --learn_param_file dgpmp2_tpu/configs/learn_params.yaml
+        --plan_param_file dgpmp2_tpu_torch/configs/gpmp2_2d_params.yaml \\
+        --robot_param_file dgpmp2_tpu_torch/configs/robot_2d.yaml \\
+        --env_param_file dgpmp2_tpu_torch/configs/env_2d_params.yaml \\
+        --learn_param_file dgpmp2_tpu_torch/configs/learn_params.yaml
 """
 from __future__ import annotations
 

@@ -8,6 +8,10 @@ trajectory positions) to the flat covariance vector of length ``out_dim``.
   kernels.
 * :class:`RecurrentHead` — ``num_hidden`` GRU or LSTM cells, one recurrence
   step per GN iteration, then Dense(out_dim).
+* :class:`TensorParallelHead` — the feed-forward head's forward over its
+  Megatron shards on the devices of one mesh row
+  (``parallel.sharding.shard_params``): the first Dense column-split, the
+  second row-split over the ``model`` axis.
 
 The cells are written with flax's parameter set, not ``nn.GRUCell`` /
 ``nn.LSTMCell``: flax's GRU has biases on the input denses ``ir``, ``iz``,
@@ -34,6 +38,7 @@ import torch
 from torch import nn
 
 from dgpmp2_tpu_torch.models.conv_encoder import LN_EPS
+from dgpmp2_tpu_torch.parallel import sharding
 
 
 def xavier_uniform_(linear: nn.Linear, generator: torch.Generator) -> None:
@@ -168,6 +173,82 @@ class FeedForwardHead(nn.Module):
         for dense, norm, k in zip(self.dense, self.norms, keep):
             x = torch.relu(norm(dense(apply_dropout(x, k, p))))
         return self.out(apply_dropout(x, keep[-1], p))
+
+
+class TensorParallelHead(nn.Module):
+    """:class:`FeedForwardHead`'s forward over its shards on the devices of
+    one mesh row, ``shards[j]`` the head held by model device ``j``
+    (``parallel.sharding.shard_params``): ``dense[0]``'s weight and bias
+    hold the rows of its slice of the first hidden width, ``dense[1]``'s
+    weight the matching columns; every other parameter is a replica, of
+    which the first device's runs the replicated part.
+
+    Megatron's recipe: the input (dropped out with the replicated mask)
+    goes to every model device (:func:`~dgpmp2_tpu_torch.parallel.sharding.
+    broadcast`); each computes its slice of ``dense[0]``.  The LayerNorm
+    over the whole width takes exact statistics: each device's sums of x
+    and x² (B, 2) are summed over the model axis (``all_reduce``), and each
+    device normalises its slice with flax's statistics (the mean of squares
+    less the squared mean, ε = ``LN_EPS``) and the matching slice of
+    ``norms[0]``'s weight and bias; then ReLU, its column slice of the
+    dropout mask and its partial ``dense[1]`` product, summed onto the
+    first device (``sum_to``) before ``dense[1]``'s bias.  ``norms[1]``,
+    ReLU, the last dropout and ``out`` run there.  Only the first hidden
+    width is split; the model axis must divide it."""
+
+    def __init__(self, shards):
+        super().__init__()
+        if len(shards[0].dense) != 2:
+            raise ValueError("the tensor-parallel head splits a head of two "
+                             f"hidden layers, not {len(shards[0].dense)}")
+        self.shards = nn.ModuleList(shards)
+        widths = [s.dense[0].weight.shape[0] for s in shards]
+        self.cols = [slice(sum(widths[:j]), sum(widths[:j + 1]))
+                     for j in range(len(shards))]
+        self.dropout_prob = shards[0].dropout_prob
+
+    @property
+    def dropout_widths(self) -> Tuple[int, ...]:
+        first = self.shards[0]
+        return (first.dense[0].in_features, self.cols[-1].stop,
+                first.dense[1].out_features)
+
+    def dropout_masks(self, batch: int, generator: torch.Generator) -> tuple:
+        """The whole batch's keep-masks at the full widths, drawn from
+        ``generator`` on its device, as :meth:`FeedForwardHead.
+        dropout_masks` draws them."""
+        return dropout_masks(batch, self.dropout_widths, self.dropout_prob,
+                             generator, generator.device)
+
+    def forward(self, feats: torch.Tensor, th_pos_flat: torch.Tensor,
+                train: bool = False, rng: Dropout = None) -> torch.Tensor:
+        first = self.shards[0]
+        x = torch.cat([feats, th_pos_flat], dim=-1).to(first.out.weight.dtype)
+        p = self.dropout_prob
+        keep = (resolve_masks(rng, x.shape[0], self.dropout_widths, p,
+                              x.device) if train else (None,) * 3)
+        devices = [s.out.weight.device for s in self.shards]
+        xs = sharding.broadcast(apply_dropout(x, keep[0], p), devices)
+        h = [torch.nn.functional.linear(xj, s.dense[0].weight,
+                                        s.dense[0].bias)
+             for xj, s in zip(xs, self.shards)]
+        stats = sharding.all_reduce([torch.stack(
+            [hj.sum(-1), (hj * hj).sum(-1)], -1) for hj in h])
+        n = self.cols[-1].stop
+        partials = []
+        for hj, st, s, cols, dev in zip(h, stats, self.shards, self.cols,
+                                        devices):
+            mean = st[:, :1] / n
+            var = torch.clamp(st[:, 1:] / n - mean * mean, min=0.0)
+            norm = s.norms[0]
+            y = ((hj - mean) * torch.rsqrt(var + norm.eps)
+                 * norm.weight[cols] + norm.bias[cols])
+            k = None if keep[1] is None else keep[1][:, cols].to(dev)
+            y = apply_dropout(torch.relu(y), k, p)
+            partials.append(torch.nn.functional.linear(y, s.dense[1].weight))
+        z = sharding.sum_to(partials) + first.dense[1].bias
+        z = torch.relu(first.norms[1](z))
+        return first.out(apply_dropout(z, keep[2], p))
 
 
 class GRUCell(nn.ModuleDict):

@@ -1,5 +1,6 @@
-"""ctypes binding of the repo's native C++ host runtime
-(``csrc/dgpmp2_native.cpp``).
+"""ctypes binding of the package's native C++ host runtime
+(``dgpmp2_tpu_torch/csrc/dgpmp2_native.cpp``, a copy of the JAX package's
+``csrc/dgpmp2_native.cpp``).
 
 Port of ``dgpmp2_tpu/native/__init__.py``: the exact host EDT / SDF of the
 data pipeline and the RRT* expert planner that stands in for the reference's
@@ -24,8 +25,9 @@ from typing import Optional
 
 import numpy as np
 
-SRC = Path(__file__).resolve().parents[2] / "csrc" / "dgpmp2_native.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[1] / "build"
+PKG_DIR = Path(__file__).resolve().parents[1]
+SRC = PKG_DIR / "csrc" / "dgpmp2_native.cpp"
+BUILD_DIR = PKG_DIR / "build"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None

@@ -1,9 +1,13 @@
 """YAML configuration loading (port of ``dgpmp2_tpu/utils/config.py``).
 
-Reads the same files as the JAX package (``dgpmp2_tpu/configs/*.yaml``, by
-path) and returns plain Python/numpy values.
+Reads the YAML files of the JAX package's schema, by path, and returns
+plain Python/numpy values.  The package ships its own copy of the JAX
+package's configurations in :data:`CONFIG_DIR`
+(``dgpmp2_tpu_torch/configs/*.yaml``).
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import yaml
@@ -11,6 +15,8 @@ import yaml
 from dgpmp2_tpu_torch.core.gn import OptimConfig
 from dgpmp2_tpu_torch.core.graph import GraphSpec
 from dgpmp2_tpu_torch.robots import make_robot, self_collision_pairs
+
+CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 
 
 def _load_yaml(path):

@@ -2,8 +2,10 @@
 on the CPU: meshes (shapes, the warning fallback, ``strict``), the
 multi-host mesh, batch specs, ``shard_batch`` then ``gather_batch`` as the
 identity, ``param_spec`` on the same parameters of the learned head as
-JAX's, and ``shard_params`` / ``shard_state``.  The service on a mesh is
-in ``tests/test_torch_serve.py``."""
+JAX's, and ``shard_params`` / ``shard_state`` (slices of the split
+parameters, replicas of the rest).  The service on a mesh is in
+``tests/test_torch_serve.py``, the mesh's execution in
+``tests/test_torch_parallel.py``."""
 import copy
 import dataclasses
 
@@ -115,15 +117,25 @@ def test_param_spec_matches_jax_on_the_learned_head():
 
 
 def test_shard_params_and_state_place_every_parameter_on_every_device():
+    """Every device holds a shard of every parameter: its model slice of
+    the split ones (rows of ``head.dense.0``, columns of ``head.dense.1``),
+    a full replica of the rest; the optimizer's state is split as its
+    parameter."""
     _, (planner, variables, _, th, sdf, im), _ = learned_pair(BOUNDED, b=2,
                                                               t=8)
     mesh = tsh.make_mesh(CPU8, model_parallel=2)
     sp = tsh.shard_params(variables, mesh)
-    assert len(sp.replicas) == 8
-    for rep in sp.replicas:
-        for k, v in variables.state_dict().items():
-            assert torch.equal(rep[k], v)
+    assert len(sp.shards) == 8
+    for k in range(8):
+        named = sp.named(k)
+        assert set(named) == set(variables.state_dict())
+        for name, v in variables.state_dict().items():
+            dim = {tsh.P("model", None): 0, tsh.P(None, "model"): 1,
+                   tsh.P("model"): 0}.get(sp.specs[name])
+            want = v if dim is None else v.chunk(2, dim)[k % 2]
+            assert torch.equal(named[name], want), (k, name)
     assert sp.specs["head.dense.1.weight"] == tsh.P(None, "model")
+    assert sp.named(3)["head.dense.1.weight"].shape == (640, 500)
     state = ttrain.init_train_state(
         planner, ttrain.make_optimizer("adam", {"alpha": 1e-3}),
         torch.Generator().manual_seed(0), planner.stack_inputs(im, sdf), th)
@@ -134,5 +146,7 @@ def test_shard_params_and_state_place_every_parameter_on_every_device():
     assert sh.step == state.step
     assert sh.opt_state.specs["head.dense.0.weight.exp_avg"] == tsh.P(
         "model", None)
-    assert len(sh.opt_state.replicas[7]) == 3 * len(
+    assert len(sh.opt_state.shards[7]) == 3 * len(
         list(state.variables.parameters()))
+    assert sh.opt_state.named(7)["head.dense.0.weight.exp_avg"].shape == (
+        500, state.variables["head"].dense[0].in_features)
