@@ -164,7 +164,22 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     the one-process plan (float32 gap stated, float64 within 1e-10), then
     one float64 data-parallel training step at B=64 across them (the head
     split over two entries in each) within 1e-10 of the one-process step,
-    the weights equal on both.
+    the weights equal on both;
+17. examples and scripts: every module of ``dgpmp2_tpu_torch.examples``
+    (the port's counterparts of the JAX package's 21 ``examples/``) in
+    process through its ``main()`` on the card at its default sizes,
+    without ``--plot``, in the order of ``examples.EXAMPLES``: the counters
+    zeroed before each and read after, ``core.gn.plan`` counted, and the
+    launches of each kernel its path's own (K-BTD the counted GN
+    iterations, and the adjoint solves under a gradient; K-LOOKUP the
+    iterations + 1 a plan and the example's other lookups; K-LOOKUP3D only
+    in ``plan3d_example``, K-LOOKUP-BWD only where a gradient flows);
+    finite results, the example's own claims, every problem's error
+    lowered (a warm replan below the straight seed's error); then the four
+    ``dgpmp2_tpu_torch/scripts/*.sh`` in a chain through ``bash``
+    (generate, train the initializer, train the planner, validate) at a
+    reduced size (8 + 4 worlds at 128², T=100, 2 epochs), and
+    ``report_stats_example`` on their results.
 
 Every time printed carries the card's name and power limit.
 
@@ -180,6 +195,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -3987,6 +4003,264 @@ def mesh_execution(dev, smi):
     process_split(dev, smi)
 
 
+# Phase 17: the examples and the workflow scripts.  An example's launches
+# by kernel, from its result ``out``, its module ``m`` and the record of its
+# core.gn.plan calls ``rec`` (counting_plans): each gn.plan makes a K-BTD
+# solve per iteration and a lookup at its seed and at each proposal
+# (plan_counts with after=0); GPMP2Planner.plan_batch a solve and two
+# lookups per host iteration (the step's residuals and the proposal's
+# error) and one at the seed; a DiffGPMP2Planner.step a solve and two
+# lookups; a multistart scoring, Env3D query, graph_error or the examples'
+# own clearance checks one lookup each; a gradient through a plan an
+# adjoint solve per iteration and a K-LOOKUP-BWD per lookup upstream of the
+# loss (not the last proposal's, which only feeds the error trace); a
+# generated world's plan one re-validation lookup (generate_split).
+
+
+def _batch_iters(*runs):
+    """Host iterations of GPMP2Planner.plan_batch runs: each runs until
+    its slowest problem stops."""
+    return [int(np.max(np.asarray(r["iters"]))) for r in runs]
+
+
+def _generated(rec, extra_plans=1):
+    """Lookups of generate_split plans (each re-validated once) and of
+    ``extra_plans`` more plans that are not."""
+    return rec["iters"] + 2 * rec["plans"] - extra_plans
+
+
+def _learned_counts(m, rec):
+    """learned_vs_static: its expert data (generate_split) and static plan
+    (counted), ``m.STEPS`` training steps of one window of 5 (remat), and
+    two learned plans with track_best and three graph errors."""
+    train = train_step_counts(m.STEPS, unroll=5)
+    return {"btd_solve": rec["iters"] + train["btd_solve"] + 2 * m.ITERS,
+            "sdf_lookup": (_generated(rec) + train["sdf_lookup"]
+                           + 2 * (m.ITERS + 1) + 3),
+            "sdf_lookup_bwd": train["sdf_lookup_bwd"]}
+
+
+EXAMPLE_LAUNCHES = {
+    "gpmp2_2d_example": lambda out, m, rec: {
+        "btd_solve": sum(out[k]["iters"] for k in ("gauss_newton", "lm")),
+        "sdf_lookup": sum(2 * out[k]["iters"] + 1
+                          for k in ("gauss_newton", "lm"))},
+    "gpmp2_2d_step_example": lambda out, m, rec: {
+        "btd_solve": out["steps"], "sdf_lookup": 4 * out["steps"] + 1},
+    "diff_gpmp2_2d_example": lambda out, m, rec: {
+        "btd_solve": rec["iters"] * 3 // 2,
+        "sdf_lookup": rec["iters"] + rec["plans"],
+        "sdf_lookup_bwd": rec["iters"] // 2},
+    "diff_gpmp2_2d_step_example": lambda out, m, rec: {
+        "btd_solve": out["steps"], "sdf_lookup": 2 * out["steps"]},
+    "diff_gpmp2_2d_batch_example": lambda out, m, rec: plan_counts(rec, after=0),
+    "diff_gpmp2_2d_batch_step_example": lambda out, m, rec: {
+        "btd_solve": out["steps"], "sdf_lookup": 2 * out["steps"]},
+    "diff_gpmp2_2d_vel_limits_example": lambda out, m, rec: plan_counts(
+        rec, after=0),
+    "diff_gpmp2_gp_inter_example": lambda out, m, rec: plan_counts(
+        rec, after=1),  # one fine clearance check a plan
+    "diff_gpmp2_nonholonomic_example": lambda out, m, rec: plan_counts(
+        rec, after=0),
+    "planar_arm_example": lambda out, m, rec: plan_counts(rec, after=0),
+    "self_collision_example": lambda out, m, rec: plan_counts(rec, after=0),
+    "arm_taskspace_example": lambda out, m, rec: plan_counts(
+        rec, after=1),  # the obstacle clearance of the plan
+    "rrt_star_example": lambda out, m, rec: plan_counts(rec, after=0),
+    # The seed's error, then per run a scoring (two when staged) and the
+    # selected plans' error.
+    "multistart_example": lambda out, m, rec: {
+        "btd_solve": rec["iters"],
+        "sdf_lookup": rec["iters"] + rec["plans"] + 1 + 2 * len(m.RUNS) + 1},
+    # Per world: a scoring, an Env3D query and two errors.
+    "plan3d_example": lambda out, m, rec: plan_counts(
+        rec, lookup="sdf_lookup3d", after=4),
+    "replanning_example": lambda out, m, rec: {
+        "btd_solve": sum(_batch_iters(out["initial"], out["cold"],
+                                      out["warm"])),
+        "sdf_lookup": sum(2 * j + 1 for j in _batch_iters(
+            out["initial"], out["cold"], out["warm"]))},
+    # The warm-up dispatch and the clients' two.
+    "serving_example": lambda out, m, rec: plan_counts(rec, after=0),
+    "dataset_loading_example": lambda out, m, rec: {
+        "btd_solve": rec["iters"], "sdf_lookup": _generated(rec)},
+    # The task loss's plan: an adjoint solve per iteration, a K-LOOKUP-BWD
+    # per proposal but the last (the seed's points carry no gradient).
+    "diff_gpmp2_multi_dataset_example": lambda out, m, rec: {
+        "btd_solve": rec["iters"] + m.CFG.max_iters,
+        "sdf_lookup": _generated(rec),
+        "sdf_lookup_bwd": m.CFG.max_iters - 1},
+    "learned_vs_static_example": lambda out, m, rec: _learned_counts(m, rec),
+    "report_stats_example": lambda out, m, rec: {},
+}
+
+
+# Flags of an example's phase-17 run beyond ``--device``: plain GN on the
+# task-space arm is chaotic and has missed its tip in float32 on the H100,
+# so the card runs that example under LM, as phase 8 plans the arm, and
+# records plain GN beside it (taskspace_gn_record).
+EXAMPLE_ARGV = {"arm_taskspace_example": ["--method", "lm"]}
+
+
+def summary(out, path="") -> dict:
+    """The numbers of an example's result: scalars, and arrays of at most
+    16 entries, rounded; trajectories and gradients left out."""
+    found = {}
+    if isinstance(out, dict):
+        for k, v in out.items():
+            found.update(summary(v, f"{path}/{k}" if path else k))
+        return found
+    if isinstance(out, (bool, int, float, np.generic)):
+        found[path] = round(float(out), 6)
+    elif isinstance(out, (torch.Tensor, np.ndarray)):
+        a = out.detach().cpu().numpy() if isinstance(out, torch.Tensor) \
+            else np.asarray(out)
+        if a.dtype.kind in "biuf" and a.size <= 16:
+            found[path] = np.round(a.astype(np.float64), 6).tolist()
+    return found
+
+
+def run_example(name, dev, smi):
+    """One example's ``main()`` on ``dev`` through :func:`drive`, its plans
+    counted; its claims and invariants hold or it raises.  Returns its
+    wall seconds."""
+    import importlib
+
+    from dgpmp2_tpu_torch.examples import _common
+
+    m = importlib.import_module(f"dgpmp2_tpu_torch.examples.{name}")
+    argv = ([] if dev.type == "cuda" else ["--device", str(dev)]) + \
+        EXAMPLE_ARGV.get(name, [])
+    with counting_plans() as rec:
+        t0 = time.perf_counter()
+        out, counts = drive(f"example {name}", lambda: m.main(argv),
+                            lambda out: EXAMPLE_LAUNCHES[name](out, m, rec))
+        wall = time.perf_counter() - t0
+    for path, x in _leaves(out):
+        a = _common.np_(x) if isinstance(x, (torch.Tensor, np.ndarray)) \
+            else None
+        if a is not None and a.dtype.kind == "f" and not np.isfinite(a).all():
+            raise AssertionError(f"example {name}: {path} not finite")
+    bad = _common.unimproved(out, getattr(m, "BASELINE", None))
+    if bad:
+        raise AssertionError(f"example {name}: errors not lowered: {bad}")
+    print(f"[{smi}] example {' '.join([name, *argv])}: {wall:.3f} s wall; "
+          f"{json.dumps(summary(out))}; launches "
+          f"{json.dumps({k: counts[k] for k in KERNELS})}", flush=True)
+    return wall
+
+
+def taskspace_gn_record(dev, smi):
+    """The task-space example planned as the JAX example plans it, by
+    plain GN in float32: its measures printed, its claims (tip within
+    0.1 m, clear of the obstacle) reported, not held."""
+    from dgpmp2_tpu_torch.examples import arm_taskspace_example as m
+
+    with counting_plans() as rec:
+        out, _ = drive("example arm_taskspace_example, plain GN",
+                       lambda: m.solve(dev, torch.float32),
+                       lambda out: plan_counts(rec, after=1))
+    held = out["tip_err"] < 0.1 and out["clearance"] > 0.0
+    print(f"[{smi}] example arm_taskspace_example under plain GN (the JAX "
+          f"example's method), float32: tip error {out['tip_err']:.4f} m, "
+          f"clearance {out['clearance']:+.4f} m, self gap "
+          f"{out['self_gap']:+.4f} m, max |q| {out['max_q']:.3f}: claims "
+          f"{'held' if held else 'missed'}", flush=True)
+
+
+def script_chain(root, device=None, train=8, test=4, imsize=IMSIZE, t=T,
+                 gen_iters=60, epochs=2, batch=8):
+    """``dgpmp2_tpu_torch/scripts/*.sh`` in a chain through ``bash``, each
+    in a subprocess (on the card unless ``device`` is given), at a reduced
+    size: ``train`` + ``test`` forest worlds at ``imsize``² (2 problems a
+    world, T=``t``, the generator's LM of ``gen_iters`` iterations),
+    ``epochs`` of the initializer and of the planner (learn_params.yaml
+    with ``epochs`` and ``batch``, a quarter of the problems held out), the
+    validation of the last checkpoint, then ``report_stats_example`` on its
+    results.  A ``t`` other than the YAMLs' 100 goes to the scripts as a
+    plan YAML of that T.  Returns (seconds by script, the report)."""
+    import shutil
+
+    import yaml
+
+    from dgpmp2_tpu_torch.examples import report_stats_example
+    from dgpmp2_tpu_torch.utils.config import CONFIG_DIR
+
+    root = Path(root)
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    learn = yaml.safe_load((CONFIG_DIR / "learn_params.yaml").read_text())
+    learn["optim"].update(epochs=epochs, batch_size=batch)
+    learn["data"]["valid_size"] = 0.25
+    (root / "learn.yaml").write_text(yaml.safe_dump(learn))
+    yamls = ["--learn_param_file", str(root / "learn.yaml")]
+    if t != T:
+        plan = yaml.safe_load((CONFIG_DIR / "gpmp2_2d_params.yaml")
+                              .read_text())
+        plan["gpmp2"]["planner_params"]["total_time_step"] = t
+        (root / "plan.yaml").write_text(yaml.safe_dump(plan))
+        yamls += ["--plan_param_file", str(root / "plan.yaml")]
+    valid = int(0.25 * 2 * train)
+    dev = [] if device is None else ["--device", str(device)]
+    data, init, model = (str(root / n) for n in ("data", "init", "exp"))
+    steps = (
+        ("generate_dataset.sh", [data, *dev, "--num_train", str(train),
+                                 "--num_test", str(test), "--im_size",
+                                 str(imsize), "--total_time_step", str(t),
+                                 "--max_iters", str(gen_iters)]),
+        ("train_init_network.sh", [data, init, *dev, "--epochs", str(epochs),
+                                   "--batch_size", str(batch),
+                                   "--total_time_step", str(t)]),
+        ("train_planner.sh", [data, model, *dev, *yamls]),
+        ("valid_planner.sh", [data, model, *dev, *yamls, "--batch_size",
+                              str(valid)]),
+    )
+    env = dict(os.environ, PYTHON=sys.executable)
+    seconds = {}
+    for script, args in steps:
+        log = root / f"{script}.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as fp:
+            done = subprocess.run(
+                ["bash", str(ROOT / "dgpmp2_tpu_torch" / "scripts" / script),
+                 *args], cwd=root, env=env, stdout=fp,
+                stderr=subprocess.STDOUT, timeout=600)
+        seconds[script] = time.perf_counter() - t0
+        if done.returncode != 0:
+            print(log.read_text()[-4000:])
+            raise AssertionError(f"{script} exited {done.returncode}")
+    report = report_stats_example.main(
+        ["--results_glob", str(Path(model) / "results*.yaml")])
+    if not report["rows"] or not 0.0 <= report["rows"][0][1][
+            "solve_rate"] <= 1.0:
+        raise AssertionError(f"no results to report: {report}")
+    return seconds, report
+
+
+def examples(dev, smi):
+    """Phase 17: every example on the card, then the scripts' chain."""
+    from dgpmp2_tpu_torch.examples import EXAMPLES
+
+    phase("17 examples and scripts")
+    t0 = time.perf_counter()
+    walls = {}
+    for name in EXAMPLES:
+        if name == "arm_taskspace_example":
+            taskspace_gn_record(dev, smi)
+        walls[name] = run_example(name, dev, smi)
+    seconds, report = script_chain(
+        ROOT / "build" / "examples_chain",
+        None if dev.type == "cuda" else dev)
+    row = report["rows"][0][1]
+    print(f"[{smi}] scripts, 8 + 4 worlds at {IMSIZE}^2, T={T}, 2 epochs "
+          f"(the scripts' defaults: 100 + 20 worlds, 20 epochs): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in seconds.items())
+          + f"; solve_rate {row['solve_rate']:.4f}, avg_gp_error "
+          f"{row['avg_gp_error']:.4f}", flush=True)
+    print(f"[{smi}] phase 17: {time.perf_counter() - t0:.2f} s "
+          f"({sum(walls.values()):.2f} s in the examples)", flush=True)
+
+
 def _leaves(tree, path=""):
     """(path, array) of each leaf of a nested dict, in sorted key order."""
     if isinstance(tree, dict):
@@ -4043,6 +4317,7 @@ def main():
     serving(dev, smi)
     oracle_envs_capture_mesh(dev, smi, bench_np)
     mesh_execution(dev, smi)
+    examples(dev, smi)
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
     for rec in recs.values():

@@ -1,8 +1,12 @@
 """dgpmp2_tpu_torch stands alone: it ships its own copies of the JAX
 package's YAML configurations and native C++ source, held byte-equal to
 the originals here (a change to one side shows), and no module of the port
-nor ``chip_smoke.py`` reads a file of ``dgpmp2_tpu/`` or of the repo-root
-``csrc/``.  Docstrings may name a counterpart, and a string naming a TPU
+(its examples included), nor ``chip_smoke.py``, nor a tool of the port
+(``tools/bench_serve_torch.py``, ``profile_torch_plan.py``,
+``time_kernels.py``, ``time_contract.py``) reads a file of ``dgpmp2_tpu/``
+or of the repo-root ``csrc/``.  ``tools/make_torch_port_golden.py`` is left
+out: it imports both packages by design, to write the JAX goldens the port
+is held to.  Docstrings may name a counterpart, and a string naming a TPU
 kernel as ``file.py:line`` (the kernels line's ``replaces``) is a name, not
 a path that is read."""
 import ast
@@ -18,7 +22,10 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "dgpmp2_tpu_torch"
 CONFIGS = sorted(p.name for p in (ROOT / "dgpmp2_tpu" / "configs").glob(
     "*.yaml"))
-SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+TOOLS = ("bench_serve_torch.py", "profile_torch_plan.py", "time_kernels.py",
+         "time_contract.py")
+SOURCES = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+           + [ROOT / "tools" / name for name in TOOLS])
 
 
 def test_the_port_ships_every_config_of_the_jax_package():
@@ -69,8 +76,10 @@ def paths_out_of_the_port(src: str, path: Path) -> list:
     reaches a file of ``dgpmp2_tpu/`` or of the repo-root ``csrc/``: a
     string (not a docstring) naming such a path other than as
     ``file.py:line``, a ``/ "dgpmp2_tpu"`` or ``/ "csrc"`` join other than
-    off the port's own directory, or ``parents[k]`` of ``__file__`` above
-    the package."""
+    off the port's own directory, a call of ``os.path.join``, ``Path`` or
+    ``PurePath`` with a ``"dgpmp2_tpu"`` argument or a ``"csrc"`` one other
+    than right after the port's own directory, or ``parents[k]`` of
+    ``__file__`` above the package."""
     tree = ast.parse(src)
     docs = _docstrings(tree)
     found = []
@@ -84,11 +93,30 @@ def paths_out_of_the_port(src: str, path: Path) -> list:
                 and node.right.value in ("dgpmp2_tpu", "csrc")
                 and not _port_dir(node.left)):
             found.append((node.lineno, ast.unparse(node)))
+        if isinstance(node, ast.Call) and _joins_paths(node):
+            args = node.args
+            for i, a in enumerate(args):
+                if not (isinstance(a, ast.Constant)
+                        and a.value in ("dgpmp2_tpu", "csrc")):
+                    continue
+                if a.value == "csrc" and i == 1 and _port_dir(args[0]):
+                    continue
+                found.append((node.lineno, ast.unparse(node)))
+                break
     if path.is_relative_to(PORT):
         for m in re.finditer(r"parents\[(\d+)\]", src):
             if not path.parents[int(m.group(1))].is_relative_to(PORT):
                 found.append((src[:m.start()].count("\n") + 1, m.group(0)))
     return found
+
+
+_JOINS = ("os.path.join", "path.join", "Path", "PurePath", "pathlib.Path",
+          "pathlib.PurePath")
+
+
+def _joins_paths(node: ast.Call) -> bool:
+    """``node`` calls ``os.path.join``, ``Path`` or ``PurePath``."""
+    return ast.unparse(node.func) in _JOINS
 
 
 def _port_dir(node) -> bool:
@@ -117,6 +145,11 @@ def test_no_path_of_the_port_into_the_jax_tree_or_the_root_csrc(path):
     ('R = "dgpmp2_tpu/ops/pallas/btd_solve.py:111"\n', 0),
     ('S = Path(__file__).resolve().parents[1] / "csrc" / "x.cpp"\n', 0),
     ('C = ROOT / "dgpmp2_tpu_torch" / "configs"\n', 0),
+    ('CFG = os.path.join(os.path.dirname(__file__), "..", "dgpmp2_tpu", '
+     '"configs")\n', 1),
+    ('C = Path(ROOT, "dgpmp2_tpu", "configs")\n', 1),
+    ('S = os.path.join(ROOT, "csrc", "dgpmp2_native.cpp")\n', 1),
+    ('S = os.path.join(PKG_DIR, "csrc", "dgpmp2_native.cpp")\n', 0),
 ])
 def test_the_path_check_catches_each_way_into_the_jax_tree(text, n):
     """The check itself, on a module at ``dgpmp2_tpu_torch/native/``: each

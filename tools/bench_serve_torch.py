@@ -37,8 +37,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 from dgpmp2_tpu_torch.ops import sdf as sdf_ops  # noqa: E402
 from dgpmp2_tpu_torch.serve import PlanningService, PlanRequest  # noqa: E402
+from dgpmp2_tpu_torch.utils.config import CONFIG_DIR as CFG  # noqa: E402
 
-CFG = os.path.join(os.path.dirname(__file__), "..", "dgpmp2_tpu", "configs")
 IMSIZE = 128
 # The campaigns' fixed covariances (tools/learned_campaign.py COV).
 COV = dict(qc_inv=np.eye(2), cost_sigma=0.05, epsilon_dist=0.4, k_s=0.01,
