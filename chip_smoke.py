@@ -179,7 +179,26 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     ``dgpmp2_tpu_torch/scripts/*.sh`` in a chain through ``bash``
     (generate, train the initializer, train the planner, validate) at a
     reduced size (8 + 4 worlds at 128², T=100, 2 epochs), and
-    ``report_stats_example`` on their results.
+    ``report_stats_example`` on their results;
+18. campaigns and sweeps: the eight modules of ``dgpmp2_tpu_torch.tools``
+    (the port's counterparts of the JAX package's campaign and sweep
+    tools) in process through their ``main()`` on the card in float32,
+    into one temporary directory, at the tools' widths with depth cut
+    (``campaigns``): the learned campaign (multi_obs and forest, 40 + 16
+    worlds, 2 epochs, eps_bounded), the multistart sweep on its data (K=32
+    pruned to 8, three sigmas; the learned pass on its checkpoint; forest
+    with 2 RRT* seeds of 0.2 s), the init experiment on its forest data,
+    the arm campaign (256 + 128 problems, 2 epochs) and its multistart
+    evaluation, the 3-D sweep at its defaults (its rates printed beside the
+    committed TPU run's, as quality), the 3-D learned campaign (16 + 16
+    worlds, 2 epochs) and the headline chain at ``--scale smoke``.  For
+    each run: wall s and launches by kernel (counters zeroed before, read
+    after; K-BTD at least the counted ``gn.plan`` iterations, K-LOOKUP3D
+    only in the 3-D tools, K-LOOKUP-BWD only where a tool trains,
+    K-LOOKUP-LIMB never), its files, every YAML number finite and every
+    rate in [0, 1], the YAML keys of the JAX tool's committed runs under
+    ``runs/``, and a trained checkpoint reloaded through
+    ``load_flat_variables`` planning bit-equal to the model in memory.
 
 Every time printed carries the card's name and power limit.
 
@@ -1237,11 +1256,10 @@ def counters():
 TOTALS = dict.fromkeys(KERNELS, 0)
 
 
-def drive(name, run, want):
-    """Run one path with every launch counter, and K-LOOKUP-LIMB's count of
-    SDF splits ("limb_splits"), set to 0 just before and read just after;
-    the counts must equal ``want`` (absent keys: 0), or ``want(out)`` where
-    the count depends on the path's output."""
+def launch_counts(run):
+    """``run()`` with every launch counter, and K-LOOKUP-LIMB's count of
+    SDF splits ("limb_splits"), set to 0 just before and read just after:
+    (its output, the counts)."""
     mods = counters()
     limbs = mods["sdf_lookup_limbs"]
     torch.cuda.synchronize()
@@ -1252,6 +1270,14 @@ def drive(name, run, want):
     torch.cuda.synchronize()
     counts = {k: m.launches for k, m in mods.items()}
     counts["limb_splits"] = limbs.splits
+    return out, counts
+
+
+def drive(name, run, want):
+    """Run one path through :func:`launch_counts`; the counts must equal
+    ``want`` (absent keys: 0), or ``want(out)`` where the count depends on
+    the path's output."""
+    out, counts = launch_counts(run)
     want = want(out) if callable(want) else want
     want = {k: want.get(k, 0) for k in counts}
     print(f"{name} launches {json.dumps(counts)}, expected {json.dumps(want)}")
@@ -4261,6 +4287,349 @@ def examples(dev, smi):
           f"({sum(walls.values()):.2f} s in the examples)", flush=True)
 
 
+# -- phase 18: the campaign and sweep tools --------------------------------
+
+CAMPAIGN_FAMILIES = ["multi_obs", "forest"]
+
+
+def tool_runs(tmp: Path) -> list:
+    """Phase 18's tool runs in order: (name, the tool's argv) under the
+    directory ``tmp``; widths are the tools' own, depth is cut (the cuts in
+    :func:`campaigns`' docstring)."""
+    a, ms, arm = tmp / "a", tmp / "ms", tmp / "arm"
+    model = f"eps_bounded:{a / 'eps_bounded_vars.npz'}"
+    ms_flags = ["--families", *CAMPAIGN_FAMILIES, "--restarts", "32",
+                "--amp", "2.0", "--batch", "32", "--prune_iters", "10",
+                "--keep", "8", "--sigmas", "0.01", "0.02", "0.05"]
+    return [
+        ("learned_campaign", [
+            "--out", str(a), "--families", *CAMPAIGN_FAMILIES,
+            "--num_train", "40", "--num_test", "16", "--probs", "4", "--t",
+            str(T), "--epochs", "2", "--batch", "128", "--eval_every", "1",
+            "--configs", "eps_bounded"]),
+        ("multistart_sweep", ["--data_root", str(a), "--out", str(ms),
+                              *ms_flags]),
+        ("multistart_sweep learned", [
+            "--data_root", str(a), "--out", str(ms), *ms_flags,
+            "--no_static", "--cov_model", model]),
+        ("multistart_sweep rrt", [
+            "--data_root", str(a), "--out", str(tmp / "ms_rrt"),
+            *ms_flags, "--families", "forest", "--rrt_seeds", "2",
+            "--rrt_plan_time", "0.2"]),
+        ("init_experiment", [
+            "--data", str(a / "data_forest"), "--out", str(tmp / "init"),
+            "--epochs", "2", "--eval_every", "1", "--restarts", "16",
+            "--batch", "32", "--cov_model", model]),
+        ("arm_campaign", [
+            "--out", str(arm), "--num_train", "256", "--num_test", "128",
+            "--epochs", "2", "--batch", "128", "--eval_every", "1",
+            "--configs", "eps_bounded_lr1"]),
+        ("arm_multistart_eval", ["--out", str(arm), "--restarts", "16",
+                                 "--cov_model", "eps_bounded_lr1"]),
+        ("plan3d_sweep", ["--out", str(tmp / "plan3d")]),
+        ("learn3d_campaign", [
+            "--out", str(tmp / "learn3d"), "--family", "boxes3d",
+            "--num_train", "16", "--num_test", "16", "--epochs", "2"]),
+        ("headline_campaign", ["--out", str(tmp / "headline"), "--scale",
+                               "smoke"]),
+    ]
+
+
+TOOLS_3D = ("plan3d_sweep", "learn3d_campaign")
+TOOLS_TRAINING = ("learned_campaign", "arm_campaign", "learn3d_campaign",
+                  "headline_campaign")
+# Where a tool's YAMLs have a committed twin written by the JAX tool under
+# runs/: (file under --out, file under runs/, depth from which the keys are
+# compared; the shallower keys name families or configs of that run).
+REFERENCE_KEYS = {
+    "learned_campaign": (
+        ("results.yaml", "headline/results.yaml", 0),
+        ("results_by_family.yaml", "headline/results_by_family.yaml", 1),
+        ("static_sensitivity.yaml", "headline/static_sensitivity.yaml", 0),
+        ("static_sensitivity_forest.yaml",
+         "headline/static_sensitivity_forest.yaml", 0),
+        ("static_val.yaml", "headline/static_val.yaml", 0),
+        ("eps_bounded_gate.yaml", "headline/eps_bounded_gate.yaml", 0)),
+    "multistart_sweep learned": (
+        ("results.yaml", "headline/multistart/results.yaml", 1),),
+    "init_experiment": (("results.yaml", "init_forest/results.yaml", 0),),
+    "arm_campaign": (
+        ("results.yaml", "arm_campaign/results.yaml", 1),
+        ("static_sensitivity.yaml", "arm_campaign/static_sensitivity.yaml",
+         0)),
+    "plan3d_sweep": (("results.yaml", "plan3d/results.yaml", 0),),
+    "learn3d_campaign": (("results.yaml", "learn3d_window/results.yaml", 0),),
+    "headline_campaign": (
+        ("results.yaml", "headline/results.yaml", 0),
+        ("results_by_family.yaml", "headline/results_by_family.yaml", 1)),
+}
+# Files each tool must have written (beside those above).
+TOOL_FILES = {
+    "learned_campaign": ("table.md", "per_family.md", "eps_bounded_vars.npz",
+                         "eps_bounded_train_loss.yaml"),
+    "multistart_sweep": ("results.yaml", "table.md"),
+    "multistart_sweep rrt": ("results.yaml", "table.md"),
+    "init_experiment": ("table.md", "initnet_vars.npz"),
+    "arm_campaign": ("table.md", "data_train.npz", "data_test.npz",
+                     "eps_bounded_lr1_vars.npz",
+                     "eps_bounded_lr1_train_loss.yaml"),
+    "arm_multistart_eval": ("multistart_results.yaml",),
+    "plan3d_sweep": ("table.md",),
+    "learn3d_campaign": ("table.md",),
+    "headline_campaign": ("headline.md", "multistart/results.yaml",
+                          "eps_bounded_vars.npz"),
+}
+
+
+def yaml_keys(tree, skip=0, depth=0) -> set:
+    """(depth, key) of every dict key of a YAML tree at ``skip`` or deeper,
+    a float key (a sigma) as "*"."""
+    found = set()
+    items = (tree.items() if isinstance(tree, dict) else
+             enumerate(tree) if isinstance(tree, list) else ())
+    for k, v in items:
+        if isinstance(tree, dict) and depth >= skip:
+            found.add((depth, "*" if isinstance(k, float) else str(k)))
+        found |= yaml_keys(v, skip, depth + 1)
+    return found
+
+
+def check_yaml_tree(name, tree, path=""):
+    """Every number of a tool's YAML finite, and every rate (a key holding
+    "rate" or "solve") in [0, 1]."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            check_yaml_tree(name, v, f"{path}/{k}")
+        return
+    if isinstance(tree, list):
+        for i, v in enumerate(tree):
+            check_yaml_tree(name, v, f"{path}/{i}")
+        return
+    if isinstance(tree, bool) or not isinstance(tree, (int, float)):
+        return
+    if not np.isfinite(tree):
+        raise AssertionError(f"{name}: {path} = {tree} not finite")
+    leaf = path.rsplit("/", 1)[-1]
+    if ("rate" in leaf or "solve" in leaf) and not 0.0 <= tree <= 1.0:
+        raise AssertionError(f"{name}: rate {path} = {tree} outside [0, 1]")
+
+
+def check_tool_files(name, out):
+    """The files a tool run must have written, its YAMLs' numbers, and their
+    keys against the JAX tool's committed twins; returns the YAML files."""
+    import yaml
+
+    for f in TOOL_FILES.get(name, ()):
+        if not (out / f).exists():
+            raise AssertionError(f"{name}: {f} not written")
+    written = sorted(out.rglob("*.yaml"))
+    for path in written:
+        check_yaml_tree(f"{name} {path.name}",
+                        yaml.safe_load(path.read_text()))
+    for f, ref, skip in REFERENCE_KEYS.get(name, ()):
+        got = yaml_keys(yaml.safe_load((out / f).read_text()), skip)
+        want = yaml_keys(yaml.safe_load(
+            (ROOT / "runs" / ref).read_text()), skip)
+        if got != want:
+            raise AssertionError(
+                f"{name} {f}: keys {sorted(got ^ want)} differ from "
+                f"runs/{ref}")
+    return [str(p.relative_to(out)) for p in written]
+
+
+@contextlib.contextmanager
+def capturing(module, fn_name):
+    """Record the return value of each call of ``module.fn_name`` while the
+    block runs."""
+    fn, calls = getattr(module, fn_name), []
+
+    def recorded(*args, **kw):
+        calls.append(fn(*args, **kw))
+        return calls[-1]
+
+    setattr(module, fn_name, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(module, fn_name, fn)
+
+
+def check_reload(name, planner, state, out_dir, dev):
+    """The run's flat checkpoint reloaded through ``load_flat_variables``
+    into fresh weights plans its first test batch bit-equal to the model in
+    memory (50 iterations, ``track_best``)."""
+    from dgpmp2_tpu_torch.learn import checkpoints
+    from dgpmp2_tpu_torch.tools import arm_campaign, learned_campaign
+    from dgpmp2_tpu_torch.tools._common import fixed_params, straight
+
+    if name == "arm_campaign":
+        with np.load(out_dir / "data_test.npz") as z:
+            test = {k: z[k] for k in z.files}
+        batch = arm_campaign.batches_on(test, min(128, len(test["im"])),
+                                        dev, torch.float32)[0]
+        cov, ckpt = arm_campaign.COV, out_dir / "eps_bounded_lr1_vars.npz"
+    else:
+        from dgpmp2_tpu_torch.data import dataset as ds
+
+        roots = [str(r) for r in sorted(out_dir.glob("data_*"))]
+        n = len(ds.PlanningDatasetMulti(roots, mode="test"))
+        batch = learned_campaign.load_test_batches(roots, min(128, n), dev,
+                                                   torch.float32)[0]
+        cov, ckpt = learned_campaign.COV, out_dir / "eps_bounded_vars.npz"
+    fresh = planner.init_variables(
+        torch.Generator().manual_seed(1),
+        planner.stack_inputs(batch["im"], batch["sdf"]), batch["th_opt"])
+    reloaded = checkpoints.load_flat_variables(str(ckpt), fresh)
+    fixed = fixed_params(planner.spec, planner.robot, batch, cov)
+    th0 = straight(planner.spec, batch["start"], batch["goal"])
+    with torch.no_grad():
+        a, b = (planner.plan(v, fixed, th0, batch["sdf"], batch["im"],
+                             max_iters=50, track_best=True)[0]
+                for v in (state.variables, reloaded))
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: the reloaded {ckpt.name} plans "
+                             f"{float((a - b).abs().max()):.3e} apart")
+    print(f"{name}: {ckpt.name} reloaded plans bit-equal to the model in "
+          f"memory (B={a.shape[0]}, 50 iterations, track_best)")
+
+
+def check_tool_counts(name, counts, rec):
+    """The kernels of a tool's path: K-BTD at least a solve per counted
+    ``gn.plan`` iteration; K-LOOKUP3D only in the 3-D tools, K-LOOKUP in
+    the others; K-LOOKUP-BWD only where a tool trains; K-LOOKUP-LIMB and
+    its splits never."""
+    tool = name.split()[0]
+    ok = (counts["btd_solve"] >= max(rec["iters"], 1)
+          and counts["sdf_lookup_limbs"] == 0 and counts["limb_splits"] == 0
+          and (counts["sdf_lookup3d"] > 0) == (tool in TOOLS_3D)
+          and (counts["sdf_lookup"] > 0) != (tool in TOOLS_3D)
+          and (counts["sdf_lookup_bwd"] > 0) == (tool in TOOLS_TRAINING))
+    if not ok:
+        raise AssertionError(f"{name}: launches {counts} with "
+                             f"{rec['iters']} counted gn.plan iterations")
+
+
+PLAN3D_GAP = 0.05  # 4 problems of 80
+
+
+def plan3d_against_tpu(smi, results):
+    """Each family's best-static and ms16 rates beside the JAX tool's
+    committed TPU rates (runs/plan3d/results.yaml): quality, not speed."""
+    import yaml
+
+    ref = yaml.safe_load((ROOT / "runs" / "plan3d" /
+                          "results.yaml").read_text())
+    for fam, rows in results.items():
+        ms = next(k for k in rows if k.startswith("ms"))
+        for row, ref_row in (("best_static", "best_static"), (ms, "ms16")):
+            for k in ("solve_rate", "contact_free_rate"):
+                got, want = rows[row][k], ref[fam][ref_row][k]
+                flag = " (gap > 0.05)" if abs(got - want) > PLAN3D_GAP else ""
+                print(f"[{smi}] plan3d_sweep quality {fam} {row} {k}: card "
+                      f"{got:.4f} (sigma {rows[row]['sigma']}), committed TPU "
+                      f"run {want:.4f} (sigma {ref[fam][ref_row]['sigma']}), "
+                      f"gap {got - want:+.4f}{flag}")
+
+
+def run_tool(name, argv, dev, smi, log_dir):
+    """One tool's ``main(argv)`` through :func:`launch_counts` with
+    ``core.gn.plan`` counted, its stdout to ``log_dir/<name>.log``; its
+    launches checked (:func:`check_tool_counts`) and added to the kernels
+    line.  Returns (its result, seconds)."""
+    import importlib
+
+    tool = name.split()[0]
+    m = importlib.import_module(f"dgpmp2_tpu_torch.tools.{tool}")
+    argv = argv + ([] if dev.type == "cuda" else ["--device", str(dev)])
+    log = log_dir / f"{name.replace(' ', '_')}.log"
+    with counting_plans() as rec, open(log, "w") as fp:
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(fp):
+                out, counts = launch_counts(lambda: m.main(argv))
+        except BaseException:
+            fp.flush()
+            print(log.read_text()[-6000:])
+            raise
+        wall = time.perf_counter() - t0
+    check_tool_counts(name, counts, rec)
+    for k in KERNELS:
+        TOTALS[k] += counts[k]
+    print(f"[{smi}] tool {name}: {wall:.3f} s wall, {rec['plans']} gn.plan "
+          f"calls of {rec['iters']} iterations; launches "
+          f"{json.dumps({k: counts[k] for k in KERNELS})}", flush=True)
+    return out, wall
+
+
+def campaigns(dev, smi, root=None):
+    """Phase 18: the eight tools of ``dgpmp2_tpu_torch/tools/`` in process
+    through their ``main()`` on the card in float32, into one temporary
+    directory, in the order of :func:`tool_runs`.  Widths are the tools'
+    own (T=100, 128² and the head of the 2-D campaign, training batch 128;
+    48³ and T=30 in ``plan3d_sweep``; 32³, T=20 and batch 16 in
+    ``learn3d_campaign``; the 2-link arm at T=40, batch 128); depth is cut:
+
+    (a) ``learned_campaign``: multi_obs and forest, 40 + 16 worlds a family
+        of 4 problems (the tool's 250 + 40), 2 epochs (80), validation
+        every epoch (10), the eps_bounded config (all 14): one pooled test
+        batch of 128, one of 64 a family;
+    (b) ``multistart_sweep`` on (a)'s data at the midi composition of
+        ``headline_campaign`` (K=32, amp 2.0, batch 32, pruned at 10
+        iterations to 8), sigmas 0.01, 0.02, 0.05 (nine); then the learned
+        pass on (a)'s checkpoint; then forest with 2 RRT* seeds of 0.2 s a
+        problem (1.0 s);
+    (c) ``init_experiment`` on (a)'s forest data: 2 epochs (60), batch 32
+        (128: (a)'s 160 forest training problems leave no full batch of 128
+        after the validation split), K=16, with (a)'s checkpoint;
+    (d) ``arm_campaign``: 256 + 128 problems (2048 + 512), 2 epochs (40),
+        eps_bounded_lr1 (two configs); the expert's chunk of 512 worlds
+        stays;
+    (e) ``arm_multistart_eval`` on (d): K=16 with (d)'s checkpoint;
+    (f) ``plan3d_sweep`` at its defaults, uncut (20 worlds x 4 problems a
+        family); its rates printed beside the committed TPU run's;
+    (g) ``learn3d_campaign``: boxes3d, 16 + 16 worlds (60 + 16), 2 epochs
+        (10);
+    (h) ``headline_campaign --scale smoke``: the whole chain at the smoke
+        scale's own sizes (T=30, batch 8).
+
+    Each run's launch counters are zeroed before it and read after
+    (:func:`run_tool`); its files, YAML keys and numbers are checked
+    (:func:`check_tool_files`); a trained checkpoint reloads and plans
+    bit-equal (:func:`check_reload`).  Returns the seconds by tool."""
+    import tempfile
+
+    from dgpmp2_tpu_torch.tools import arm_campaign, learned_campaign
+
+    phase("18 campaigns and sweeps")
+    t_phase = time.perf_counter()
+    log_dir = ROOT / "build" / "campaigns"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    # The trainers whose train_config a run calls (headline_campaign
+    # through learned_campaign).
+    trainers = {"learned_campaign": learned_campaign,
+                "headline_campaign": learned_campaign,
+                "arm_campaign": arm_campaign}
+    walls, outs = {}, {}
+    with tempfile.TemporaryDirectory(prefix="dgpmp2_campaigns_",
+                                     dir=root) as tmp:
+        for name, argv in tool_runs(Path(tmp)):
+            with (capturing(trainers[name], "train_config")
+                  if name in trainers else contextlib.nullcontext([])
+                  ) as trained:
+                outs[name], walls[name] = run_tool(name, argv, dev, smi,
+                                                   log_dir)
+            out_dir = Path(argv[argv.index("--out") + 1])
+            files = check_tool_files(name, out_dir)
+            print(f"{name}: wrote {', '.join(files)}")
+            if trained:
+                planner, state = trained[-1][:2]
+                check_reload(name, planner, state, out_dir, dev)
+        plan3d_against_tpu(smi, outs["plan3d_sweep"])
+    print(f"[{smi}] phase 18: {time.perf_counter() - t_phase:.2f} s "
+          f"({sum(walls.values()):.2f} s in the tools)", flush=True)
+    return walls
+
+
 def _leaves(tree, path=""):
     """(path, array) of each leaf of a nested dict, in sorted key order."""
     if isinstance(tree, dict):
@@ -4318,6 +4687,7 @@ def main():
     oracle_envs_capture_mesh(dev, smi, bench_np)
     mesh_execution(dev, smi)
     examples(dev, smi)
+    campaigns(dev, smi)
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
     for rec in recs.values():

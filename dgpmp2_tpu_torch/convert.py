@@ -9,8 +9,9 @@ arrays: :func:`learned_state_from_flax` maps the learned planner's
 of its ``variables`` (``LearnedDiffGPMP2Planner.init_variables``),
 :func:`learned_state_to_flax` back, and
 :func:`module_state_from_flax` one module's ``params`` tree (an ``InitNet``,
-an encoder, a head) onto its port's; :func:`learned_grads_to_flax` and
-:func:`module_grads_to_flax` carry gradients back as flax trees.  Flax
+an encoder, a head) onto its port's (:func:`module_state_to_flax` back);
+:func:`learned_grads_to_flax` and :func:`module_grads_to_flax` carry
+gradients back as flax trees.  Flax
 names map one to one: ``Conv_i`` → ``convs.i``, ``LayerNorm_i`` →
 ``norms.i``, ``Dense_i`` → ``dense.i`` (the last Dense → ``out``),
 ``cell{i}/{ir, …}`` → ``cells.i.{ir, …}``, ``ConvEncoder_0`` → ``encoder``.
@@ -156,6 +157,19 @@ def module_grads_to_flax(module: nn.Module) -> dict:
     return _module_tree(module, lambda kind, leaf, p: None if p.grad is None
                         else _to_flax_leaf(kind, leaf,
                                            p.grad.detach().cpu().numpy()))
+
+
+def module_state_to_flax(module: nn.Module) -> dict:
+    """One module's weights as its flax ``params`` tree of numpy arrays (the
+    inverse of :func:`module_state_from_flax`)."""
+    return _module_tree(module, lambda kind, leaf, p: _to_flax_leaf(
+        kind, leaf, p.detach().cpu().numpy().copy()))
+
+
+def module_flax_shapes(module: nn.Module) -> dict:
+    """The shapes of one module's flax ``params`` tree."""
+    return _module_tree(module, lambda kind, leaf, p: list(_to_flax_leaf(
+        kind, leaf, np.empty(tuple(p.shape), np.uint8)).shape))
 
 
 def learned_flax_shapes(variables: nn.ModuleDict) -> dict:

@@ -11,7 +11,9 @@ batches an uninterrupted one would) and the train/validation split; the
 JAX package's deployment format: one ``.npz`` of the flax variable tree's
 leaves ``v0 … vN`` in flax's flatten order (dict keys sorted at every
 level), kernels in flax's layouts, so that a model trained by either
-package loads in the other.
+package loads in the other; :func:`save_flat_module` /
+:func:`load_flat_module` the same for one module's ``{"params": ...}`` (the
+initializer network's ``initnet_vars.npz``).
 """
 from __future__ import annotations
 
@@ -98,12 +100,11 @@ def save_flat_variables(path: str, variables: nn.ModuleDict) -> None:
     np.savez(path, **{f"v{i}": a for i, (_, a) in enumerate(leaves)})
 
 
-def load_flat_variables(path: str, template: nn.ModuleDict) -> nn.ModuleDict:
-    """Load a flat ``.npz`` (written by either package) into ``template``,
-    the learned planner's ``variables`` of the same architecture, in place
-    and in its dtype; returns it."""
+def _load_leaves(path: str, shapes: dict) -> dict:
+    """The flat ``.npz`` at ``path`` as the nested tree of ``shapes`` (each
+    leaf's shape checked)."""
     loaded = np.load(path, allow_pickle=False)
-    leaves = _flat_leaves(convert.learned_flax_shapes(template))
+    leaves = _flat_leaves(shapes)
     if len(loaded.files) != len(leaves):
         raise ValueError(
             f"{path} holds {len(loaded.files)} leaves, template has "
@@ -118,8 +119,36 @@ def load_flat_variables(path: str, template: nn.ModuleDict) -> nn.ModuleDict:
         for k in p[:-1]:
             node = node.setdefault(k, {})
         node[p[-1]] = a
-    ref = next(template.parameters())
-    state = {k: v.to(dtype=ref.dtype, device=ref.device)
-             for k, v in convert.learned_state_from_flax(tree).items()}
-    template.load_state_dict(state)
+    return tree
+
+
+def _load_state(module: nn.Module, state: dict) -> None:
+    ref = next(module.parameters())
+    module.load_state_dict({k: v.to(dtype=ref.dtype, device=ref.device)
+                            for k, v in state.items()})
+
+
+def save_flat_module(path: str, module: nn.Module) -> None:
+    """One module's weights (an ``InitNet``) as the JAX package's flat
+    ``.npz`` of its flax variables ``{"params": ...}``: leaves ``v0 … vN``
+    in flax's flatten order."""
+    leaves = _flat_leaves({"params": convert.module_state_to_flax(module)})
+    np.savez(path, **{f"v{i}": a for i, (_, a) in enumerate(leaves)})
+
+
+def load_flat_module(path: str, module: nn.Module) -> nn.Module:
+    """Load a flat ``.npz`` of one module's flax variables (written by
+    either package) into ``module``, in place and in its dtype; returns
+    it."""
+    tree = _load_leaves(path, {"params": convert.module_flax_shapes(module)})
+    _load_state(module, convert.module_state_from_flax(tree["params"]))
+    return module
+
+
+def load_flat_variables(path: str, template: nn.ModuleDict) -> nn.ModuleDict:
+    """Load a flat ``.npz`` (written by either package) into ``template``,
+    the learned planner's ``variables`` of the same architecture, in place
+    and in its dtype; returns it."""
+    tree = _load_leaves(path, convert.learned_flax_shapes(template))
+    _load_state(template, convert.learned_state_from_flax(tree))
     return template

@@ -181,7 +181,7 @@ def count_plain_launches(monkeypatch):
     """Route CPU tensors through the kernel wrappers of ``ops/cuda``, each
     launch running the kernel's plain version and counting as the kernel
     would, so that ``chip_smoke.run_example`` can hold an example's launch
-    formula on the CPU."""
+    formula on the CPU; ``monkeypatch`` restores the counters after."""
     from dgpmp2_tpu_torch.ops import sdf as sdf_ops
     from dgpmp2_tpu_torch.ops import tridiag
     from dgpmp2_tpu_torch.ops.cuda import _tiles, btd_solve, sdf_lookup
@@ -213,6 +213,14 @@ def count_plain_launches(monkeypatch):
             return p_bar, None
         return p_bar, torch.zeros_like(sdf) if grads[1] is None else grads[1]
 
+    from dgpmp2_tpu_torch.ops.cuda import sdf_lookup_limbs
+
+    # The counters come back to their values at teardown, for the tests
+    # that follow in the same process.
+    for m in (btd_solve, sdf_lookup, sdf_lookup3d, sdf_lookup_bwd,
+              sdf_lookup_limbs):
+        monkeypatch.setattr(m, "launches", m.launches)
+    monkeypatch.setattr(sdf_lookup_limbs, "splits", sdf_lookup_limbs.splits)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(btd_solve, "launch", solve)
     monkeypatch.setattr(btd_solve, "_ready", lambda a: a.contiguous())
