@@ -6,10 +6,11 @@
 Phases, in order; any failed check raises, so the exit code is non-zero:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build the five CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc,
+2. build the six CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc,
    printing every kernel's registers and spills (36 K-BTD instances: D = 1
    to 16, the wide kernel of D = 17-32 and the block kernel of D > 32, in
-   two dtypes);
+   two dtypes; 54 K-STREAM instances, the same shapes in three: float32,
+   float64 and the df32 engine's mixed one);
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: K-BTD at every D from 1 to 32 (B=1024; T=101 up to D=8,
    T=41 above) in float32 and float64 on random SPD systems and at the
@@ -198,7 +199,31 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     K-LOOKUP-LIMB never), its files, every YAML number finite and every
     rate in [0, 1], the YAML keys of the JAX tool's committed runs under
     ``runs/``, and a trained checkpoint reloaded through
-    ``load_flat_variables`` planning bit-equal to the model in memory.
+    ``load_flat_variables`` planning bit-equal to the model in memory;
+19. engines: stream and df32 (K-STREAM, ``csrc/btd_stream.cu``: one
+    damped GN step, assembled from the residual pieces inside the
+    block-Thomas sweeps).  (a) K-STREAM against its plain version on the
+    first-iteration residuals of the 2-D and 3-D benches and of phase 8's
+    heading robot, 2-link arm, task-space 3-link arm, GP interpolation with
+    velocity limits, 4-, 9- and 17-link arms (D = 4, 6, 8, 18, 34), at
+    B=1024 under GN and LM (a lambda per problem): the float64 instance
+    within 1e-10 relative; the float32 instance within twice the standard
+    float32 engine's error (assembly, damping, K-BTD) against the float64
+    solve of the same float32 residuals, plus 1e-7; the mixed instance that
+    float64 solve rounded to float32, within 1e-10 relative beyond half a
+    float32 spacing; the same at B in {1, 1000} x T1 in {2, 41}; the df32
+    step on ``tests/goldens/golden_ref_step.npz`` (env 1, 12 iterates
+    along the float64 path) within 1e-4 of the float64 step and 2x the
+    floor.  (b) The bench problem through ``DiffGPMP2Planner.plan`` from
+    the YAMLs with ``engine`` stream, then df32, 100 iterations, and the
+    3-D bench with stream: one K-STREAM launch a GN iteration and no K-BTD
+    launch, 95 % of problems improved; launches and device busy per
+    iteration (profiler) and ms per iteration (CUDA events, host-paced) of
+    the standard, stream and df32 engines.  (c) K-STREAM's three instances
+    timed at the 2-D and 3-D benches beside the standard engine's assembly
+    + damping + K-BTD for the same step.  (d) The float64 gradient of a
+    5-iteration stream plan (B=64) with respect to ``obs_inv`` and
+    ``q_inv`` on the card within 1e-10 of the CPU's.
 
 Every time printed carries the card's name and power limit.
 
@@ -234,7 +259,7 @@ CONFIGS = ROOT / "dgpmp2_tpu_torch" / "configs"
 B, T, IMSIZE, VOX = 1024, 100, 128, 64
 LIMS = (-5.0, 5.0)
 KERNELS = ("btd_solve", "sdf_lookup", "sdf_lookup3d", "sdf_lookup_limbs",
-           "sdf_lookup_bwd")
+           "sdf_lookup_bwd", "btd_stream")
 
 
 _T0 = time.perf_counter()
@@ -272,19 +297,24 @@ def build():
         print(f"ptxas {kernel_name(name)}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B, shared {smem} B")
     # Each D of the narrow kernel, the wide and the block kernel, in two
-    # dtypes.
-    want = 2 * (BTD_NARROW + 2)
-    n_btd = sum("btd_solve_kernel" in r[0] for r in rows)
-    if n_btd != want:
-        raise AssertionError(f"ptxas reported {n_btd} K-BTD kernels, not "
-                             f"{want}")
+    # dtypes (K-BTD) and in three instances (K-STREAM: float32, float64 and
+    # the df32 engine's mixed one).
+    for kernel, label, want in (("btd_solve_kernel", "K-BTD",
+                                 2 * (BTD_NARROW + 2)),
+                                ("btd_stream_kernel", "K-STREAM",
+                                 3 * (BTD_NARROW + 2))):
+        n = sum(kernel in r[0] for r in rows)
+        if n != want:
+            raise AssertionError(f"ptxas reported {n} {label} kernels, not "
+                                 f"{want}")
 
 
 def kernel_name(mangled):
     """``btd_solve_kernel<float, 4>``-style name of a mangled kernel."""
     for m in re.finditer(r"(?=(\d+)([a-z_]\w*))", mangled):
         n, ident = int(m[1]), m[2][:int(m[1])]
-        if len(ident) == n and "_kernel" in ident:
+        if (len(ident) == n and "_kernel" in ident
+                and ident.rsplit("_kernel", 1)[1] in ("", "_wide", "_block")):
             args = re.match(r"I(.*?)E", m[2][n:])
             if not args:
                 return ident
@@ -800,6 +830,40 @@ def check_btd(dev, record, bench, smi):
     check_btd_block(dev, smi, rng)
 
 
+def btd_digests(dev) -> dict:
+    """sha256 of K-BTD's output on each of phase 3's systems, drawn in phase
+    3's order (check_btd, then check_btd_block): two trees' K-BTD held
+    bit-equal (``tools/time_kernels.py --btd-digest``)."""
+    import hashlib
+
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve as k
+
+    rng = np.random.default_rng(1)
+    out = {}
+
+    def digest(name, system):
+        x = k.launch(*system).cpu().numpy()
+        out[name] = hashlib.sha256(x.tobytes()).hexdigest()
+
+    for dtype in (torch.float32, torch.float64):
+        for d in BTD_D:
+            t = T + 1 if d <= 8 else 41
+            digest(f"{dtype} D={d} B={B} T={t}",
+                   spd_system(rng, B, t, d, dtype, dev))
+            for b, te in BTD_EDGES:
+                digest(f"{dtype} D={d} B={b} T={te}",
+                       spd_system(rng, b, te, d, dtype, dev))
+    for label, b, t, d, dtype in BTD_TIMED + BTD_WIDE_TIMED:
+        digest(f"{label} {dtype} D={d} B={b} T={t}",
+               spd_system(rng, b, t, d, dtype, dev))
+    top = btd_smem_max(k, dev)
+    for dtype in (torch.float32, torch.float64):
+        for d in BTD_BLOCK_D + (top, top + 1):
+            digest(f"block {dtype} D={d}", spd_system(rng, B, 41, d, dtype,
+                                                      dev))
+    return out
+
+
 def btd_smem_max(k, dev):
     """The largest D whose block-kernel rows fit the card's shared memory."""
     d = BTD_D[-1] + 1
@@ -1244,12 +1308,12 @@ def check_plan(name, out, n_iter, dof=2, t=T, share=0.95):
 def counters():
     """The kernel wrappers' modules, by kernel name (K-LOOKUP-LIMB's also
     counts its SDF splits)."""
-    from dgpmp2_tpu_torch.ops.cuda import (btd_solve, sdf_lookup,
-                                           sdf_lookup3d, sdf_lookup_bwd,
-                                           sdf_lookup_limbs)
+    from dgpmp2_tpu_torch.ops.cuda import (btd_solve, btd_stream,
+                                           sdf_lookup, sdf_lookup3d,
+                                           sdf_lookup_bwd, sdf_lookup_limbs)
 
     return dict(zip(KERNELS, (btd_solve, sdf_lookup, sdf_lookup3d,
-                              sdf_lookup_limbs, sdf_lookup_bwd)))
+                              sdf_lookup_limbs, sdf_lookup_bwd, btd_stream)))
 
 
 # Launches of every path run through drive(), by kernel: the kernels line.
@@ -4638,6 +4702,352 @@ def _leaves(tree, path=""):
     return [(path, tree)]
 
 
+# -- phase 19: the stream and df32 engines -------------------------------------
+
+GOLDEN_REF = ROOT / "tests" / "goldens" / "golden_ref_step.npz"
+# K-STREAM against its plain version: relative, in float64.  The float32
+# instance: within twice the standard float32 engine's error (assembly,
+# damping and K-BTD) against the float64 solve of the same float32
+# residuals, plus 1e-7.  The mixed (df32) instance: that float64 solve
+# rounded to float32, within STREAM_TOL64 relative beyond half a float32
+# spacing.
+STREAM_TOL64 = 1e-10
+# Edge shapes: a lone problem and a batch that leaves the last warp partly
+# empty; one GP factor (T1 = 2 states) and the arms' T1 = 41.
+STREAM_EDGES = tuple((b, t) for b in (1, 1000) for t in (2, 41))
+# Phase 8's paths whose K-STREAM step is checked, beside the 2-D and 3-D
+# benches (every family: nonholonomic, self-collision and joint limits, the
+# workspace goal, GP interpolation and velocity limits; D = 4, 6, 8, 18, 34).
+STREAM_PATHS = ("heading robot", "2-link arm", "task-space 3-link arm",
+                "GP interpolation + velocity limits", "4-link arm",
+                "9-link arm", "17-link arm")
+ENGINE_ITERS = 100  # the 2-D main path's iterations (bench.py's)
+
+
+def cast_params(params, dtype):
+    """GraphParams in ``dtype``, each broadcast dimension kept stride 0."""
+    import dataclasses
+
+    from dgpmp2_tpu_torch.core import stream
+
+    return type(params)(**{
+        f.name: None if (v := getattr(params, f.name)) is None
+        else stream._compact(v).to(dtype).expand(v.shape)
+        for f in dataclasses.fields(params)})
+
+
+def rounded_err(xm, x64):
+    """How far the float32 ``xm`` lies from the float64 ``x64`` beyond half
+    a float32 spacing (the upper one) at each element, over max |x64|: at
+    most 0 where ``xm`` is ``x64`` rounded to float32."""
+    r = x64.abs().float()
+    half = (torch.nextafter(r, torch.full_like(r, float("inf"))) - r) / 2
+    over = (xm.double() - x64).abs() - half.double()
+    return float(over.max()) / float(x64.abs().max())
+
+
+def stream_errors(problem, lam, lm):
+    """K-STREAM's three instances on one path's first-iteration residuals:
+    (float64 error against plain, float32 instance's and the standard
+    float32 engine's max abs error against the float64 solve of the float32
+    residuals, the mixed instance's rounded error, the float32 instance's
+    max abs error against its own plain version)."""
+    from dgpmp2_tpu_torch.core import gn, graph, stream
+    from dgpmp2_tpu_torch.ops import tridiag
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve as kb
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    spec, robot, params, th, sdf = problem
+    b = th.shape[0]
+    reg = 0.0 if lm else 0.1
+    p64 = cast_params(params, torch.float64)
+    res64 = graph.eval_residuals(spec, robot, p64, th.double(), sdf.double())
+    ss = stream.build_stream_static(spec, p64, None, b, torch.float64, reg)
+    a, kw = stream.kernel_args(spec, p64, ss, res64, lam.double(), lm)
+    e64 = rel_err(k.launch(*a, **kw), k.plain(*a, **kw))
+    del res64, ss, a, kw
+    res = graph.eval_residuals(spec, robot, params, th, sdf)
+    ss32 = stream.build_stream_static(spec, params, None, b, torch.float32,
+                                      reg)
+    a32, kw32 = stream.kernel_args(spec, params, ss32, res, lam.float(), lm)
+    ssm = stream.build_stream_static(spec, params, None, b, torch.float64,
+                                     reg)
+    am, kwm = stream.kernel_args(spec, params, ssm, res, lam.double(), lm)
+    x64 = tridiag.btd_solve(*k.plain_system(*am, **kwm))
+    x32 = k.launch(*a32, **kw32)
+    e32 = float((x32.double() - x64).abs().max())
+    e32_plain = float((x32 - k.plain(*a32, **kw32)).abs().max())
+    std = kb.btd_solve_cuda(*gn.damped_system(
+        *graph.assemble_from_residuals(spec, params, res),
+        lam.float() if lm else 0.1, lm))
+    e_std = float((std.double() - x64).abs().max())
+    em = rounded_err(k.launch(*am, **kwm), x64)
+    return e64, e32, e_std, em, e32_plain
+
+
+def check_stream(name, problem, rng):
+    """:func:`stream_errors` under GN (reg 0.1) and LM (a lambda per problem
+    in [1e-4, 10]); raises past the tolerances."""
+    b = problem[3].shape[0]
+    lam = torch.tensor(10.0 ** rng.uniform(-4, 1, b), device=problem[3].device)
+    out = {}
+    for lm in (False, True):
+        e64, e32, e_std, em, e32p = stream_errors(problem, lam, lm)
+        how = "LM" if lm else "GN"
+        print(f"K-STREAM {name} (B={b}, T1={problem[0].num_traj_states}, "
+              f"D={problem[0].state_dim}) {how}: float64 vs plain {e64:.3e} "
+              f"(tol {STREAM_TOL64:g}); float32 vs the float64 solve "
+              f"{e32:.3e}, the standard float32 engine's {e_std:.3e} (bound "
+              f"{2 * e_std + 1e-7:.3e}); mixed rounded err {em:.3e}; float32 "
+              f"vs its plain version {e32p:.3e} abs")
+        if not (e64 <= STREAM_TOL64 and e32 <= 2 * e_std + 1e-7
+                and em <= STREAM_TOL64):
+            raise AssertionError(f"K-STREAM {name} {how}: {e64}, {e32}, "
+                                 f"{e_std}, {em}")
+        out[how] = e32p
+    return out
+
+
+def stream_bound(args, kw, x):
+    """(ms, by) of one K-STREAM step: its inputs read once (each block as
+    stored: a shared one once), x written once; operations per step and
+    problem: the GP/prior rhs (4 D² + 2 D² at the ends), per family and
+    residual row ΛH (2 K D, or D diagonal), the lower triangle's products
+    and rhs (D (D + 1) + 2 D), then K-BTD's sweep."""
+    from dgpmp2_tpu_torch.core import stream
+
+    tensors = [*args[:9], *(v for v in kw.values() if v is not None)]
+    fams = args[9]
+    for f in fams:
+        tensors += [f.h, f.r, f.w]
+    nbytes = sum(stream._compact(t).numel() * t.element_size()
+                 for t in (*tensors, x))
+    b, t1, d = x.shape
+    per = 4 * d * d
+    for f in fams:
+        k = f.h.shape[-2]
+        per += k * ((d if f.diagonal else 2 * k * d) + d * (d + 1) + 2 * d)
+    flops = b * t1 * (per + 2 * d ** 3 + 2 * d * d + d * d * (3 * d + 1))
+    return bound(nbytes, flops, args[0].dtype)
+
+
+def time_stream(label, problem, smi, rec=None):
+    """K-STREAM's three instances timed on one bench's first GN step
+    (reg 0.1) beside the standard engine's assembly + damping + K-BTD."""
+    from dgpmp2_tpu_torch.core import gn, graph, stream
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve as kb
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    spec, robot, params, th, sdf = problem
+    b = th.shape[0]
+    res = graph.eval_residuals(spec, robot, params, th, sdf)
+    p64 = cast_params(params, torch.float64)
+    res64 = graph.eval_residuals(spec, robot, p64, th.double(), sdf.double())
+    for inst, (pp, rr, dt) in {"float32": (params, res, torch.float32),
+                               "float64": (p64, res64, torch.float64),
+                               "mixed (df32)": (params, res, torch.float64)
+                               }.items():
+        ss = stream.build_stream_static(spec, pp, None, b, dt, 0.1)
+        a, kw = stream.kernel_args(spec, pp, ss, rr)
+        r = {}
+        kernel_ms(r, lambda: k.launch(*a, **kw), lambda: k.plain(*a, **kw),
+                  "btd_stream_kernel")
+        x = k.launch(*a, **kw)
+        r["bound_ms"], r["bound_by"] = stream_bound(a, kw, x)
+        print(f"[{smi}] K-STREAM {label} B={b} T1={spec.num_traj_states} "
+              f"D={spec.state_dim} {inst}: {times_line(r)}")
+        if rec is not None and inst == "float32":
+            rec.update({key: r[key] for key in ("ms", "graph_ms", "event_ms",
+                                                "host_us", "plain_ms",
+                                                "bound_ms", "bound_by")})
+    static = graph.assemble_static(spec, params, torch.float32)
+    reg = torch.tensor(0.1, device=th.device)  # capture refuses a host copy
+
+    def standard():
+        return kb.btd_solve_cuda(*gn.damped_system(
+            *graph.assemble_from_residuals(spec, params, res, static=static),
+            reg))
+
+    ev = cuda_ms(standard, flush=True)
+    _, prof = profile_run(standard)
+    seen = (f"{prof['busy_ms']:.4f} ms busy in {prof['ops']} launches"
+            if prof["ops"] else "no launch seen")
+    print(f"[{smi}] standard engine's step at the {label} (assembly + "
+          f"damping + K-BTD, float32): CUDA graph {graph_ms(standard):.4f} "
+          f"ms (warm L2), host-inclusive events {ev:.4f} ms, profiler "
+          f"{seen}; library call: none computes this step")
+
+
+def engine_plans(dev, smi, bench, bench3, bench_np):
+    """19 (b): the 2-D bench through ``DiffGPMP2Planner.plan`` from the
+    YAMLs with ``engine`` stream and df32 (100 iterations), the 3-D bench
+    with stream; one K-STREAM launch a GN iteration, no K-BTD launch."""
+    from dgpmp2_tpu_torch.core import gn
+
+    imgs, start, goal = bench_np
+    yamls2 = ("gpmp2_2d_params.yaml", "robot_2d.yaml", "env_2d_params.yaml")
+    yamls3 = ("gpmp2_3d_params.yaml", "robot_3d.yaml", "env_3d_params.yaml")
+    for engine in ("stream", "df32"):
+        planner = yaml_planner(dev, yamls2, opt=dict(engine=engine,
+                                                     max_iters=ENGINE_ITERS))
+        n = planner.cfg.max_iters
+        out, _ = drive(f"19 (b) 2-D engine={engine}",
+                       lambda: planner.plan(bench[3], start, goal, bench[4]),
+                       {"btd_stream": n, "sdf_lookup": n + 1})
+        check_plan(f"2-D DiffGPMP2Planner.plan (YAMLs, engine={engine})", out,
+                   n)
+    planner = yaml_planner(dev, yamls3, opt=dict(engine="stream"))
+    n = planner.cfg.max_iters
+    occ, start3, goal3 = bench3d_inputs(B, dev)
+    out, _ = drive("19 (b) 3-D engine=stream",
+                   lambda: planner.plan(bench3[3], start3, goal3, bench3[4]),
+                   {"btd_stream": n, "sdf_lookup3d": n + 1})
+    check_plan("3-D DiffGPMP2Planner.plan (YAMLs, engine=stream)", out, n, 3)
+    # Launches per iteration (profiler), and ms per iteration (CUDA events,
+    # host-paced), of each engine on the 2-D bench.
+    for engine in ("standard", "stream", "df32"):
+        ops = {}
+        for n in (20, 40):
+            cfg = gn.OptimConfig(reg=0.1, max_iters=n, tol_delta=0.0,
+                                 engine=engine)
+            _, prof = profile_run(lambda: gn.plan(*bench, cfg))
+            ops[n] = prof
+        per = (ops[40]["ops"] - ops[20]["ops"]) / 20
+        busy = (ops[40]["busy_ms"] - ops[20]["busy_ms"]) / 20
+        t50, t200, ms = iter_ms(lambda n: gn.plan(*bench, gn.OptimConfig(
+            reg=0.1, max_iters=n, tol_delta=0.0, engine=engine)))
+        print(f"[{smi}] 2-D bench engine={engine}: {per:.1f} launches a GN "
+              f"iteration, device busy {busy:.4f} ms an iteration; "
+              f"{ms:.4f} ms an iteration "
+              f"(host-paced, CUDA events: 50 iterations {t50:.3f} ms, 200 "
+              f"{t200:.3f} ms); K-STREAM in the loop "
+              f"{json.dumps(ops[40].get('btd_stream'))}")
+
+
+def df32_goldens(dev, smi):
+    """The mixed instance on ``tests/goldens/golden_ref_step.npz`` env 1, 12
+    iterates along the float64 path: the df32 step within 1e-4 of the
+    float64 step and within 2x the floor (float32 residuals, float64
+    assembly and solve) + 1e-7, as tests/test_twofloat.py holds JAX's."""
+    from dgpmp2_tpu_torch.core import df32, gn, graph
+    from dgpmp2_tpu_torch.ops import sdf as sdf_ops
+    from dgpmp2_tpu_torch.robots import PointRobot2D
+
+    g = np.load(GOLDEN_REF)
+    spec = graph.GraphSpec(total_time_step=int(g["total_time_step"]),
+                           total_time_sec=float(g["total_time_sec"]),
+                           x_lims=tuple(float(v) for v in g["x_lims"]),
+                           y_lims=tuple(float(v) for v in g["y_lims"]))
+    robot = PointRobot2D(sphere_radii=(float(g["sphere_radius"]),))
+
+    def params(dtype):
+        return graph.default_params(
+            spec, robot, torch.tensor(g["start_1"], dtype=dtype, device=dev),
+            torch.tensor(g["goal_1"], dtype=dtype, device=dev),
+            qc_inv=g["qc_inv"], cost_sigma=float(g["cost_sigma"]),
+            epsilon_dist=float(g["epsilon_dist"]), k_s=g["k_s"],
+            k_g=g["k_g"], dtype=dtype)
+
+    p64, p32 = params(torch.float64), params(torch.float32)
+    sdf64 = torch.tensor(g["sdf_1"], device=dev)[None]
+    sdf32 = sdf64.float()
+    th = torch.tensor(g["th_1"][0], device=dev)
+    reg = float(g["reg"])
+    worst = 0.0
+    sdf_ops.set_oob_mode("reference")
+    try:
+        for i in range(12):
+            th32 = th.float()
+            dth64 = gn.gn_step(spec, robot, p64, th, sdf64, reg)
+            d_df = df32.df32_gn_step(spec, robot, p32, th32, sdf32, reg)
+            res = graph.eval_residuals(spec, robot, p32, th32, sdf32)
+            d_fl = df32.floor_step(spec, p32, res, reg)
+            e_df = float((d_df.double() - dth64).abs().max())
+            e_fl = float((d_fl - dth64).abs().max())
+            worst = max(worst, e_df)
+            if not e_df <= 2.0 * e_fl + 1e-7:
+                raise AssertionError(f"df32 golden iterate {i}: {e_df}, "
+                                     f"{e_fl}")
+            th = th + dth64
+    finally:
+        sdf_ops.set_oob_mode("intended")
+    print(f"df32 on golden_ref_step env 1, 12 iterates: worst |dθ_df32 - "
+          f"dθ64| {worst:.3e} (tol 1e-4), each within 2x the floor + 1e-7")
+    if not worst <= 1e-4:
+        raise AssertionError(f"df32 golden: {worst}")
+
+
+def stream_gradient(dev, bench_np, b=64, iters=5):
+    """19 (d): the float64 gradient of a 5-iteration stream plan with
+    respect to obs_inv and q_inv (B=64) on the card against the CPU's."""
+    import dataclasses
+
+    from dgpmp2_tpu_torch.core import gn
+
+    imgs, start, goal = bench_np
+    b = min(b, len(imgs))
+    w = np.random.default_rng(19).standard_normal((b, T + 1, 4))
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        spec, robot, params, th, sdf = port_problem(
+            imgs[:b], start[:b], goal[:b], where, torch.float64)
+        obs = params.obs_inv.clone().requires_grad_(True)
+        q = params.q_inv.clone().requires_grad_(True)
+        out = gn.plan(spec, robot, dataclasses.replace(
+            params, obs_inv=obs, q_inv=q), th, sdf, gn.OptimConfig(
+            reg=0.1, max_iters=iters, tol_delta=0.0, engine="stream"))
+        (torch.sum(out.th * torch.tensor(w, device=where))
+         + torch.sum(out.err_ext_per_iter)).backward()
+        grads.append((obs.grad.cpu(), q.grad.cpu()))
+    errs = [rel_err(g, c) for g, c in zip(*grads)]
+    print(f"19 (d) float64 gradient of a {iters}-iteration stream plan "
+          f"(B={b}) on the card against the CPU: obs_inv {errs[0]:.3e}, "
+          f"q_inv {errs[1]:.3e} (tol 1e-10)")
+    if not max(errs) <= 1e-10:
+        raise AssertionError(f"stream gradient: {errs}")
+
+
+def stream_engines(dev, smi, bench, bench3, problems, bench_np, rec):
+    """Phase 19: K-STREAM in its three instances against its plain version
+    on every path's first-iteration residuals and at the edge shapes; the
+    df32 goldens; the main path under both engines at full width; times;
+    the stream engine's gradient."""
+    phase("19 engines: stream and df32")
+    rng = np.random.default_rng(19)
+    # (a) The kernel against its plain version.
+    paths = {"2-D bench": bench, "3-D bench": bench3,
+             **{name: problems[name] for name in STREAM_PATHS}}
+    for name, problem in paths.items():
+        e = check_stream(name, problem, rng)
+        if name == "2-D bench":
+            rec["max_abs_err"] = e["GN"]
+        torch.cuda.empty_cache()
+    imgs, start, goal = bench_np
+    for b, t1 in STREAM_EDGES:
+        check_stream(f"edge B={b} T1={t1}", port_problem(
+            imgs[:b], start[:b], goal[:b], dev, torch.float32, t=t1 - 1), rng)
+    df32_goldens(dev, smi)
+    # (b) The main path at full width under both engines.
+    engine_plans(dev, smi, bench, bench3, bench_np)
+    # (c) Times at the 2-D and 3-D benches.
+    time_stream("2-D bench", bench, smi, rec)
+    time_stream("3-D bench", bench3, smi)
+    # (d) The gradient.
+    stream_gradient(dev, bench_np)
+
+
+def stream_engines_alone(dev, smi):
+    """Phase 19 without phases 3-18: the benches and phase 8's problems
+    built here (about 45 s after the build)."""
+    bench_np = bench_inputs(B)
+    occ, start3, goal3 = bench3d_inputs(B, dev)
+    problems = {name: problem_of(*v) for name, v in
+                constrained_problems(dev, bench_np).items()}
+    stream_engines(dev, smi, port_problem(*bench_np, dev, torch.float32),
+                   port_problem(occ, start3, goal3, dev, torch.float32),
+                   problems, bench_np, {})
+
+
 def main():
     smi = device_info()
     dev = torch.device("cuda", 0)
@@ -4663,6 +5073,12 @@ def main():
             "replaces": "none: the JAX package replays XLA "
                         "(dgpmp2_tpu/ops/pallas/sdf_lookup.py:120 "
                         "_mxu_replay_bwd)"},
+        "btd_stream": {
+            "source": "dgpmp2_tpu_torch/csrc/btd_stream.cu",
+            "replaces": "dgpmp2_tpu/ops/pallas/btd_stream.py:117 and :189 "
+                        "with the stream step's assembly "
+                        "(dgpmp2_tpu/core/stream.py:219 stream_step)",
+            "library_ms": None},
     }
     for name, rec in recs.items():
         rec.update(name=name, route="cuda")
@@ -4688,6 +5104,8 @@ def main():
     mesh_execution(dev, smi)
     examples(dev, smi)
     campaigns(dev, smi)
+    stream_engines(dev, smi, bench, bench3, problems, bench_np,
+                   recs["btd_stream"])
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
     for rec in recs.values():

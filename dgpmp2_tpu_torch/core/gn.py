@@ -8,9 +8,11 @@ differentiable through the unrolled iterations.  ``err`` (the convergence
 metric) is detached; ``err_ext`` (fixed external covariances) carries
 gradients.
 
-There is one linear-system engine, the standard one: assembly in
-``core/graph.py`` and the solve in ``ops/tridiag.btd_solve_auto`` (the K-BTD
-kernel for CUDA tensors).
+Three linear-system engines (``OptimConfig.engine``): the standard one,
+assembly in ``core/graph.py`` and the solve in ``ops/tridiag.btd_solve_auto``
+(the K-BTD kernel for CUDA tensors); the stream engine (``core/stream.py``),
+assembly and solve in one kernel, K-STREAM; and df32 (``core/df32.py``),
+float32 residuals with a float64 assembly and solve.
 """
 from __future__ import annotations
 
@@ -35,22 +37,33 @@ class OptimConfig:
     conv_check_dtheta: bool = True
     conv_check_err: bool = False
     lm_lambda_init: float = 1e-4
-    # "auto" and "standard" both mean the standard engine.  The JAX
-    # package's "stream" layout and "df32" two-float engine exist for the
-    # TPU's vector layout and its lack of float64; neither applies here.
+    # Linear-system engine inside :func:`plan`:
+    #   "auto"     - the standard engine, on every device (see resolve_engine).
+    #   "standard" - assembly (core/graph.py) + damping + K-BTD solve.
+    #   "stream"   - assembly, damping and solve in one K-STREAM launch per
+    #                iteration (core/stream.py); its plain version on the CPU.
+    #   "df32"     - float32 residuals, float64 assembly and solve
+    #                (core/df32.py): steps of float64 quality in a float32
+    #                plan; refuses float64 plans, GP interpolation and the
+    #                workspace goal.
     engine: str = "auto"
 
 
-def resolve_engine(engine: str) -> str:
-    """Map ``engine`` to the one engine of the port, or raise."""
-    if engine in ("stream", "df32"):
-        raise NotImplementedError(
-            f"engine={engine!r} is a TPU engine of dgpmp2_tpu and is not "
-            "ported (ROADMAP.md, 'Not to port'); use 'auto' or 'standard'"
-        )
-    if engine not in ("auto", "standard"):
-        raise ValueError(f"unknown engine {engine!r}; expected 'auto' or 'standard'")
-    return "standard"
+ENGINES = ("auto", "standard", "stream", "df32")
+
+
+def resolve_engine(engine: str, dtype: torch.dtype | None = None) -> str:
+    """Map ``engine`` to a concrete engine; unknown names raise.
+
+    ``auto`` is the standard engine on every device and dtype.  The JAX
+    package picks the stream engine on its TPU, where it measured ~9x the
+    standard path; which engine the card should pick is left to a
+    measurement of both at a benchmark cell.  ``dtype`` is taken for the JAX
+    signature and does not change the answer.
+    """
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")
+    return "standard" if engine == "auto" else engine
 
 
 class PlanResult(NamedTuple):
@@ -130,7 +143,10 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
         raise ValueError(
             f"unknown method {cfg.method!r}; expected 'gauss_newton' or 'lm'"
         )
-    resolve_engine(cfg.engine)
+    engine = resolve_engine(cfg.engine, th_init.dtype)
+    if engine == "df32" and th_init.dtype != torch.float32:
+        raise ValueError("engine='df32' is a float32 accuracy mode; use the "
+                         "standard engine for float64 runs")
     if params_fix is None:
         params_fix = params
     # The lookup kernels read a contiguous SDF batch; made so once here, a
@@ -157,6 +173,17 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
     res = residuals(th_init)
     err0 = weighted_err(res)
     static = graph_lib.assemble_static(spec, params, dtype)
+    if engine in ("stream", "df32"):
+        from dgpmp2_tpu_torch.core import df32 as df32_lib
+        from dgpmp2_tpu_torch.core import stream as stream_lib
+
+        # The per-plan blocks once, GN's scalar damping folded in (LM's is
+        # per problem and per iteration); df32 holds them in float64 (its
+        # CPU step, the plain float64 solve, does not read them).
+        ss = stream_lib.build_stream_static(
+            spec, params, static if engine == "stream" else None, b,
+            dtype if engine == "stream" else torch.float64,
+            reg=0.0 if lm else cfg.reg)
     th, err_old = th_init, err0
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     lam = torch.full((b,), cfg.lm_lambda_init, dtype=dtype, device=dev)
@@ -166,11 +193,21 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
         best_th, best_s = th_init, _best_score(res).detach()
     errs, errs_ext = [], []
     for _ in range(cfg.max_iters):
-        diag, off, rhs = graph_lib.assemble_from_residuals(
-            spec, params, res, dtype=dtype, static=static)
-        diag, off, rhs = damped_system(diag, off, rhs, lam if lm else reg,
-                                       trust_region=lm)
-        dth = tridiag.btd_solve_auto(diag, off, rhs)
+        delta = lam if lm else reg
+        if engine == "stream":
+            dth = stream_lib.stream_step(spec, params, ss, res, delta,
+                                         trust_region=lm)
+        elif engine == "df32":
+            # GN's damping as the float64 value of cfg.reg, as in ss.
+            dth = df32_lib.df32_step_from_residuals(
+                spec, params, res, lam if lm else cfg.reg, trust_region=lm,
+                ss=ss)
+        else:
+            diag, off, rhs = graph_lib.assemble_from_residuals(
+                spec, params, res, dtype=dtype, static=static)
+            diag, off, rhs = damped_system(diag, off, rhs, delta,
+                                           trust_region=lm)
+            dth = tridiag.btd_solve_auto(diag, off, rhs)
         th_prop = th + dth
         res_prop = residuals(th_prop)
         err_prop = weighted_err(res_prop)

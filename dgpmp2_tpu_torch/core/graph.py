@@ -368,6 +368,46 @@ def _contract(x, y, dim, matmul, a, b):
     return matmul(a.to(dt), b.to(dt))
 
 
+def _lam_full(w, h):
+    """Λh for a full (K, K) inverse covariance ``w`` and rows ``h``."""
+    return _contract(w[..., :, :, None], h[..., None, :, :], -2,
+                     lambda a, b: a @ b, w, h)
+
+
+def workspace_goal_terms(params: GraphParams, res: FactorResiduals):
+    """The workspace goal's Gauss terms at the last state: HᵀΛH (B, D, D)
+    and HᵀΛr (B, D)."""
+    lam_hw = _lam_full(params.wg_inv, res.h_wg)  # (B, W, D)
+    return (torch.sum(res.h_wg[..., :, :, None] * lam_hw[..., :, None, :],
+                      dim=-3),
+            torch.sum(lam_hw * res.r_wg[..., None], dim=-2))
+
+
+def gp_interp_terms(spec: GraphSpec, params: GraphParams,
+                    res: FactorResiduals, dtype: torch.dtype):
+    """The GP-interpolated obstacle factors' terms, each summed per segment
+    (B, T, ...): diag of the left and the right support state, their
+    coupling (added to ``off``), and the left and right rhs.  These binary
+    factors on (x_t, x_{t+1}) chain H through the interpolation matrices:
+    a_L = Λᵀhᵀ and a_P = Ψᵀhᵀ."""
+    lam_m, psi_m = factors.gp_interp_coeffs(
+        spec.dof, spec.dt, spec.num_inter, dtype, res.r_gp.device)
+    h_i = res.h_obsi  # (B, T, nip, L, D) w.r.t. the interpolated state
+    lam_t = lam_m.transpose(-1, -2)[:, None, :, :]  # (nip, 1, D, D)
+    psi_t = psi_m.transpose(-1, -2)[:, None, :, :]
+    a_l = torch.sum(lam_t * h_i[..., None, :], dim=-1)  # (B,T,nip,L,D)
+    a_p = torch.sum(psi_t * h_i[..., None, :], dim=-1)
+    w = params.obs_inv[..., :-1, None, :, :]  # left-support Λ_obs
+    lam_al = _lam_full(w, a_l)
+    lam_ap = _lam_full(w, a_p)
+    lam_r = torch.sum(w * res.r_obsi[..., None, :], dim=-1)  # (B,T,nip,L)
+    return (torch.sum(a_l[..., :, None] * lam_al[..., None, :], dim=(-4, -3)),
+            torch.sum(a_p[..., :, None] * lam_ap[..., None, :], dim=(-4, -3)),
+            torch.sum(a_l[..., :, None] * lam_ap[..., None, :], dim=(-4, -3)),
+            torch.sum(a_l * lam_r[..., None], dim=(-3, -2)),
+            torch.sum(a_p * lam_r[..., None], dim=(-3, -2)))
+
+
 def assemble_from_residuals(spec: GraphSpec, params: GraphParams,
                             res: FactorResiduals,
                             dtype: torch.dtype | None = None,
@@ -399,58 +439,34 @@ def assemble_from_residuals(spec: GraphSpec, params: GraphParams,
                                 h, lam_h)
         return diag, rhs + torch.sum(lam_h * r[..., None], dim=-2)
 
-    def lam_full(w, h):  # full (K, K) inverse covariance times H
-        return _contract(w[..., :, :, None], h[..., None, :, :], -2,
-                         lambda a, b: a @ b, w, h)
-
     diag, rhs = unary_gauss(diag, rhs, res.h_obs, res.r_obs,
-                            lam_full(params.obs_inv, res.h_obs))
+                            _lam_full(params.obs_inv, res.h_obs))
     if spec.non_holonomic:
         h_dyn = res.h_dyn[..., None, :]  # (B, T+1, 1, D)
         diag, rhs = unary_gauss(diag, rhs, h_dyn, res.r_dyn[..., None],
                                 params.dyn_inv[..., None, None] * h_dyn)
     if spec.use_vel_limits:
         diag, rhs = unary_gauss(diag, rhs, res.h_vel, res.r_vel,
-                                lam_full(params.vel_inv, res.h_vel))
+                                _lam_full(params.vel_inv, res.h_vel))
     if spec.use_joint_limits:
         diag, rhs = unary_gauss(diag, rhs, res.h_jl, res.r_jl,
-                                lam_full(params.jl_inv, res.h_jl))
+                                _lam_full(params.jl_inv, res.h_jl))
     if spec.use_self_collision:
         diag, rhs = unary_gauss(diag, rhs, res.h_self, res.r_self,
                                 params.self_inv[..., None] * res.h_self)
     if spec.use_workspace_goal:  # unary at the last state
-        lam_hw = lam_full(params.wg_inv, res.h_wg)  # (B, W, D)
-        diag = diag + _pad_time(torch.sum(
-            res.h_wg[..., :, :, None] * lam_hw[..., :, None, :],
-            dim=-3)[..., None, :, :], t, 0)
-        rhs = rhs + _pad_time(torch.sum(lam_hw * res.r_wg[..., None],
-                                        dim=-2)[..., None, :], t, 0, vec=True)
+        d_wg, r_wg = workspace_goal_terms(params, res)
+        diag = diag + _pad_time(d_wg[..., None, :, :], t, 0)
+        rhs = rhs + _pad_time(r_wg[..., None, :], t, 0, vec=True)
     off = static.off
     if spec.use_gp_inter:
-        # Binary factors on (x_t, x_{t+1}): H chains through the
-        # interpolation matrices, a_L = Λᵀhᵀ and a_P = Ψᵀhᵀ.  ``off`` becomes
-        # a new tensor; the static blocks stay as they are.
-        lam_m, psi_m = factors.gp_interp_coeffs(
-            spec.dof, spec.dt, spec.num_inter, dtype, res.r_gp.device)
-        h_i = res.h_obsi  # (B, T, nip, L, D) w.r.t. the interpolated state
-        lam_t = lam_m.transpose(-1, -2)[:, None, :, :]  # (nip, 1, D, D)
-        psi_t = psi_m.transpose(-1, -2)[:, None, :, :]
-        a_l = torch.sum(lam_t * h_i[..., None, :], dim=-1)  # (B,T,nip,L,D)
-        a_p = torch.sum(psi_t * h_i[..., None, :], dim=-1)
-        w = params.obs_inv[..., :-1, None, :, :]  # left-support Λ_obs
-        lam_al = lam_full(w, a_l)
-        lam_ap = lam_full(w, a_p)
-        lam_r = torch.sum(w * res.r_obsi[..., None, :], dim=-1)  # (B,T,nip,L)
-        diag = diag + _pad_time(torch.sum(
-            a_l[..., :, None] * lam_al[..., None, :], dim=(-4, -3)), 0, 1)
-        diag = diag + _pad_time(torch.sum(
-            a_p[..., :, None] * lam_ap[..., None, :], dim=(-4, -3)), 1, 0)
-        off = off + torch.sum(a_l[..., :, None] * lam_ap[..., None, :],
-                              dim=(-4, -3))
-        rhs = rhs + _pad_time(torch.sum(a_l * lam_r[..., None], dim=(-3, -2)),
-                              0, 1, vec=True)
-        rhs = rhs + _pad_time(torch.sum(a_p * lam_r[..., None], dim=(-3, -2)),
-                              1, 0, vec=True)
+        # ``off`` becomes a new tensor; the static blocks stay as they are.
+        d_l, d_p, d_off, r_l, r_p = gp_interp_terms(spec, params, res, dtype)
+        diag = diag + _pad_time(d_l, 0, 1)
+        diag = diag + _pad_time(d_p, 1, 0)
+        off = off + d_off
+        rhs = rhs + _pad_time(r_l, 0, 1, vec=True)
+        rhs = rhs + _pad_time(r_p, 1, 0, vec=True)
     return diag, off, rhs
 
 
@@ -586,8 +602,13 @@ def default_params(spec: GraphSpec, robot: RobotModel, start: torch.Tensor,
     def iso(n, k):  # I/k² in dtype
         return torch.eye(n, dtype=dtype, device=dev) / tensor(k) ** 2
 
-    qc = tensor(qc_inv)
-    q_inv = factors.gp_q_inv(qc.expand(b, t, dof, dof), spec.dt)
+    qc = tensor(qc_inv).expand(b, t, dof, dof)
+    # Q⁻¹ formed once per distinct Q_c⁻¹: a Q_c⁻¹ that every problem (or
+    # step) shares gives a Q⁻¹ read with stride 0 there (the stream engine
+    # then reads its per-plan blocks from one copy).
+    q_inv = factors.gp_q_inv(qc[tuple(
+        slice(0, 1) if s == 0 else slice(None) for s in qc.stride()[:2])],
+        spec.dt).expand(b, t, d, d)
     eye_d = torch.eye(d, dtype=dtype, device=dev)
     obs = torch.eye(l, dtype=dtype, device=dev) / float(cost_sigma) ** 2
     opt = {}

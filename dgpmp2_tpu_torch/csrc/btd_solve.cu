@@ -40,12 +40,8 @@
 //   lanes and keeps a lane's state small: 4 D + 2 values (a row of C_t, of
 //   [U_t | y_t], of X_{t-1} and a column of U_{t-1}), 34 at D = 8 and 66 at
 //   D = 16.
-// - Gauss-Jordan on the augmented rows [C_t | U_t y_t] in place of a Cholesky
-//   and two triangular solves: pivot j and row j are broadcast from lane j, the
-//   pivot's reciprocal is taken once (__frcp_rn / __drcp_rn, no divide and no
-//   square root), and every other row is updated in parallel.  One step is D
-//   dependent pivots, not 3 D, and leaves X_t and z_t in the RHS columns.
-// - The back sweep is one matvec per step: no triangular solve, no division.
+// - Gauss-Jordan on each step's augmented rows and a back sweep of one
+//   matvec per step (btd_sweep.cuh, shared with K-STREAM).
 // - Fill the card: one warp per block, 32 / G problems per warp, so B = 1024 is
 //   128 blocks at D = 4, 256 at D = 5-8 and 512 at D = 9-16 over the 132
 //   SMs.
@@ -87,104 +83,9 @@
 
 #include <cstddef>
 
+#include "btd_sweep.cuh"
+
 namespace {
-
-constexpr int kWarp = 32;
-constexpr int kStages = 4;
-constexpr int kStaticSmem = 48 * 1024;  // bytes of static shared memory
-constexpr int kNarrowMax = 16;          // largest D of btd_solve_kernel
-constexpr int kMaxD = 32;               // largest D of btd_solve_kernel_wide
-constexpr int kBlockX = 32;             // past kMaxD: threads along a row
-constexpr int kBlockY = 8;              // and rows at a time
-
-template <int D>
-__host__ __device__ constexpr int group_lanes() {
-  return D <= 2 ? 2 : D <= 4 ? 4 : D <= 8 ? 8 : 16;
-}
-
-// Elements of one lane's slot of a ring stage: a row of diag, a row of off,
-// a column of off, a column of diag, an element of rhs (the back sweep: a
-// row of X_t, z_t[r]), each piece padded to 16 bytes.
-template <typename T, int D>
-__host__ __device__ constexpr int ring_slot() {
-  const int p = 16 / static_cast<int>(sizeof(T));
-  return 4 * ((D + p - 1) / p * p) + p;
-}
-
-// kStages, or as many stages as fit the static shared-memory limit (3 at
-// D = 11-14 and 2 at D = 15, 16 in float64).
-template <typename T, int D>
-__host__ __device__ constexpr int ring_stages() {
-  const int fit =
-      kStaticSmem / (kWarp * ring_slot<T, D>() * static_cast<int>(sizeof(T)));
-  return fit < kStages ? fit : kStages;
-}
-
-__device__ __forceinline__ float recip(float v) { return __frcp_rn(v); }
-__device__ __forceinline__ double recip(double v) { return __drcp_rn(v); }
-
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
-               "l"(src), "n"(BYTES)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Widest piece (4, 8 or 16 bytes) that tiles a row of N elements of T; rows
-// start at multiples of their own size, so the pieces stay aligned.
-template <typename T, int N>
-__host__ __device__ constexpr int piece_bytes() {
-  return (N * sizeof(T)) % 16 == 0 ? 16 : (N * sizeof(T)) % 8 == 0 ? 8 : 4;
-}
-
-template <int BYTES>
-struct Piece;
-template <>
-struct Piece<4> {
-  using type = float;
-};
-template <>
-struct Piece<8> {
-  using type = float2;
-};
-template <>
-struct Piece<16> {
-  using type = float4;
-};
-
-template <typename T, int N>
-__device__ __forceinline__ void cp_row(T* dst, const T* src) {
-  constexpr int V = piece_bytes<T, N>();
-#pragma unroll
-  for (int i = 0; i < static_cast<int>(N * sizeof(T)) / V; ++i)
-    cp_async<V>(reinterpret_cast<char*>(dst) + i * V,
-                reinterpret_cast<const char*>(src) + i * V);
-}
-
-template <typename T, int N>
-__device__ __forceinline__ void store_row(T* dst, const T (&v)[N]) {
-  constexpr int V = piece_bytes<T, N>();
-  constexpr int PER = V / static_cast<int>(sizeof(T));
-  using W = typename Piece<V>::type;
-#pragma unroll
-  for (int i = 0; i < N / PER; ++i) {
-    W w;
-    T* e = reinterpret_cast<T*>(&w);
-#pragma unroll
-    for (int q = 0; q < PER; ++q) e[q] = v[i * PER + q];
-    reinterpret_cast<W*>(dst)[i] = w;
-  }
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kWarp)
@@ -258,33 +159,8 @@ __global__ void __launch_bounds__(kWarp)
       bm[j] = valid && has_next ? s[DP + j] : T(0);
     }
     bm[D] = valid ? s[4 * DP] : T(0);
-    // Schur update with the previous step's X and z, broadcast row by row.
-    if (t > 0) {
-#pragma unroll
-      for (int k = 0; k < D; ++k) {
-        bm[D] -= ucp[k] * __shfl_sync(0xffffffffu, zp, k, G);
-#pragma unroll
-        for (int j = 0; j < D; ++j)
-          c[j] -= ucp[k] * __shfl_sync(0xffffffffu, xp[j], k, G);
-      }
-    }
-    // Gauss-Jordan: C_t becomes I, [U_t | y_t] becomes [X_t | z_t].
-#pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const T inv = recip(__shfl_sync(0xffffffffu, c[j], j, G));
-      const bool me = r == j;
-      const T f = me ? T(0) : c[j] * inv;
-#pragma unroll
-      for (int k = j + 1; k < D; ++k) {
-        const T pk = __shfl_sync(0xffffffffu, c[k], j, G);
-        c[k] = me ? pk * inv : c[k] - f * pk;
-      }
-#pragma unroll
-      for (int m = 0; m <= D; ++m) {
-        const T pm = __shfl_sync(0xffffffffu, bm[m], j, G);
-        bm[m] = me ? pm * inv : bm[m] - f * pm;
-      }
-    }
+    if (t > 0) narrow_schur<T, D, G>(c, bm, xp, ucp, zp);
+    narrow_pivot<T, D, G>(c, bm, r);
 #pragma unroll
     for (int j = 0; j < D; ++j) {
       xp[j] = bm[j];
@@ -302,66 +178,15 @@ __global__ void __launch_bounds__(kWarp)
   // asynchronous copies that read them back.
   cp_wait<0>();
   __threadfence_block();
-  const int nb = steps - 1;
-  auto prefetch_bwd = [&](int i) {  // i-th back step: t = nb - 1 - i
-    if (valid && i < nb) {
-      const size_t t = static_cast<size_t>(nb - 1 - i);
-      T* s = ring[i % S][lane];
-      cp_row<T, D>(s, gn + t * DD);
-      cp_async<SZ>(s + DP, xb + t * D);
-    }
-    cp_commit();
-  };
-#pragma unroll
-  for (int i = 0; i < S - 1; ++i) prefetch_bwd(i);
-  T xn = zp;
-  for (int i = 0; i < nb; ++i) {
-    prefetch_bwd(i + S - 1);
-    cp_wait<S - 1>();
-    const T* s = ring[i % S][lane];
-    T acc0 = valid ? s[DP] : T(0), acc1 = T(0);
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      const T xk = __shfl_sync(0xffffffffu, xn, k, G);
-      const T g = valid ? s[k] : T(0);
-      if (k % 2 == 0)
-        acc0 -= g * xk;
-      else
-        acc1 -= g * xk;
-    }
-    xn = acc0 + acc1;
-    if (valid) xb[static_cast<size_t>(nb - 1 - i) * D] = xn;
-  }
+  narrow_back_sweep<T, T, D, G, S, SLOT>(ring, lane, valid, gn, xb, xb, steps,
+                                         zp);
 }
 
 // D = 17-32: one warp per problem, lane r owns row r (lanes r >= d help load
 // and otherwise idle).  Shared memory per warp: the rows [C_t | U_t | y_t]
 // of this step and [. | X_{t-1} | z_{t-1}] of the last one (two buffers of
-// kWarp rows, kWideRow columns: an odd stride, so lane r's own column is
-// free of bank conflicts), and U_{t-1} (row-major, stride kWarp + 1); 41.7 KB
-// in float64, under the static limit.
-constexpr int kWideRow = 2 * kMaxD + 1;
-
-// row[k] -= f * piv[k] for k in [k0, k1), four columns a round with every
-// load issued before the stores: the two rows may be the same array, so
-// the compiler would otherwise wait out each store before the next load.
-template <typename T>
-__device__ __forceinline__ void sub_scaled(T* row, const T* piv, T f, int k0,
-                                           int k1) {
-  int k = k0;
-  for (; k + 4 <= k1; k += 4) {
-    T p[4], a[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      p[q] = piv[k + q];
-      a[q] = row[k + q];
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) row[k + q] = a[q] - f * p[q];
-  }
-  for (; k < k1; ++k) row[k] -= f * piv[k];
-}
-
+// kWarp rows, kWideRow columns), and U_{t-1} (row-major, stride kWarp + 1);
+// 41.7 KB in float64, under the static limit.
 template <typename T>
 __global__ void __launch_bounds__(kWarp)
     btd_solve_kernel_wide(const T* __restrict__ diag,
@@ -398,50 +223,14 @@ __global__ void __launch_bounds__(kWarp)
     }
     if (own) cur[r][cz] = rv[static_cast<size_t>(t) * d + r];
     __syncwarp();
-    // Schur update of row r: C_t -= U_{t-1}^T X_{t-1}, y_t -= U_{t-1}^T z_{t-1},
-    // one row of X_{t-1} at a time.
-    if (t > 0 && own) {
-      for (int k = 0; k < d; ++k) {
-        const T u = up[k][r];
-        cur[r][cz] -= u * prev[k][cz];
-        sub_scaled(cur[r], prev[k] + d, u, 0, d);
-      }
-    }
-    __syncwarp();
-    if (own)
-      for (int k = 0; k < d; ++k) up[r][k] = cur[r][d + k];
-    // Gauss-Jordan: C_t becomes I, [U_t | y_t] becomes [X_t | z_t].  Rows
-    // r != j read pivot row j before lane j scales it.
-    for (int j = 0; j < d; ++j) {
-      const T inv = recip(cur[j][j]);
-      if (own && r != j)
-        sub_scaled(cur[r], cur[j], cur[r][j] * inv, j + 1, cz + 1);
-      __syncwarp();
-      if (r == j) {
-#pragma unroll 4
-        for (int k = j + 1; k <= cz; ++k) cur[j][k] *= inv;
-      }
-      __syncwarp();
-    }
+    wide_step<T>(cur, prev, up, t, d, r);
     if (own) {
       xb[static_cast<size_t>(t) * d + r] = cur[r][cz];
       if (has_next)
         for (int k = 0; k < d; ++k) gn[t * dd + r * d + k] = cur[r][d + k];
     }
   }
-
-  // Back sweep from x_{T-1} = z_{T-1}: x_t = z_t - X_t x_{t+1}; each lane
-  // reads back its own row of X_t and its own z_t.
-  T xn = own ? xb[static_cast<size_t>(steps - 1) * d + r] : T(0);
-  for (int t = steps - 2; t >= 0; --t) {
-    T acc = own ? xb[static_cast<size_t>(t) * d + r] : T(0);
-    for (int k = 0; k < d; ++k) {
-      const T xk = __shfl_sync(0xffffffffu, xn, k);
-      if (own) acc -= gn[t * dd + r * d + k] * xk;
-    }
-    xn = acc;
-    if (own) xb[static_cast<size_t>(t) * d + r] = xn;
-  }
+  wide_back_sweep<T, T>(gn, xb, xb, steps, d, r);
 }
 
 template <typename T, int D>
@@ -462,13 +251,6 @@ void launch_narrow(const T* diag, const T* off, const T* rhs, T* x, T* gain,
   } else if constexpr (D < kNarrowMax) {
     launch_narrow<T, D + 1>(diag, off, rhs, x, gain, batch, steps, d, s);
   }
-}
-
-// Elements (double) of btd_solve_kernel_block's buffer per problem: two
-// steps of D rows of 2 D + 1 columns and U_{t-1} with D + 1 columns.
-__host__ __device__ inline size_t block_elems(int d) {
-  return static_cast<size_t>(d) * (2 * d + 1) * 2 +
-         static_cast<size_t>(d) * (d + 1);
 }
 
 // D > kMaxD: one block of kBlockX x kBlockY threads per problem, x over the
@@ -521,44 +303,7 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
       if (tx == 0) cur[i * w + cz] = rv[static_cast<size_t>(t) * d + i];
     }
     __syncthreads();
-    // Schur update: C_t -= U_{t-1}^T X_{t-1}, y_t -= U_{t-1}^T z_{t-1}; the
-    // column c = d stands for y.
-    if (t > 0) {
-      for (int r = ty; r < d; r += kBlockY) {
-        for (int c = tx; c <= d; c += kBlockX) {
-          const int col = c < d ? c : cz;
-          const int pcol = c < d ? d + c : cz;
-          double acc = cur[r * w + col];
-          for (int k = 0; k < d; ++k)
-            acc -= up[k * (d + 1) + r] * prev[k * w + pcol];
-          cur[r * w + col] = acc;
-        }
-      }
-      __syncthreads();
-    }
-    for (int i = ty; i < d; i += kBlockY)
-      for (int c = tx; c < d; c += kBlockX)
-        up[i * (d + 1) + c] = cur[i * w + d + c];
-    __syncthreads();
-    // Gauss-Jordan without scaling: pivot j takes cur[r][j] / cur[j][j]
-    // times row j from every other row, over columns j + 1 .. 2d.  Row j
-    // and column j are only read in pass j, so one barrier per pivot; each
-    // row is divided by its pivot at the end: [X_t | z_t].
-    for (int j = 0; j < d; ++j) {
-      const double inv = recip(cur[j * w + j]);
-      for (int r = ty; r < d; r += kBlockY) {
-        if (r == j) continue;
-        const double f = cur[r * w + j] * inv;
-        for (int k = j + 1 + tx; k <= cz; k += kBlockX)
-          cur[r * w + k] -= f * cur[j * w + k];
-      }
-      __syncthreads();
-    }
-    for (int r = ty; r < d; r += kBlockY) {
-      const double inv = recip(cur[r * w + r]);
-      for (int k = d + tx; k <= cz; k += kBlockX) cur[r * w + k] *= inv;
-    }
-    __syncthreads();
+    block_step(cur, prev, up, t, d);
     for (int r = ty; r < d; r += kBlockY) {
       if (has_next)
         for (int c = tx; c < d; c += kBlockX)
@@ -567,39 +312,8 @@ __global__ void __launch_bounds__(kBlockX * kBlockY)
         xb[static_cast<size_t>(t) * d + r] = static_cast<T>(cur[r * w + cz]);
     }
   }
-
-  // Back sweep from x_{T-1} = z_{T-1}: x_t = z_t - X_t x_{t+1}, x_{t+1} held
-  // in the buffer of U (free now), a row per thread.
-  const int tid = ty * kBlockX + tx;
-  const int nt = kBlockX * kBlockY;
-  double* xa = up;
-  double* xn = up + d;
-  const double* last = base + ((steps - 1) & 1) * step_elems;
-  for (int i = tid; i < d; i += nt) xa[i] = last[i * w + cz];
-  __syncthreads();
-  for (int t = steps - 2; t >= 0; --t) {
-    const size_t tdd = static_cast<size_t>(t) * dd;
-    for (int r = tid; r < d; r += nt) {
-      double acc = xb[static_cast<size_t>(t) * d + r];
-      for (int k = 0; k < d; ++k) acc -= double(gn[tdd + r * d + k]) * xa[k];
-      xn[r] = acc;
-      xb[static_cast<size_t>(t) * d + r] = static_cast<T>(acc);
-    }
-    __syncthreads();
-    double* tmp = xa;
-    xa = xn;
-    xn = tmp;
-  }
-}
-
-// Largest dynamic shared memory a block may opt in to on the current device.
-int smem_optin(int* bytes) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                               dev);
-  return static_cast<int>(e);
+  block_back_sweep<T, T>(base + ((steps - 1) & 1) * step_elems, up, gn, xb,
+                         xb, steps, d);
 }
 
 template <typename T>

@@ -1,0 +1,9 @@
+// K-STREAM, the float64 instance.  The kernels are in
+// btd_stream.cuh; each instance has its own source, so that nvcc builds
+// the three in parallel.
+#include "btd_stream.cuh"
+
+extern "C" int dgpmp2_btd_stream_f64(const StreamArgs* a, void* stream) {
+  return launch<double, double>(a, stream);
+}
+

@@ -38,6 +38,11 @@ _SIGNATURES = {
     "dgpmp2_btd_solve_f64": [_P] * 6 + [_I, _I, _I, _P],
     # (d, out bytes per problem)
     "dgpmp2_btd_scratch_bytes": [_I, _P],
+    # (StreamArgs*, stream): ops/cuda/btd_stream._Args
+    "dgpmp2_btd_stream_f32": [_P, _P],
+    "dgpmp2_btd_stream_f64": [_P, _P],
+    "dgpmp2_btd_stream_mixed": [_P, _P],
+    "dgpmp2_btd_stream_scratch_bytes": [_I, _P],
     # (plan, sdf, points, out, stream); plan: ops/cuda/_tiles.LookupPlan.
     "dgpmp2_sdf_lookup_f32": [_P] * 5,
     "dgpmp2_sdf_lookup_f64": [_P] * 5,

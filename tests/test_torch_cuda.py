@@ -917,3 +917,125 @@ def test_sharded_train_step_on_the_card_matches_the_unsharded_step(dev,
         chip_smoke.step_errors(*out[1], *out[0]), 1e-10)
     assert ok
     assert chip_smoke.replicas_equal(state)
+
+
+def _stream_problem(dev, links, b=7, t=9, dtype=torch.float64, **opts):
+    """A small arm problem (a point robot when ``links`` is None) on
+    ``dev`` with the options ``opts``, its residuals at a wavy seed."""
+    from dgpmp2_tpu_torch.core import graph
+    from dgpmp2_tpu_torch.robots import (PlanarArmNLink, PointRobot2D,
+                                         self_collision_pairs)
+
+    rng = np.random.default_rng(len(opts) + (links or 0))
+    if links is None:
+        robot, dof = PointRobot2D(), 2
+    else:
+        robot = PlanarArmNLink(link_lengths=tuple(np.linspace(0.8, 0.3,
+                                                              links)))
+        dof = links
+    spec_kw = dict(dof=dof, state_dim=2 * dof, total_time_step=t,
+                   nlinks=robot.nlinks, **opts)
+    if opts.get("use_self_collision"):
+        spec_kw["self_pairs"] = self_collision_pairs(robot)
+    spec = graph.GraphSpec(**spec_kw)
+    th = torch.tensor(np.concatenate(
+        [np.linspace(-2.0, 2.0, t + 1)[None, :, None]
+         + rng.normal(0, 0.5, (b, t + 1, dof)),
+         rng.normal(0, 0.5, (b, t + 1, dof))], -1), dtype=dtype, device=dev)
+    params = graph.default_params(
+        spec, robot, th[:, 0] + 0.1, th[:, -1] - 0.1, qc_inv=np.eye(dof),
+        cost_sigma=0.2, epsilon_dist=0.5, k_s=0.01, k_g=0.05, k_v=0.2,
+        v_x=[0.6] * dof, k_self=0.05, eps_self=0.1, k_jl=0.1,
+        q_min=[-1.5] * dof, q_max=[1.2] * dof, k_wg=0.1,
+        workspace_goal=rng.uniform(-2, 2, (b, 2)), dtype=dtype)
+    sdf = torch.tensor(rng.uniform(-0.5, 2.0, (b, 32, 32)), dtype=dtype,
+                       device=dev)
+    return spec, params, graph.eval_residuals(spec, robot, params, th, sdf)
+
+
+STREAM_CASES = {
+    "point": (None, {}),
+    "point_gp_vel": (None, dict(use_gp_inter=True, num_inter=2,
+                                use_vel_limits=True)),
+    "arm3_task": (3, dict(use_self_collision=True, use_joint_limits=True,
+                          use_workspace_goal=True)),
+    "arm4": (4, dict(use_self_collision=True, use_joint_limits=True)),
+    "arm9": (9, dict(use_joint_limits=True)),
+    "arm17": (17, dict(use_joint_limits=True)),
+}
+
+
+@pytest.mark.parametrize("lm", [False, True], ids=["gn", "lm"])
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+def test_stream_kernel_matches_plain_in_float64(dev, case, lm):
+    """K-STREAM in float64 against its plain version, one launch a step;
+    the narrow (D <= 16), wide (D = 18) and block (D = 34) kernels."""
+    from dgpmp2_tpu_torch.core import stream
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k_stream
+
+    links, opts = STREAM_CASES[case]
+    spec, params, res = _stream_problem(dev, links, **opts)
+    lam = torch.tensor(np.logspace(-3, 1, 7), device=dev)
+    ss = stream.build_stream_static(spec, params, None, 7, torch.float64,
+                                    reg=0.0 if lm else 0.1)
+    args, kw = stream.kernel_args(spec, params, ss, res, lam, lm)
+    n_s, n_b = k_stream.launches, k_btd.launches
+    x_k = stream.stream_step(spec, params, ss, res, lam, lm)
+    assert (k_stream.launches - n_s, k_btd.launches - n_b) == (1, 0)
+    x_p = k_stream.plain(*args, **kw)
+    assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("case", ["point", "arm4", "arm9"])
+def test_stream_kernel_float32_and_mixed_instances(dev, case):
+    """The float32 instance within twice the standard float32 engine's
+    error (against the float64 solve of the same float32 residuals) plus
+    1e-7; the mixed (df32) instance that float64 solve, rounded."""
+    from dgpmp2_tpu_torch.core import graph, stream
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k_stream
+
+    links, opts = STREAM_CASES[case]
+    spec, params, res = _stream_problem(dev, links, dtype=torch.float32,
+                                        **opts)
+    ss32 = stream.build_stream_static(spec, params, None, 7, torch.float32,
+                                      reg=0.1)
+    ss64 = stream.build_stream_static(spec, params, None, 7, torch.float64,
+                                      reg=0.1)
+    a64, kw64 = stream.kernel_args(spec, params, ss64, res)
+    x64 = k_stream.plain_system(*a64, **kw64)
+    x64 = tridiag.btd_solve(*x64)
+    x32 = stream.stream_step(spec, params, ss32, res)
+    std = k_btd.btd_solve_cuda(*gn.damped_system(
+        *graph.assemble_from_residuals(spec, params, res), 0.1))
+    e32 = float((x32.double() - x64).abs().max())
+    e_std = float((std.double() - x64).abs().max())
+    assert e32 <= 2 * e_std + 1e-7, (e32, e_std)
+    xm = k_stream.launch(*a64, **kw64)
+    assert xm.dtype == torch.float32
+    x64r = x64.float()
+    half_ulp = (torch.nextafter(x64r, torch.full_like(x64r, float("inf")))
+                - x64r).abs().double() / 2
+    over = ((xm.double() - x64).abs() - half_ulp).max()
+    assert float(over) <= 1e-10 * float(x64.abs().max())
+
+
+def test_stream_kernel_gradient_matches_cpu(dev):
+    """The implicit adjoint on the card (a K-BTD launch on the re-formed
+    system) against the plain version's autograd on the CPU."""
+    import dataclasses
+
+    from dgpmp2_tpu_torch.core import stream
+
+    grads = []
+    for where in (dev, torch.device("cpu")):
+        spec, params, res = _stream_problem(where, 4, use_joint_limits=True)
+        obs = params.obs_inv.clone().requires_grad_(True)
+        q = params.q_inv.clone().requires_grad_(True)
+        p = dataclasses.replace(params, obs_inv=obs, q_inv=q)
+        ss = stream.build_stream_static(spec, p, None, 7, torch.float64, 0.1)
+        x = stream.stream_step(spec, p, ss, res)
+        (x * torch.linspace(-1, 1, x.numel(), dtype=x.dtype,
+                            device=where).reshape(x.shape)).sum().backward()
+        grads.append((obs.grad.cpu(), q.grad.cpu()))
+    for g, w in zip(*grads):
+        assert float((g - w).abs().max()) <= 1e-10 * float(w.abs().max())

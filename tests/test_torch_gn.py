@@ -93,11 +93,21 @@ def test_damped_system_matches_jax():
 
 @pytest.mark.parametrize("engine", ["stream", "df32", "bogus"])
 def test_engines_other_than_standard_raise(problems, engine):
+    """An unknown engine raises, and so does df32 in a float64 plan; the
+    stream engine plans as the standard one does."""
     _, (spec_t, robot_t, p_t, th_t, sdf_t) = problems
-    err = ValueError if engine == "bogus" else NotImplementedError
-    with pytest.raises(err):
-        tgn.plan(spec_t, robot_t, p_t, th_t, sdf_t,
-                 tgn.OptimConfig(engine=engine))
+    if engine == "stream":
+        cfg = dict(max_iters=3, tol_delta=0.0)
+        got = tgn.plan(spec_t, robot_t, p_t, th_t, sdf_t,
+                       tgn.OptimConfig(engine=engine, **cfg))
+        want = tgn.plan(spec_t, robot_t, p_t, th_t, sdf_t,
+                        tgn.OptimConfig(engine="standard", **cfg))
+        np.testing.assert_allclose(np_(got.th), np_(want.th), rtol=1e-10,
+                                   atol=1e-10)
+    else:
+        with pytest.raises(ValueError, match="engine|df32"):
+            tgn.plan(spec_t, robot_t, p_t, th_t, sdf_t,
+                     tgn.OptimConfig(engine=engine))
     assert tgn.resolve_engine("auto") == tgn.resolve_engine("standard")
     with pytest.raises(ValueError, match="method"):
         tgn.plan(spec_t, robot_t, p_t, th_t, sdf_t,

@@ -4,7 +4,7 @@ shapes and access patterns, on a GPU, for one checkout's kernels, so that
 an earlier commit and this one can be timed in turns in one run.
 
     python3 tools/time_kernels.py [--repo DIR] [--label NAME] [--gn]
-        [--btd] [--out build/time_kernels]
+        [--btd | --btd-digest] [--out build/time_kernels]
 
 The kernels come from the ``dgpmp2_tpu_torch`` package under ``--repo``
 (default: this checkout; for an earlier commit, unpack it with ``git
@@ -19,7 +19,10 @@ split of the SDF (the packed limbs, or in a tree from before them the
 times (device-only, CUDA graph, host-inclusive events, host µs per
 ``launch()``), the host µs per ``ops.sdf.lookup_nd`` call for the lookups
 (under the limb engine of its L for K-LOOKUP-LIMB), and the bound.
-``--btd`` times K-BTD alone.  ``--gn`` adds ms per GN iteration of the 2-D (also under ``pallas_v3_1``),
+``--btd`` times K-BTD alone; ``--btd-digest`` times nothing and writes the
+sha256 of K-BTD's output on each of ``chip_smoke.py`` phase 3's systems
+(``chip_smoke.btd_digests``), so that two trees' K-BTD can be held
+bit-equal.  ``--gn`` adds ms per GN iteration of the 2-D (also under ``pallas_v3_1``),
 3-D, 2- and 4-link arm and heading-robot plans (``chip_smoke.plan_ms``)
 and a profiled 20-iteration plan of each (``chip_smoke.profile_plan``).  Prints one line per record with the
 card's name and power limit and writes ``time_kernels_<label>.json`` under
@@ -169,6 +172,8 @@ def main():
     ap.add_argument("--label", default="change")
     ap.add_argument("--gn", action="store_true")
     ap.add_argument("--btd", action="store_true")
+    ap.add_argument("--btd-digest", action="store_true",
+                    help="only K-BTD's output digests on phase 3's systems")
     ap.add_argument("--out", default=str(ROOT / "build" / "time_kernels"))
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
@@ -179,8 +184,12 @@ def main():
 
     print(f"kernels from {Path(_build.__file__).resolve().parents[2]}")
     _build.library()
-    result = {"label": args.label, "card": smi,
-              "kernels": time_kernels(cs, dev, smi, args.btd)}
+    result = {"label": args.label, "card": smi}
+    if args.btd_digest:
+        result["btd_digests"] = cs.btd_digests(dev)
+        print(f"{len(result['btd_digests'])} K-BTD outputs digested")
+    else:
+        result["kernels"] = time_kernels(cs, dev, smi, args.btd)
     if args.gn:
         result["gn_iter_ms"], result["gn_profile"] = time_gn(cs, dev, smi)
     out = Path(args.out)
