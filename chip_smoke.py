@@ -10,7 +10,11 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
    printing every kernel's registers and spills (36 K-BTD instances: D = 1
    to 16, the wide kernel of D = 17-32 and the block kernel of D > 32, in
    two dtypes; 54 K-STREAM instances, the same shapes in three: float32,
-   float64 and the df32 engine's mixed one);
+   float64 and the df32 engine's mixed one), and K-STREAM's lane-group
+   launch at B=1024 for every D from 1 to 16 and instance (producer warps,
+   ring stages, registers, blocks an SM resident beside those the grid
+   needs): no lane-group instance may spill, and every block of each
+   launch must be resident at once;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: K-BTD at every D from 1 to 32 (B=1024; T=101 up to D=8,
    T=41 above) in float32 and float64 on random SPD systems and at the
@@ -211,7 +215,11 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     float32 engine's error (assembly, damping, K-BTD) against the float64
     solve of the same float32 residuals, plus 1e-7; the mixed instance that
     float64 solve rounded to float32, within 1e-10 relative beyond half a
-    float32 spacing; the same at B in {1, 1000} x T1 in {2, 41}; the df32
+    float32 spacing; the same at B in {1, 1000} x T1 in {2, 41}; the
+    lane-group kernel at every D from 1 to 16 in the three instances on
+    random systems at its ring's edges (``stream_ring_edges``: B=1 with
+    T1=1, B=7 with T1=2, and B=1000, a partly empty last block, with T1 one
+    more than its stages), within the same bounds; the df32
     step on ``tests/goldens/golden_ref_step.npz`` (env 1, 12 iterates
     along the float64 path) within 1e-4 of the float64 step and 2x the
     floor.  (b) The bench problem through ``DiffGPMP2Planner.plan`` from
@@ -220,8 +228,10 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     launch, 95 % of problems improved; launches and device busy per
     iteration (profiler) and ms per iteration (CUDA events, host-paced) of
     the standard, stream and df32 engines.  (c) K-STREAM's three instances
-    timed at the 2-D and 3-D benches beside the standard engine's assembly
-    + damping + K-BTD for the same step.  (d) The float64 gradient of a
+    timed at the 2-D and 3-D benches and at the 4-, 9- and 17-link arms
+    (D = 8, 18, 34: the lane-group, wide and block kernels) beside the
+    standard engine's assembly + damping + K-BTD for the same step.  (d) The
+    float64 gradient of a
     5-iteration stream plan (B=64) with respect to ``obs_inv`` and
     ``q_inv`` on the card within 1e-10 of the CPU's.
 
@@ -307,6 +317,33 @@ def build():
         if n != want:
             raise AssertionError(f"ptxas reported {n} {label} kernels, not "
                                  f"{want}")
+    check_stream_plans(rows)
+
+
+def check_stream_plans(rows, b=B):
+    """K-STREAM's lane-group launch at batch ``b`` for every D <= 16 in its
+    three instances: producer warps, stages, registers and blocks an SM
+    resident beside those needed; raises on a spill (ptxas or the kernel's
+    local memory) or on a block that would wait for another."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream
+
+    bad = [(kernel_name(n), st, ld) for n, _, st, ld, _ in rows
+           if kernel_name(n).startswith("btd_stream_kernel<") and (st or ld)]
+    for kind in ("f32", "f64", "mixed"):
+        for d in range(1, BTD_NARROW + 1):
+            g = btd_stream.geometry(d, b, kind)
+            print(f"K-STREAM {kind} D={d} B={b}: {g['producers']} producer "
+                  f"warps, {g['stages']} stages, {g['smem_bytes']} B shared, "
+                  f"{g['registers']} registers, {g['local_bytes']} B local; "
+                  f"{g['resident_blocks_per_sm']} blocks an SM resident, "
+                  f"{g['needed_blocks_per_sm']} needed ({g['grid']} blocks, "
+                  f"{g['sms']} SMs)")
+            if (g["local_bytes"] or g["resident_blocks_per_sm"]
+                    < g["needed_blocks_per_sm"]):
+                bad.append((kind, d, g))
+    if bad:
+        raise AssertionError(f"K-STREAM lane-group instances that spill or "
+                             f"leave blocks waiting: {bad}")
 
 
 def kernel_name(mangled):
@@ -379,14 +416,15 @@ def cuda_ms(fn, reps=20, warmup=3, inner=1, flush=False, best=False):
     return min(times) if best else statistics.median(times)
 
 
-def device_ms(fn, kernel, reps=20):
+def device_ms(fn, kernel, reps=20, graph_n=100):
     """Device-only ms of one launch: ``torch.profiler``'s self device time
     of the kernels whose name holds ``kernel``, over ``reps`` calls of
     ``fn`` (one launch each), each after the L2 flush, divided by their
     launch count.  The profiler may drop a few launches' records; a window
     that shows fewer than ``reps`` is taken again, up to three times, and
     the last one used if it shows any; if none shows a launch, the
-    CUDA-graph replay's time (:func:`graph_ms`) stands in, said so."""
+    CUDA-graph replay's time (:func:`graph_ms` of ``graph_n`` calls) stands
+    in, said so."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -406,10 +444,11 @@ def device_ms(fn, kernel, reps=20):
         if n == reps:
             break
     if n == 0:
-        # A rare window in which the profiler records no kernel at all
-        # (seen once for K-LOOKUP-LIMB in a run that had profiled every
-        # kernel before it): the CUDA-graph replay's time, warm L2, instead.
-        ms = graph_ms(fn)
+        # Windows in which the profiler records no kernel at all (seen for
+        # K-LOOKUP-LIMB, and for most of phase 19's K-STREAM timings late
+        # in the whole script on an H100): the CUDA-graph replay's time,
+        # warm L2, instead.
+        ms = graph_ms(fn, n=graph_n)
         print(f"device_ms: the profiler saw no launch of {kernel} in three "
               f"windows; its CUDA-graph time {ms:.4f} ms stands in")
         return ms
@@ -450,16 +489,19 @@ def host_us(fn, n=1000):
     return us
 
 
-def kernel_ms(record, kernel, plain, name, plain_reps=5):
+def kernel_ms(record, kernel, plain, name, plain_reps=5, reps=20,
+              graph_n=100, host_n=1000):
     """A kernel's times into ``record``: ``ms`` device-only (profiler, L2
     flushed), ``graph_ms`` (CUDA graph, warm L2), ``event_ms`` (CUDA events
     around one call after the flush: host-inclusive), ``host_us`` per
     wrapper call, and, unless ``plain`` is None, ``plain_ms`` of its plain
-    version (events, flushed)."""
-    record["ms"] = device_ms(kernel, name)
-    record["graph_ms"] = graph_ms(kernel)
-    record["event_ms"] = cuda_ms(kernel, flush=True)
-    record["host_us"] = host_us(kernel)
+    version (events, flushed).  ``reps`` profiled and event runs, a graph
+    of ``graph_n`` calls, ``host_n`` host calls: fewer for a kernel of
+    milliseconds (:data:`ARM_TIMING`)."""
+    record["ms"] = device_ms(kernel, name, reps, graph_n)
+    record["graph_ms"] = graph_ms(kernel, n=graph_n)
+    record["event_ms"] = cuda_ms(kernel, reps=reps, flush=True)
+    record["host_us"] = host_us(kernel, n=host_n)
     if plain is not None:
         record["plain_ms"] = cuda_ms(plain, reps=plain_reps, flush=True)
 
@@ -4746,37 +4788,54 @@ def rounded_err(xm, x64):
     return float(over.max()) / float(x64.abs().max())
 
 
+# K-STREAM's instances: name -> (blocks' dtype, residuals' dtype).
+STREAM_INSTANCES = {"float32": (torch.float32, torch.float32),
+                    "float64": (torch.float64, torch.float64),
+                    "mixed (df32)": (torch.float64, torch.float32)}
+
+
+def stream_args(problem, inst, lam=None, lm=False):
+    """(args, kwargs) of K-STREAM's instance ``inst`` (of
+    :data:`STREAM_INSTANCES`) on one path's first-iteration residuals:
+    float32 residuals and blocks, float64 both (the float32 iterate cast),
+    or float32 residuals and float64 blocks; GN with reg 0.1, or LM with the
+    damping ``lam`` a problem."""
+    from dgpmp2_tpu_torch.core import graph, stream
+
+    spec, robot, params, th, sdf = problem
+    dt, rt = STREAM_INSTANCES[inst]
+    if rt == torch.float64:
+        params = cast_params(params, dt)
+        th, sdf = th.double(), sdf.double()
+    res = graph.eval_residuals(spec, robot, params, th, sdf)
+    ss = stream.build_stream_static(spec, params, None, th.shape[0], dt,
+                                    0.0 if lm else 0.1)
+    return stream.kernel_args(spec, params, ss, res,
+                              None if lam is None else lam.to(dt), lm)
+
+
 def stream_errors(problem, lam, lm):
     """K-STREAM's three instances on one path's first-iteration residuals:
     (float64 error against plain, float32 instance's and the standard
     float32 engine's max abs error against the float64 solve of the float32
     residuals, the mixed instance's rounded error, the float32 instance's
     max abs error against its own plain version)."""
-    from dgpmp2_tpu_torch.core import gn, graph, stream
+    from dgpmp2_tpu_torch.core import gn, graph
     from dgpmp2_tpu_torch.ops import tridiag
     from dgpmp2_tpu_torch.ops.cuda import btd_solve as kb
     from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
 
     spec, robot, params, th, sdf = problem
-    b = th.shape[0]
-    reg = 0.0 if lm else 0.1
-    p64 = cast_params(params, torch.float64)
-    res64 = graph.eval_residuals(spec, robot, p64, th.double(), sdf.double())
-    ss = stream.build_stream_static(spec, p64, None, b, torch.float64, reg)
-    a, kw = stream.kernel_args(spec, p64, ss, res64, lam.double(), lm)
+    a, kw = stream_args(problem, "float64", lam, lm)
     e64 = rel_err(k.launch(*a, **kw), k.plain(*a, **kw))
-    del res64, ss, a, kw
-    res = graph.eval_residuals(spec, robot, params, th, sdf)
-    ss32 = stream.build_stream_static(spec, params, None, b, torch.float32,
-                                      reg)
-    a32, kw32 = stream.kernel_args(spec, params, ss32, res, lam.float(), lm)
-    ssm = stream.build_stream_static(spec, params, None, b, torch.float64,
-                                     reg)
-    am, kwm = stream.kernel_args(spec, params, ssm, res, lam.double(), lm)
+    del a, kw
+    a32, kw32 = stream_args(problem, "float32", lam, lm)
+    am, kwm = stream_args(problem, "mixed (df32)", lam, lm)
     x64 = tridiag.btd_solve(*k.plain_system(*am, **kwm))
     x32 = k.launch(*a32, **kw32)
     e32 = float((x32.double() - x64).abs().max())
     e32_plain = float((x32 - k.plain(*a32, **kw32)).abs().max())
+    res = graph.eval_residuals(spec, robot, params, th, sdf)
     std = kb.btd_solve_cuda(*gn.damped_system(
         *graph.assemble_from_residuals(spec, params, res),
         lam.float() if lm else 0.1, lm))
@@ -4808,6 +4867,93 @@ def check_stream(name, problem, rng):
     return out
 
 
+def stream_system(rng, b, t1, d, inst, dev, lm):
+    """(args, kwargs) of K-STREAM for a random damped system at batch
+    ``b``, ``t1`` states and D = ``d`` in the instance ``inst`` (of
+    :data:`STREAM_INSTANCES`): the per-plan blocks and a K = 3 family's Λ
+    shared by the batch (stride 0; the Λ also along time), a diagonal K = 2
+    family per problem, and under ``lm`` a damping a problem."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    ta, tr = STREAM_INSTANCES[inst]
+    t = t1 - 1
+
+    def ten(x, dt):
+        return torch.tensor(x, dtype=dt, device=dev)
+
+    def normal(*shape, scale=1.0):
+        return scale * rng.standard_normal(shape)
+
+    g = normal(1, t1, d, d)
+    diag = g @ np.swapaxes(g, -1, -2) * 0.1 + 4.0 * np.eye(d)
+    w3 = normal(3, 3)
+    w3 = w3 @ w3.T * 0.2 + np.eye(3)
+    blocks = [diag, normal(1, t, d, d, scale=0.15 * min(1.0, (8 / d) ** 0.5)),
+              normal(1, t, d, d, scale=0.5), normal(1, t, d, d, scale=0.5),
+              normal(1, d, d, scale=0.5), normal(1, d, d, scale=0.5)]
+    res = [normal(b, t, d), normal(b, d), normal(b, d)]
+    fams = [k.Family(ten(normal(b, t1, 3, d, scale=0.5), tr),
+                     ten(normal(b, t1, 3), tr), ten(w3[None, None], ta)),
+            k.Family(ten(normal(b, t1, 2, d, scale=0.5), tr),
+                     ten(normal(b, t1, 2), tr),
+                     ten(rng.uniform(0.1, 1.0, (b, t1, 2)), ta), True)]
+    delta = ten(10.0 ** rng.uniform(-3, 0, b), ta) if lm else None
+    return ((*(ten(x, ta) for x in blocks), *(ten(x, tr) for x in res),
+             fams), dict(delta=delta))
+
+
+def stream_system_err(args, kw):
+    """(error, bound) of one K-STREAM launch on :func:`stream_system`'s
+    system, as phase 19 (a) holds the paths: float64 relative to the plain
+    version, 1e-10; mixed beyond half a float32 spacing of the float64
+    solve, 1e-10; float32 max abs against the float64 solve, within twice
+    the float32 plain assembly solved by K-BTD, plus 1e-7."""
+    import dataclasses
+
+    from dgpmp2_tpu_torch.ops import tridiag
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve as kb
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    x = k.launch(*args, **kw)
+    if args[6].dtype == torch.float64:
+        return rel_err(x, k.plain(*args, **kw)), STREAM_TOL64
+    fams = [dataclasses.replace(f, w=f.w.double()) for f in args[9]]
+    a64 = (*(a.double() for a in args[:6]), *args[6:9], fams)
+    kw64 = {n: None if v is None else v.double() for n, v in kw.items()}
+    x64 = tridiag.btd_solve(*k.plain_system(*a64, **kw64))
+    if args[0].dtype == torch.float64:
+        return rounded_err(x, x64), STREAM_TOL64
+    std = kb.btd_solve_cuda(*k.plain_system(*args, **kw))
+    e_std = float((std.double() - x64).abs().max())
+    return float((x.double() - x64).abs().max()), 2 * e_std + 1e-7
+
+
+def stream_ring_edges(dev, rng, shapes=None):
+    """The lane-group kernel at every D <= 16 in its three instances on
+    :func:`stream_system`'s systems at the ring's edges: by default a lone
+    problem with T1 = 1 (LM), 7 problems with T1 = 2 (GN) and B = 1000 (a
+    partly empty last block) with T1 = stages + 1 (GN and LM).  Returns the
+    worst error over its bound."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    worst = 0.0
+    for inst, dtypes in STREAM_INSTANCES.items():
+        for d in range(1, BTD_NARROW + 1):
+            cases = shapes or (
+                (1, 1, True), (7, 2, False),
+                *((1000, k.geometry(d, 1000, k.KINDS[dtypes])["stages"] + 1,
+                   lm) for lm in (False, True)))
+            for b, t1, lm in cases:
+                e, tol = stream_system_err(
+                    *stream_system(rng, b, t1, d, inst, dev, lm))
+                if not e <= tol:
+                    raise AssertionError(f"K-STREAM {inst} D={d} B={b} "
+                                         f"T1={t1} {'LM' if lm else 'GN'}: "
+                                         f"{e} > {tol}")
+                worst = max(worst, e / tol)
+    return worst
+
+
 def stream_bound(args, kw, x):
     """(ms, by) of one K-STREAM step: its inputs read once (each block as
     stored: a shared one once), x written once; operations per step and
@@ -4831,27 +4977,23 @@ def stream_bound(args, kw, x):
     return bound(nbytes, flops, args[0].dtype)
 
 
-def time_stream(label, problem, smi, rec=None):
-    """K-STREAM's three instances timed on one bench's first GN step
-    (reg 0.1) beside the standard engine's assembly + damping + K-BTD."""
-    from dgpmp2_tpu_torch.core import gn, graph, stream
+def time_stream(label, problem, smi, rec=None, timing=None):
+    """K-STREAM's three instances timed on one path's first GN step (reg
+    0.1) beside the standard engine's assembly + damping + K-BTD; ``timing``
+    the counts of :func:`kernel_ms` (:data:`ARM_TIMING` for the arms)."""
+    timing = timing or {}
+    reps = timing.get("reps", 20)
+    from dgpmp2_tpu_torch.core import gn, graph
     from dgpmp2_tpu_torch.ops.cuda import btd_solve as kb
     from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
 
     spec, robot, params, th, sdf = problem
     b = th.shape[0]
-    res = graph.eval_residuals(spec, robot, params, th, sdf)
-    p64 = cast_params(params, torch.float64)
-    res64 = graph.eval_residuals(spec, robot, p64, th.double(), sdf.double())
-    for inst, (pp, rr, dt) in {"float32": (params, res, torch.float32),
-                               "float64": (p64, res64, torch.float64),
-                               "mixed (df32)": (params, res, torch.float64)
-                               }.items():
-        ss = stream.build_stream_static(spec, pp, None, b, dt, 0.1)
-        a, kw = stream.kernel_args(spec, pp, ss, rr)
+    for inst in STREAM_INSTANCES:
+        a, kw = stream_args(problem, inst)
         r = {}
         kernel_ms(r, lambda: k.launch(*a, **kw), lambda: k.plain(*a, **kw),
-                  "btd_stream_kernel")
+                  "btd_stream_kernel", **timing)
         x = k.launch(*a, **kw)
         r["bound_ms"], r["bound_by"] = stream_bound(a, kw, x)
         print(f"[{smi}] K-STREAM {label} B={b} T1={spec.num_traj_states} "
@@ -4860,6 +5002,8 @@ def time_stream(label, problem, smi, rec=None):
             rec.update({key: r[key] for key in ("ms", "graph_ms", "event_ms",
                                                 "host_us", "plain_ms",
                                                 "bound_ms", "bound_by")})
+        del a, kw, x
+    res = graph.eval_residuals(spec, robot, params, th, sdf)
     static = graph.assemble_static(spec, params, torch.float32)
     reg = torch.tensor(0.1, device=th.device)  # capture refuses a host copy
 
@@ -4868,14 +5012,59 @@ def time_stream(label, problem, smi, rec=None):
             *graph.assemble_from_residuals(spec, params, res, static=static),
             reg))
 
-    ev = cuda_ms(standard, flush=True)
+    ev = cuda_ms(standard, reps=reps, flush=True)
     _, prof = profile_run(standard)
     seen = (f"{prof['busy_ms']:.4f} ms busy in {prof['ops']} launches"
             if prof["ops"] else "no launch seen")
     print(f"[{smi}] standard engine's step at the {label} (assembly + "
-          f"damping + K-BTD, float32): CUDA graph {graph_ms(standard):.4f} "
-          f"ms (warm L2), host-inclusive events {ev:.4f} ms, profiler "
-          f"{seen}; library call: none computes this step")
+          f"damping + K-BTD, float32): CUDA graph "
+          f"{graph_ms(standard, n=timing.get('graph_n', 100)):.4f} ms (warm "
+          f"L2), "
+          f"host-inclusive events {ev:.4f} ms, profiler {seen}; library "
+          f"call: none computes this step")
+
+
+# Phase 8's arms whose K-STREAM step phase 19 (c) times beside the benches:
+# one shape of each kernel past the 2-D and 3-D benches' lane groups (D = 8,
+# the wide kernel's 18, the block kernel's 34), with :func:`kernel_ms`'s
+# counts cut for steps of up to ~0.14 s.
+STREAM_TIMED_ARMS = ("4-link arm", "9-link arm", "17-link arm")
+ARM_TIMING = dict(reps=2, graph_n=2, host_n=10)
+
+
+def stream_digests(dev) -> dict:
+    """sha256 of K-STREAM's x in each instance, under GN and LM, on each of
+    phase 19 (a)'s systems (the 2-D and 3-D benches, phase 8's paths, the
+    edge shapes), each LM damping drawn as there: two trees' K-STREAM held
+    bit-equal (``tools/time_kernels.py --stream-digest``)."""
+    import hashlib
+
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    bench_np = bench_inputs(B)
+    imgs, start, goal = bench_np
+    problems = {name: problem_of(*v) for name, v in
+                constrained_problems(dev, bench_np).items()}
+    paths = {"2-D bench": port_problem(*bench_np, dev, torch.float32),
+             "3-D bench": port_problem(*bench3d_inputs(B, dev), dev,
+                                       torch.float32),
+             **{name: problems[name] for name in STREAM_PATHS}}
+    for b, t1 in STREAM_EDGES:
+        paths[f"edge B={b} T1={t1}"] = port_problem(
+            imgs[:b], start[:b], goal[:b], dev, torch.float32, t=t1 - 1)
+    rng = np.random.default_rng(19)
+    out = {}
+    for name, problem in paths.items():
+        b = problem[3].shape[0]
+        lam = torch.tensor(10.0 ** rng.uniform(-4, 1, b), device=dev)
+        for lm in (False, True):
+            for inst in STREAM_INSTANCES:
+                a, kw = stream_args(problem, inst, lam, lm)
+                x = k.launch(*a, **kw).cpu().numpy()
+                out[f"{name} {'LM' if lm else 'GN'} {inst}"] = (
+                    hashlib.sha256(x.tobytes()).hexdigest())
+        torch.cuda.empty_cache()
+    return out
 
 
 def engine_plans(dev, smi, bench, bench3, bench_np):
@@ -5026,12 +5215,18 @@ def stream_engines(dev, smi, bench, bench3, problems, bench_np, rec):
     for b, t1 in STREAM_EDGES:
         check_stream(f"edge B={b} T1={t1}", port_problem(
             imgs[:b], start[:b], goal[:b], dev, torch.float32, t=t1 - 1), rng)
+    print(f"K-STREAM lane groups, D = 1-16 in three instances at the ring's "
+          f"edges (random systems): worst error over its bound "
+          f"{stream_ring_edges(dev, rng):.3e}")
     df32_goldens(dev, smi)
     # (b) The main path at full width under both engines.
     engine_plans(dev, smi, bench, bench3, bench_np)
-    # (c) Times at the 2-D and 3-D benches.
+    # (c) Times at the 2-D and 3-D benches and the arms.
     time_stream("2-D bench", bench, smi, rec)
     time_stream("3-D bench", bench3, smi)
+    for name in STREAM_TIMED_ARMS:
+        time_stream(name, problems[name], smi, timing=ARM_TIMING)
+        torch.cuda.empty_cache()
     # (d) The gradient.
     stream_gradient(dev, bench_np)
 

@@ -56,10 +56,9 @@ def resolve_engine(engine: str, dtype: torch.dtype | None = None) -> str:
     """Map ``engine`` to a concrete engine; unknown names raise.
 
     ``auto`` is the standard engine on every device and dtype.  The JAX
-    package picks the stream engine on its TPU, where it measured ~9x the
-    standard path; which engine the card should pick is left to a
-    measurement of both at a benchmark cell.  ``dtype`` is taken for the JAX
-    signature and does not change the answer.
+    package picks the stream engine on its TPU; which engine the card should
+    pick is left to a measurement of both at a benchmark cell.  ``dtype`` is
+    taken for the JAX signature and does not change the answer.
     """
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; expected one of {ENGINES}")

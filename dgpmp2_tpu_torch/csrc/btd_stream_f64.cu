@@ -7,3 +7,7 @@ extern "C" int dgpmp2_btd_stream_f64(const StreamArgs* a, void* stream) {
   return launch<double, double>(a, stream);
 }
 
+// The lane-group launch plan at D <= 16 (narrow_geometry).
+extern "C" int dgpmp2_btd_stream_f64_geometry(int d, int batch, int* out) {
+  return narrow_geometry<double, double>(d, batch, out);
+}

@@ -8,3 +8,8 @@
 extern "C" int dgpmp2_btd_stream_mixed(const StreamArgs* a, void* stream) {
   return launch<double, float>(a, stream);
 }
+
+// The lane-group launch plan at D <= 16 (narrow_geometry).
+extern "C" int dgpmp2_btd_stream_mixed_geometry(int d, int batch, int* out) {
+  return narrow_geometry<double, float>(d, batch, out);
+}

@@ -43,6 +43,12 @@ _SIGNATURES = {
     "dgpmp2_btd_stream_f64": [_P, _P],
     "dgpmp2_btd_stream_mixed": [_P, _P],
     "dgpmp2_btd_stream_scratch_bytes": [_I, _P],
+    # (d, batch, out int[10]): the lane-group launch plan
+    "dgpmp2_btd_stream_f32_geometry": [_I, _I, _P],
+    "dgpmp2_btd_stream_f64_geometry": [_I, _I, _P],
+    "dgpmp2_btd_stream_mixed_geometry": [_I, _I, _P],
+    # (cap) -> the previous cap
+    "dgpmp2_btd_stream_set_producers": [_I],
     # (plan, sdf, points, out, stream); plan: ops/cuda/_tiles.LookupPlan.
     "dgpmp2_sdf_lookup_f32": [_P] * 5,
     "dgpmp2_sdf_lookup_f64": [_P] * 5,

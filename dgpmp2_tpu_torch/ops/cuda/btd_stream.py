@@ -25,7 +25,10 @@ residuals another, which is that of x: float32 and float32, float64 and
 float64, or float64 blocks with float32 residuals (the df32 engine).
 
 ``launches`` counts kernel launches in this process; it goes up by one in
-:func:`launch` and nowhere else.
+:func:`launch` and nowhere else.  :func:`geometry` reports the launch plan
+of D <= 16 (producer warps, ring stages, blocks an SM resident and needed,
+registers and spill bytes), and :func:`set_producers` caps the producer
+warps, for measuring that choice.
 """
 from __future__ import annotations
 
@@ -159,6 +162,39 @@ def scratch_bytes(d: int, device: torch.device) -> int:
     return int(n.value)
 
 
+KINDS = {(torch.float32, torch.float32): "f32",
+         (torch.float64, torch.float64): "f64",
+         (torch.float64, torch.float32): "mixed"}
+GEOMETRY_KEYS = ("producers", "stages", "threads", "smem_bytes",
+                 "resident_blocks_per_sm", "needed_blocks_per_sm", "grid",
+                 "registers", "local_bytes", "sms")
+
+
+def geometry(d: int, batch: int, kind: str, device=None) -> dict:
+    """The lane-group kernel's launch plan at ``d`` (1-16) and ``batch`` for
+    the instance ``kind`` (``f32``, ``f64`` or ``mixed``) on ``device`` (the
+    current CUDA device by default), as :data:`GEOMETRY_KEYS`: every block
+    of the grid is resident at once where ``resident_blocks_per_sm`` reaches
+    ``needed_blocks_per_sm``."""
+    from dgpmp2_tpu_torch.ops.cuda import _build
+
+    out = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    with torch.cuda.device(device):
+        rc = getattr(_build.library(), f"dgpmp2_btd_stream_{kind}_geometry")(
+            d, batch, out)
+    _build.check(rc, "btd_stream geometry query")
+    return dict(zip(GEOMETRY_KEYS, out))
+
+
+def set_producers(n: int) -> int:
+    """Cap the producer warps of a lane-group block at ``n`` (1-7; 0: no
+    cap below the kernel's 7) from the next launch on, for timing that
+    choice; returns the previous cap."""
+    from dgpmp2_tpu_torch.ops.cuda import _build
+
+    return int(_build.library().dgpmp2_btd_stream_set_producers(n))
+
+
 def launch(diag, off, phiT_q, q_inv, ks_inv, kg_inv, r_gp, r_s, r_g,
            families: Sequence[Family], diag_add=None, off_add=None,
            rhs_add=None, delta=None) -> torch.Tensor:
@@ -176,10 +212,7 @@ def launch(diag, off, phiT_q, q_inv, ks_inv, kg_inv, r_gp, r_s, r_g,
     if dev.type != "cuda":
         raise ValueError(f"btd_stream kernel needs CUDA tensors; diag is on "
                          f"{dev}")
-    kinds = {(torch.float32, torch.float32): "f32",
-             (torch.float64, torch.float64): "f64",
-             (torch.float64, torch.float32): "mixed"}
-    if (ta, tr) not in kinds:
+    if (ta, tr) not in KINDS:
         raise ValueError(f"btd_stream kernel takes float32 or float64 blocks "
                          f"and residuals of that dtype, or float64 blocks "
                          f"with float32 residuals; got {ta} and {tr}")
@@ -214,7 +247,7 @@ def launch(diag, off, phiT_q, q_inv, ks_inv, kg_inv, r_gp, r_s, r_g,
     args.x, args.z, args.gain = x.data_ptr(), z.data_ptr(), gain.data_ptr()
     args.scratch = None if scratch is None else scratch.data_ptr()
     lib = _build.library()
-    fn = getattr(lib, f"dgpmp2_btd_stream_{kinds[(ta, tr)]}")
+    fn = getattr(lib, f"dgpmp2_btd_stream_{KINDS[(ta, tr)]}")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(ctypes.byref(args), stream)

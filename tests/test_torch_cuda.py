@@ -1039,3 +1039,40 @@ def test_stream_kernel_gradient_matches_cpu(dev):
         grads.append((obs.grad.cpu(), q.grad.cpu()))
     for g, w in zip(*grads):
         assert float((g - w).abs().max()) <= 1e-10 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("inst", ["float32", "float64", "mixed (df32)"])
+@pytest.mark.parametrize("d", range(1, 17))
+def test_stream_lane_group_kernel_at_the_ring_edges(dev, d, inst):
+    """The lane-group kernel (producer warps filling a ring of S stages for
+    the consumer warp) against its plain version, as phase 19 (a) holds the
+    paths (``chip_smoke.stream_system_err``), on random systems whose
+    per-plan blocks and one family's Λ are shared at batch stride 0: T1 in
+    {1, 2, 3, S, S + 1}, B in {1, 7, 1000} (1000 leaves the last block
+    partly empty), under GN and LM; one launch each."""
+    import chip_smoke
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k_stream
+
+    rng = np.random.default_rng(d)
+    kind = k_stream.KINDS[chip_smoke.STREAM_INSTANCES[inst]]
+    for b in (1, 7, 1000):
+        s = k_stream.geometry(d, b, kind)["stages"]
+        for t1 in sorted({1, 2, 3, s, s + 1}):
+            for lm in (False, True):
+                args, kw = chip_smoke.stream_system(rng, b, t1, d, inst, dev,
+                                                    lm)
+                n = k_stream.launches
+                err, tol = chip_smoke.stream_system_err(args, kw)
+                assert k_stream.launches - n == 1
+                assert err <= tol, (b, t1, lm, err, tol)
+
+
+def test_stream_lane_group_plan_keeps_every_block_resident(dev):
+    """Phase 2's check: at B=1024 no lane-group instance spills (ptxas, and
+    the kernel's local memory) and each launch keeps every block resident
+    at once."""
+    import chip_smoke
+    from dgpmp2_tpu_torch.ops.cuda import _build
+
+    _build.library()
+    chip_smoke.check_stream_plans(chip_smoke.ptxas_summary(_build.build_log))

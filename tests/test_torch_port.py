@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -216,3 +217,26 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("inst", sorted(chip_smoke.STREAM_INSTANCES))
+def test_ring_edge_systems_hold_their_bound_on_the_cpu(inst, monkeypatch):
+    """chip_smoke.stream_system's random systems (phase 19's check of the
+    lane-group kernel at the ring's edges) come in the instance's dtypes
+    with the per-plan blocks and one family's Λ shared at batch stride 0,
+    and stream_system_err holds the plain version, standing in for the
+    kernel on the CPU, within the bound phase 19 holds the kernel to."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k_stream
+
+    monkeypatch.setattr(k_stream, "launch", k_stream.plain)
+    monkeypatch.setattr(k_btd, "btd_solve_cuda", tridiag.btd_solve)
+    rng = np.random.default_rng(0)
+    ta, tr = chip_smoke.STREAM_INSTANCES[inst]
+    for b, t1, d, lm in ((1, 1, 3, True), (7, 2, 16, False), (5, 6, 4, True)):
+        args, kw = chip_smoke.stream_system(rng, b, t1, d, inst,
+                                            torch.device("cpu"), lm)
+        assert args[0].dtype == ta and args[6].dtype == tr
+        assert args[0].shape[0] == 1 and args[9][0].w.shape[:2] == (1, 1)
+        assert (kw["delta"] is not None) == lm
+        err, tol = chip_smoke.stream_system_err(args, kw)
+        assert err <= tol, (b, t1, d, lm, err, tol)

@@ -147,3 +147,62 @@ def test_resolve_engine():
         tgn.resolve_engine("streaming")
     with pytest.raises(ValueError, match="unknown engine"):
         jgn.resolve_engine("streaming", jnp.float32)
+
+
+def _short_pair(t):
+    """A batch of 9 point problems of ``t`` GP steps (``t`` + 1 states) in a
+    32² world of one square obstacle, seeded from numpy: starts and goals
+    differ by problem, and the iterate's states lie about the obstacle."""
+    rng = np.random.default_rng(9 + t)
+    b = 9
+    img = np.ones((b, 32, 32))
+    img[:, 12:20, 12:20] = 0.0
+    sdf_j = jsdf.sdf_from_occupancy(jnp.asarray(img, jnp.float64),
+                                    res=10.0 / 32)
+    start = np.zeros((b, 4))
+    start[:, :2] = rng.uniform(-4.5, -3.5, (b, 2))
+    goal = np.zeros((b, 4))
+    goal[:, :2] = rng.uniform(3.5, 4.5, (b, 2))
+    th = np.concatenate([rng.uniform(-1.5, 1.5, (b, t + 1, 2)),
+                         rng.normal(0, 0.3, (b, t + 1, 2))], -1)
+    spec_j = jg.GraphSpec(total_time_step=t)
+    params_j = jg.default_params(
+        spec_j, JPointRobot2D(), jnp.asarray(start), jnp.asarray(goal),
+        dtype=jnp.float64, qc_inv=np.eye(2), cost_sigma=0.1,
+        epsilon_dist=0.4, k_s=0.01, k_g=0.01)
+    spec_t = tg.GraphSpec(total_time_step=t)
+    params_t = convert.graph_params_from_numpy(params_arrays(params_j), "cpu",
+                                               F64)
+    return ((spec_j, JPointRobot2D(), params_j, jnp.asarray(th), sdf_j),
+            (spec_t, TPointRobot2D(), params_t, torch.tensor(th),
+             torch.tensor(np_(sdf_j))))
+
+
+@pytest.mark.parametrize("t1", [2, 3])
+@pytest.mark.parametrize("method", ["gauss_newton", "lm"],
+                         ids=["point_gn", "point_lm"])
+def test_stream_step_matches_jax_at_short_horizons(method, t1):
+    """The port's stream step (its plain version on the CPU) against JAX's
+    ``stream_step`` in float64 at T1 = 2 and 3 states and a batch of 9
+    (the shapes at which the card's kernel fills fewer ring stages than it
+    has, and its last block holds fewer problems than it could), GN with
+    reg 0.1 and LM with a damping a problem; 1e-10 relative."""
+    (sj, rj, pj, thj, sdfj), (st, rt, pt, tht, sdft) = _short_pair(t1 - 1)
+    lm = method == "lm"
+    b = thj.shape[0]
+    delta = (10.0 ** np.random.default_rng(t1).uniform(-3, 0, b) if lm
+             else 0.1)
+    res_j = jg.eval_residuals(sj, rj, pj, thj, sdfj)
+    ss_j = jstream.build_stream_static(
+        sj, pj, jg.assemble_static(sj, pj, jnp.float64), b, jnp.float64,
+        0.0 if lm else delta)
+    want = jstream.stream_step(sj, pj, ss_j, res_j, jnp.asarray(delta), lm,
+                               interpret=True)
+    res_t = tg.eval_residuals(st, rt, pt, tht, sdft)
+    assert float(res_t.r_obs.abs().max()) > 0  # the obstacle family counts
+    ss_t = tstream.build_stream_static(
+        st, pt, tg.assemble_static(st, pt, F64), b, F64, 0.0 if lm else delta)
+    got = tstream.stream_step(st, pt, ss_t, res_t,
+                              torch.tensor(delta, dtype=F64), lm)
+    assert got.shape == (b, t1, 4)
+    assert rel(got, want) <= 1e-10

@@ -4,7 +4,8 @@ shapes and access patterns, on a GPU, for one checkout's kernels, so that
 an earlier commit and this one can be timed in turns in one run.
 
     python3 tools/time_kernels.py [--repo DIR] [--label NAME] [--gn]
-        [--btd | --btd-digest] [--out build/time_kernels]
+        [--btd | --btd-digest | --stream | --stream-digest]
+        [--out build/time_kernels]
 
 The kernels come from the ``dgpmp2_tpu_torch`` package under ``--repo``
 (default: this checkout; for an earlier commit, unpack it with ``git
@@ -22,7 +23,15 @@ times (device-only, CUDA graph, host-inclusive events, host µs per
 ``--btd`` times K-BTD alone; ``--btd-digest`` times nothing and writes the
 sha256 of K-BTD's output on each of ``chip_smoke.py`` phase 3's systems
 (``chip_smoke.btd_digests``), so that two trees' K-BTD can be held
-bit-equal.  ``--gn`` adds ms per GN iteration of the 2-D (also under ``pallas_v3_1``),
+bit-equal.  ``--stream`` times K-STREAM alone: its three instances on the
+first GN step of the 2-D and 3-D benches and of the 4-, 9- and 17-link
+arms (``chip_smoke.stream_args``; D = 4, 6, 8, 18, 34), at the 2-D bench
+also with the lane-group kernel's producer warps capped at 1, 3 and 7
+(``ops.cuda.btd_stream.set_producers``, where the tree has it), each with
+its bound and launch plan.  ``--stream-digest`` times nothing and writes
+the sha256 of K-STREAM's x on each of ``chip_smoke.py`` phase 19 (a)'s
+systems, GN and LM, in the three instances (``chip_smoke.stream_digests``).
+``--gn`` adds ms per GN iteration of the 2-D (also under ``pallas_v3_1``),
 3-D, 2- and 4-link arm and heading-robot plans (``chip_smoke.plan_ms``)
 and a profiled 20-iteration plan of each (``chip_smoke.profile_plan``).  Prints one line per record with the
 card's name and power limit and writes ``time_kernels_<label>.json`` under
@@ -51,8 +60,8 @@ def load_chip_smoke():
     return mod
 
 
-def timed(cs, smi, records, rec, launch, kernel, entry=None):
-    cs.kernel_ms(rec, launch, None, kernel)
+def timed(cs, smi, records, rec, launch, kernel, entry=None, **timing):
+    cs.kernel_ms(rec, launch, None, kernel, **timing)
     if entry is not None:
         rec["entry_host_us"] = cs.host_us(entry)
     records.append(rec)
@@ -129,6 +138,59 @@ def time_kernels(cs, dev, smi, btd_only=False):
     return records
 
 
+# K-STREAM's producer-warp caps timed at the 2-D bench.
+PRODUCER_CAPS = (1, 3, 7)
+
+
+def time_stream(cs, dev, smi):
+    """K-STREAM at the 2-D and 3-D benches and the arms of
+    ``chip_smoke.STREAM_TIMED_ARMS``, three instances each (the arms with
+    ``chip_smoke.ARM_TIMING``'s counts)."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    bench_np = cs.bench_inputs(cs.B)
+    constrained = cs.constrained_problems(dev, bench_np)
+    problems = {
+        "2-D bench": lambda: cs.port_problem(*bench_np, dev, torch.float32),
+        "3-D bench": lambda: cs.port_problem(*cs.bench3d_inputs(cs.B, dev),
+                                             dev, torch.float32),
+        **{name: lambda name=name: cs.problem_of(*constrained[name])
+           for name in cs.STREAM_TIMED_ARMS}}
+    records = []
+    for label, make in problems.items():
+        problem = make()
+        spec = problem[0]
+        timing = {} if "bench" in label else cs.ARM_TIMING
+        caps = (PRODUCER_CAPS if label == "2-D bench"
+                and hasattr(k, "set_producers") else (None,))
+        for inst in cs.STREAM_INSTANCES:
+            a, kw = cs.stream_args(problem, inst)
+            x = k.launch(*a, **kw)
+            bound_ms, bound_by = cs.stream_bound(a, kw, x)
+            for cap in caps:
+                rec = {"shape": f"{label} {inst}", "B": x.shape[0],
+                       "T1": spec.num_traj_states, "D": spec.state_dim,
+                       "instance": inst, "bound_ms": bound_ms,
+                       "bound_by": bound_by}
+                if cap is not None:
+                    k.set_producers(cap)
+                    rec["producer_cap"] = cap
+                try:
+                    if hasattr(k, "geometry") and spec.state_dim <= 16:
+                        rec["plan"] = k.geometry(
+                            spec.state_dim, x.shape[0],
+                            k.KINDS[(a[0].dtype, a[6].dtype)])
+                    timed(cs, smi, records, rec, lambda: k.launch(*a, **kw),
+                          "btd_stream_kernel", **timing)
+                finally:
+                    if cap is not None:
+                        k.set_producers(0)
+            del a, kw, x
+        del problem
+        torch.cuda.empty_cache()
+    return records
+
+
 def time_gn(cs, dev, smi):
     """ms per GN iteration of six paths (``chip_smoke.plan_ms``), and a
     profiled 20-iteration plan of each (``chip_smoke.profile_plan``)."""
@@ -174,6 +236,11 @@ def main():
     ap.add_argument("--btd", action="store_true")
     ap.add_argument("--btd-digest", action="store_true",
                     help="only K-BTD's output digests on phase 3's systems")
+    ap.add_argument("--stream", action="store_true",
+                    help="only K-STREAM, at the benches and the arms")
+    ap.add_argument("--stream-digest", action="store_true",
+                    help="only K-STREAM's output digests on phase 19's "
+                         "systems")
     ap.add_argument("--out", default=str(ROOT / "build" / "time_kernels"))
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.repo).resolve()))
@@ -188,6 +255,11 @@ def main():
     if args.btd_digest:
         result["btd_digests"] = cs.btd_digests(dev)
         print(f"{len(result['btd_digests'])} K-BTD outputs digested")
+    elif args.stream_digest:
+        result["stream_digests"] = cs.stream_digests(dev)
+        print(f"{len(result['stream_digests'])} K-STREAM outputs digested")
+    elif args.stream:
+        result["kernels"] = time_stream(cs, dev, smi)
     else:
         result["kernels"] = time_kernels(cs, dev, smi, args.btd)
     if args.gn:
