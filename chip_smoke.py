@@ -13,8 +13,11 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
    float64 and the df32 engine's mixed one), and K-STREAM's lane-group
    launch at B=1024 for every D from 1 to 16 and instance (producer warps,
    ring stages, registers, blocks an SM resident beside those the grid
-   needs): no lane-group instance may spill, and every block of each
-   launch must be resident at once;
+   needs), and its wide and block launch plans at B=1024 (warps, stages,
+   chunk rows, shared bytes, registers, blocks an SM) for the
+   9- and 17-link arms' families and for phase 19 (a)'s random systems at
+   D = 17-34, 40, 48, 64, 80: no K-STREAM instance may spill, and every
+   block of each launch must be resident at once;
 3. each kernel against its plain PyTorch version on the card, at the main
    paths' shapes: K-BTD at every D from 1 to 32 (B=1024; T=101 up to D=8,
    T=41 above) in float32 and float64 on random SPD systems and at the
@@ -219,7 +222,12 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     lane-group kernel at every D from 1 to 16 in the three instances on
     random systems at its ring's edges (``stream_ring_edges``: B=1 with
     T1=1, B=7 with T1=2, and B=1000, a partly empty last block, with T1 one
-    more than its stages), within the same bounds; the df32
+    more than its stages), within the same bounds; the wide and block
+    kernels (D = 17, 18, 32, 33, 34) at their stages' and chunks' edges
+    (``stream_rows_edges``: T1 in {1, 2, stages + 1}, a diagonal family of
+    K in {1, chunk - 1, chunk, chunk + 1, 411} rows beside a shared and a
+    per-problem full Λ, every addend, B in {1, 7, 1000}, under the default
+    plan and under 2 stages of 16 rows); the df32
     step on ``tests/goldens/golden_ref_step.npz`` (env 1, 12 iterates
     along the float64 path) within 1e-4 of the float64 step and 2x the
     floor.  (b) The bench problem through ``DiffGPMP2Planner.plan`` from
@@ -227,7 +235,11 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     3-D bench with stream: one K-STREAM launch a GN iteration and no K-BTD
     launch, 95 % of problems improved; launches and device busy per
     iteration (profiler) and ms per iteration (CUDA events, host-paced) of
-    the standard, stream and df32 engines.  (c) K-STREAM's three instances
+    the standard, stream and df32 engines; then phase 8's 9- and 17-link
+    arms (LM, 20 iterations, B=1024, float32) under stream and df32, one
+    K-STREAM launch an iteration, every problem improved, their ms and
+    device busy per iteration beside the standard engine's.  (c)
+    K-STREAM's three instances
     timed at the 2-D and 3-D benches and at the 4-, 9- and 17-link arms
     (D = 8, 18, 34: the lane-group, wide and block kernels) beside the
     standard engine's assembly + damping + K-BTD for the same step.  (d) The
@@ -318,6 +330,26 @@ def build():
             raise AssertionError(f"ptxas reported {n} {label} kernels, not "
                                  f"{want}")
     check_stream_plans(rows)
+    check_rows_plans(rows)
+
+
+# The wide and block kernels' plans phase 2 checks besides the arms': D of
+# phase 19 (a)'s random systems (stream_system's families).
+ROWS_PLAN_D = (*range(17, 35), 40, 48, 64, 80)
+
+
+def arm_family_shapes(links):
+    """K-STREAM's families of a planar arm of ``links`` (two spheres a
+    link, as phase 8's): obstacles and joint limits with full Λs and the
+    self-collision pairs with a diagonal one, every Λ shared."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream
+    from dgpmp2_tpu_torch.robots import PlanarArmNLink, self_collision_pairs
+
+    arm = PlanarArmNLink(link_lengths=tuple(links), spheres_per_link=2,
+                         sphere_radii=(0.25,))
+    fs = btd_stream.FamilyShape
+    return (fs(arm.nlinks, False, True), fs(len(links), False, True),
+            fs(len(self_collision_pairs(arm)), True, True))
 
 
 def check_stream_plans(rows, b=B):
@@ -344,6 +376,46 @@ def check_stream_plans(rows, b=B):
     if bad:
         raise AssertionError(f"K-STREAM lane-group instances that spill or "
                              f"leave blocks waiting: {bad}")
+
+
+def check_rows_plans(rows, b=B):
+    """K-STREAM's wide and block launch plans at batch ``b`` in its three
+    instances, for the 9- and 17-link arms' families and for
+    :data:`ROWS_PLAN_D` (stream_system's families): warps, stages, chunk
+    rows, shared bytes, registers and blocks an SM resident
+    beside those needed; raises on a spill (ptxas or the kernel's local
+    memory) or on a block that would wait for another (the grid is
+    persistent: a plan holds this by its making)."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream
+
+    bad = [(kernel_name(n), st, ld) for n, _, st, ld, _ in rows
+           if kernel_name(n).startswith(("btd_stream_kernel_wide",
+                                         "btd_stream_kernel_block"))
+           and (st or ld)]
+    fs = btd_stream.FamilyShape
+    random_fams = (fs(3, False, True), fs(2, True, False))
+    plans = [(f"{n}-link arm", 2 * len(links), arm_family_shapes(links))
+             for n, links in ((9, ARM9_LINKS), (17, arm17_links()))]
+    plans += [("random system", d, random_fams) for d in ROWS_PLAN_D]
+    for kind in ("f32", "f64", "mixed"):
+        for label, d, fams in plans:
+            g = btd_stream.geometry(d, b, kind, families=fams)
+            print(f"K-STREAM {kind} {label} D={d} B={b} ({g['kernel']}): "
+                  f"{g['warps']} warps ({g['formers']} formers), "
+                  f"{g['stages']} stages of {g['chunk_rows']} rows "
+                  f"({g['stage_bytes']} B), "
+                  f"{g['kept']} Λ kept, {g['smem_bytes']} B shared"
+                  f"{', rows in scratch' if g['scratch_block'] else ''}, "
+                  f"{g['registers']} registers, {g['local_bytes']} B local; "
+                  f"{g['resident_blocks_per_sm']} blocks an SM resident, "
+                  f"{g['needed_blocks_per_sm']} needed ({g['grid']} blocks "
+                  f"of {g['problems_per_block']} problems, {g['sms']} SMs)")
+            if (g["local_bytes"] or g["resident_blocks_per_sm"]
+                    < g["needed_blocks_per_sm"]):
+                bad.append((kind, label, d, g))
+    if bad:
+        raise AssertionError(f"K-STREAM wide and block instances that spill "
+                             f"or leave blocks waiting: {bad}")
 
 
 def kernel_name(mangled):
@@ -1591,6 +1663,17 @@ def taskspace_planner(dev):
         obs=dict(epsilon_dist=0.25), opt=dict(method="lm"))
 
 
+# The 9-link arm's links (0.6 down to 0.3 m, 3.8 m in all).
+ARM9_LINKS = (0.6, 0.5, 0.5, 0.45, 0.4, 0.4, 0.35, 0.3, 0.3)
+
+
+def arm17_links():
+    """The 17-link arm's links: the 9-link arm's profile resampled at 17
+    links and scaled to the same 3.8 m."""
+    links = np.interp(np.linspace(0, 8, 17), np.arange(9), ARM9_LINKS)
+    return (links * 3.8 / links.sum()).tolist()
+
+
 def constrained_problems(dev, bench_np):
     """The four constrained paths at B=1024 in float32, each a
     DiffGPMP2Planner from the YAMLs with its inputs: name -> (planner,
@@ -1658,7 +1741,7 @@ def constrained_problems(dev, bench_np):
     # to 0.3 m, 3.8 m in all as the 5-link arm; under LM, whose rejected
     # steps let every problem improve (under plain GN 2 of 1024 did not in
     # 20 iterations on the card).
-    links = [0.6, 0.5, 0.5, 0.45, 0.4, 0.4, 0.35, 0.3, 0.3]
+    links = list(ARM9_LINKS)
     out["9-link arm"] = (
         planner(ARM_YAMLS,
                 {"type": "planar_arm", "link_lengths": links,
@@ -1670,8 +1753,7 @@ def constrained_problems(dev, bench_np):
         joint_states(rng, B, 9, (1.6,) + (0.0,) * 8, 0.4), None, sdf)
     # 17-link arm (D=34, the block K-BTD), 20 LM iterations: the 9-link
     # arm's link profile resampled at 17 links and scaled to the same 3.8 m.
-    links17 = np.interp(np.linspace(0, 8, 17), np.arange(9), links)
-    links17 = (links17 * 3.8 / links17.sum()).tolist()
+    links17 = arm17_links()
     out["17-link arm"] = (
         planner(ARM_YAMLS,
                 {"type": "planar_arm", "link_lengths": links17,
@@ -4954,6 +5036,86 @@ def stream_ring_edges(dev, rng, shapes=None):
     return worst
 
 
+def stream_rows_system(rng, b, t1, d, inst, dev, lm, k_diag, addends):
+    """:func:`stream_system` for the wide and block kernels' edges: the
+    per-plan blocks shared at batch stride 0, a K = 3 family with a Λ every
+    problem and step shares, a K = 4 family with a full Λ per problem and
+    step, a diagonal family of ``k_diag`` rows with a Λ per problem, and
+    with ``addends`` a diag, off and rhs addend per problem."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    args, kw = stream_system(rng, b, t1, d, inst, dev, lm)
+    ta, tr = STREAM_INSTANCES[inst]
+
+    def ten(x, dt):
+        return torch.tensor(x, dtype=dt, device=dev)
+
+    w4 = rng.standard_normal((b, t1, 4, 4))
+    w4 = w4 @ np.swapaxes(w4, -1, -2) * 0.2 + np.eye(4)
+    fams = [args[9][0],
+            k.Family(ten(0.5 * rng.standard_normal((b, t1, 4, d)), tr),
+                     ten(rng.standard_normal((b, t1, 4)), tr), ten(w4, ta)),
+            k.Family(ten(0.5 * rng.standard_normal((b, t1, k_diag, d)), tr),
+                     ten(rng.standard_normal((b, t1, k_diag)), tr),
+                     ten(rng.uniform(0.1, 1.0, (b, t1, k_diag)), ta), True)]
+    if addends:
+        g = 0.1 * rng.standard_normal((b, t1, d, d))
+        kw.update(diag_add=ten(g @ np.swapaxes(g, -1, -2), ta),
+                  off_add=ten(0.05 * rng.standard_normal((b, t1 - 1, d, d)),
+                              ta),
+                  rhs_add=ten(rng.standard_normal((b, t1, d)), ta))
+    return (*args[:9], fams), kw
+
+
+# The wide and block kernels' D at their edges (phase 19 (a)).
+ROWS_EDGE_D = (17, 18, 32, 33, 34)
+
+
+def stream_rows_edges(dev, rng, ds=ROWS_EDGE_D, insts=tuple(STREAM_INSTANCES)):
+    """The wide and block kernels at each D of ``ds`` in the instances
+    ``insts`` on :func:`stream_rows_system`'s systems at their stages' and
+    chunks' edges, under their default plan and under 2 stages of 16 rows
+    (``btd_stream.set_rows_plan``): a lone problem with T1 = 1 (LM) and a
+    diagonal family of 1 row, 7 problems with T1 = 2 and chunk - 1 rows,
+    7 with T1 = stages + 1 and chunk rows (LM), 1000 with T1 = stages + 1
+    and chunk + 1 rows, and 1000 with T1 = 3 and 411 rows (LM), every
+    addend on the odd cases; one launch each.  Returns the worst error
+    over its bound."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
+
+    worst = 0.0
+    for caps in ({}, {"stages": 2, "chunk_rows": 16}):
+        prev = k.set_rows_plan(**caps)
+        try:
+            for inst in insts:
+                kind = k.KINDS[STREAM_INSTANCES[inst]]
+                for d in ds:
+                    fams = (k.FamilyShape(3, False, True),
+                            k.FamilyShape(4, False, False),
+                            k.FamilyShape(411, True, False))
+                    g = k.geometry(d, 1000, kind, families=fams)
+                    ck, st = g["chunk_rows"], g["stages"]
+                    cases = ((1, 1, True, 1), (7, 2, False, ck - 1),
+                             (7, st + 1, True, ck), (1000, st + 1, False,
+                                                     ck + 1),
+                             (1000, 3, True, 411))
+                    for i, (b, t1, lm, kd) in enumerate(cases):
+                        args, kw = stream_rows_system(rng, b, t1, d, inst,
+                                                      dev, lm, max(kd, 1),
+                                                      i % 2 == 1)
+                        n = k.launches
+                        e, tol = stream_system_err(args, kw)
+                        if k.launches - n != 1 or not e <= tol:
+                            raise AssertionError(
+                                f"K-STREAM {inst} D={d} B={b} T1={t1} "
+                                f"K={kd} caps {caps}: {e} > {tol} "
+                                f"({k.launches - n} launches)")
+                        worst = max(worst, e / tol)
+        finally:
+            k.set_rows_plan(**prev)
+    return worst
+
+
 def stream_bound(args, kw, x):
     """(ms, by) of one K-STREAM step: its inputs read once (each block as
     stored: a shared one once), x written once; operations per step and
@@ -4982,9 +5144,6 @@ def time_stream(label, problem, smi, rec=None, timing=None):
     0.1) beside the standard engine's assembly + damping + K-BTD; ``timing``
     the counts of :func:`kernel_ms` (:data:`ARM_TIMING` for the arms)."""
     timing = timing or {}
-    reps = timing.get("reps", 20)
-    from dgpmp2_tpu_torch.core import gn, graph
-    from dgpmp2_tpu_torch.ops.cuda import btd_solve as kb
     from dgpmp2_tpu_torch.ops.cuda import btd_stream as k
 
     spec, robot, params, th, sdf = problem
@@ -5003,6 +5162,25 @@ def time_stream(label, problem, smi, rec=None, timing=None):
                                                 "host_us", "plain_ms",
                                                 "bound_ms", "bound_by")})
         del a, kw, x
+    std = standard_step_times(problem, timing)
+    seen = (f"{std['busy_ms']:.4f} ms busy in {std['ops']} launches"
+            if std["ops"] else "no launch seen")
+    print(f"[{smi}] standard engine's step at the {label} (assembly + "
+          f"damping + K-BTD, float32): CUDA graph {std['graph_ms']:.4f} ms "
+          f"(warm L2), host-inclusive events {std['event_ms']:.4f} ms, "
+          f"profiler {seen}; library call: none computes this step")
+
+
+def standard_step_times(problem, timing=None):
+    """The standard engine's float32 step on one path's first-iteration
+    residuals (assembly + damping + K-BTD, reg 0.1), the work one K-STREAM
+    launch does: its CUDA-graph ms (warm L2), host-inclusive event ms, and
+    the profiler's device-busy ms and launches of one step."""
+    from dgpmp2_tpu_torch.core import gn, graph
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve as kb
+
+    timing = timing or {}
+    spec, robot, params, th, sdf = problem
     res = graph.eval_residuals(spec, robot, params, th, sdf)
     static = graph.assemble_static(spec, params, torch.float32)
     reg = torch.tensor(0.1, device=th.device)  # capture refuses a host copy
@@ -5012,24 +5190,18 @@ def time_stream(label, problem, smi, rec=None, timing=None):
             *graph.assemble_from_residuals(spec, params, res, static=static),
             reg))
 
-    ev = cuda_ms(standard, reps=reps, flush=True)
+    ev = cuda_ms(standard, reps=timing.get("reps", 20), flush=True)
     _, prof = profile_run(standard)
-    seen = (f"{prof['busy_ms']:.4f} ms busy in {prof['ops']} launches"
-            if prof["ops"] else "no launch seen")
-    print(f"[{smi}] standard engine's step at the {label} (assembly + "
-          f"damping + K-BTD, float32): CUDA graph "
-          f"{graph_ms(standard, n=timing.get('graph_n', 100)):.4f} ms (warm "
-          f"L2), "
-          f"host-inclusive events {ev:.4f} ms, profiler {seen}; library "
-          f"call: none computes this step")
+    return {"graph_ms": graph_ms(standard, n=timing.get("graph_n", 100)),
+            "event_ms": ev, "busy_ms": prof["busy_ms"], "ops": prof["ops"]}
 
 
 # Phase 8's arms whose K-STREAM step phase 19 (c) times beside the benches:
 # one shape of each kernel past the 2-D and 3-D benches' lane groups (D = 8,
 # the wide kernel's 18, the block kernel's 34), with :func:`kernel_ms`'s
-# counts cut for steps of up to ~0.14 s.
+# counts cut for steps of up to ~15 ms.
 STREAM_TIMED_ARMS = ("4-link arm", "9-link arm", "17-link arm")
-ARM_TIMING = dict(reps=2, graph_n=2, host_n=10)
+ARM_TIMING = dict(reps=10, graph_n=10, host_n=50)
 
 
 def stream_digests(dev) -> dict:
@@ -5111,6 +5283,67 @@ def engine_plans(dev, smi, bench, bench3, bench_np):
               f"(host-paced, CUDA events: 50 iterations {t50:.3f} ms, 200 "
               f"{t200:.3f} ms); K-STREAM in the loop "
               f"{json.dumps(ops[40].get('btd_stream'))}")
+    arm_engine_plans(dev, smi, bench_np)
+
+
+# Phase 8's arms that phase 19 (b) plans under the stream and df32 engines.
+ENGINE_ARMS = ("9-link arm", "17-link arm")
+
+
+def arm_engine_plans(dev, smi, bench_np, names=ENGINE_ARMS):
+    """19 (b), the arms: phase 8's 9- and 17-link arms (LM, 20 iterations,
+    B=1024, float32) through ``DiffGPMP2Planner.plan`` from the YAMLs with
+    ``engine`` stream and df32: one K-STREAM launch an iteration and no
+    K-BTD launch, every problem improved; then ms per iteration (CUDA
+    events: the 20-iteration plan less the 10-iteration one, over 10, each
+    the median of 3) and device busy and launches per iteration (the
+    profiler, the same difference) of the standard, stream and df32
+    engines."""
+    import copy
+    import dataclasses
+
+    arms = constrained_problems(dev, bench_np)
+    for name in names:
+        planner, start, goal, _, sdf = arms[name]
+        spec = planner.spec
+        th0 = seeds(spec, start, goal, dev)
+        n = planner.cfg.max_iters
+
+        def with_cfg(**kw):
+            q = copy.copy(planner)
+            q.cfg = dataclasses.replace(planner.cfg, **kw)
+            return q
+
+        for engine in ("stream", "df32"):
+            q = with_cfg(engine=engine)
+            out, _ = drive(f"19 (b) {name} engine={engine}",
+                           lambda q=q: q.plan(th0, start, goal, sdf),
+                           {"btd_stream": n, "sdf_lookup": n + 1})
+            check_plan(f"{name} DiffGPMP2Planner.plan (YAMLs, "
+                       f"engine={engine})", out, n, spec.dof,
+                       spec.total_time_step, 1.0)
+        for engine in ("standard", "stream", "df32"):
+            plans = {m: with_cfg(engine=engine, max_iters=m, tol_delta=0.0)
+                     for m in (n // 2, n)}
+            prof = {m: profile_run(lambda q=q: q.plan(th0, start, goal,
+                                                      sdf))[1]
+                    for m, q in plans.items()}
+            t = {m: cuda_ms(lambda q=q: q.plan(th0, start, goal, sdf),
+                            reps=3, warmup=1) for m, q in plans.items()}
+            k = n - n // 2
+            busy = (prof[n]["busy_ms"] - prof[n // 2]["busy_ms"]) / k
+            per = (prof[n]["ops"] - prof[n // 2]["ops"]) / k
+            ms = (t[n] - t[n // 2]) / k
+            kern = prof[n].get("btd_stream" if engine != "standard"
+                               else "btd_solve")
+            print(f"[{smi}] {name} (D={spec.state_dim}, B={B}, LM) "
+                  f"engine={engine}: {ms:.4f} ms an iteration (CUDA events: "
+                  f"{n // 2} iterations {t[n // 2]:.3f} ms, {n} {t[n]:.3f} "
+                  f"ms), device busy {busy:.4f} ms an iteration, {per:.1f} "
+                  f"launches an iteration; its solve kernel in the loop "
+                  f"{json.dumps(kern)}")
+        del arms[name]
+        torch.cuda.empty_cache()
 
 
 def df32_goldens(dev, smi):
@@ -5218,6 +5451,10 @@ def stream_engines(dev, smi, bench, bench3, problems, bench_np, rec):
     print(f"K-STREAM lane groups, D = 1-16 in three instances at the ring's "
           f"edges (random systems): worst error over its bound "
           f"{stream_ring_edges(dev, rng):.3e}")
+    print(f"K-STREAM wide and block kernels, D = "
+          f"{', '.join(map(str, ROWS_EDGE_D))} in three instances at their "
+          f"stages' and chunks' edges (random systems, every addend): worst "
+          f"error over its bound {stream_rows_edges(dev, rng):.3e}")
     df32_goldens(dev, smi)
     # (b) The main path at full width under both engines.
     engine_plans(dev, smi, bench, bench3, bench_np)

@@ -1,4 +1,4 @@
-// K-STREAM, the scratch query and the float32 instance.  The kernels are in
+// K-STREAM, the producer cap and the float32 instance.  The kernels are in
 // btd_stream.cuh; each instance has its own source, so that nvcc builds
 // the three in parallel.
 #include "btd_stream.cuh"
@@ -14,20 +14,6 @@ extern "C" int dgpmp2_btd_stream_set_producers(int n) {
   return prev;
 }
 
-// Bytes of global scratch per problem that the wrapper must pass at D: 0
-// where the kernel needs none (D <= 32, or the rows fit the device's opt-in
-// shared memory).
-extern "C" int dgpmp2_btd_stream_scratch_bytes(int d, long long* bytes) {
-  *bytes = 0;
-  if (d <= kMaxD) return static_cast<int>(cudaSuccess);
-  int optin = 0;
-  const int rc = smem_optin(&optin);
-  if (rc != 0) return rc;
-  const size_t n = stream_block_elems(d) * sizeof(double);
-  if (n > static_cast<size_t>(optin)) *bytes = static_cast<long long>(n);
-  return static_cast<int>(cudaSuccess);
-}
-
 extern "C" int dgpmp2_btd_stream_f32(const StreamArgs* a, void* stream) {
   return launch<float, float>(a, stream);
 }
@@ -37,3 +23,14 @@ extern "C" int dgpmp2_btd_stream_f32_geometry(int d, int batch, int* out) {
   return narrow_geometry<float, float>(d, batch, out);
 }
 
+
+// The wide and block kernels' attributes and occupancy (rows_attrs,
+// rows_occupancy), for ops/cuda/btd_stream.py's launch plan.
+extern "C" int dgpmp2_btd_stream_f32_rows_attrs(int block, int* out) {
+  return rows_attrs<float, float>(block, out);
+}
+
+extern "C" int dgpmp2_btd_stream_f32_rows_occupancy(int block, int threads,
+                                                    int smem, int* out) {
+  return rows_occupancy<float, float>(block, threads, smem, out);
+}

@@ -66,13 +66,13 @@
 //   (B = 1024: 1, 1, 2 and 4 blocks an SM at D = 1-2, 3-4, 5-8, 9-16).
 //   Each element is summed in one fixed order (narrow_form), so x does not
 //   depend on which warp formed a step.
-// - D = 17-32: K-BTD's warp per problem with the rows in shared memory
-//   (float64: 42.2 KB); lane r forms its row, each family row H[k] and
-//   (ΛH)[k] formed once by the warp into shared memory; a family's sum is
-//   kept apart (in the row's U columns) and added to the row once, as the
-//   standard assembly adds each family's sum.  Its loads are synchronous.
-// - D > 32: K-BTD's block per problem with double rows, the block sharing
-//   each family row's D² products.
+// - D > 16: a persistent grid of blocks, each a producer warp staging the
+//   family rows into a ring of stages by cp.async, former warps forming a
+//   step's rows [C_t | U_t | y_t] from the stages (2 x 2 tiles of the lower
+//   triangle a thread), and consumer warps running K-BTD's wide (D = 17-32:
+//   one warp) or block (D > 32: four warps) step on them while the
+//   formers form the next step (the section "D > 16" below).  The rows stay
+//   float64 through the pivots, as in K-BTD's block kernel.
 // The gain and z are stored in TA, so the df32 instance keeps float64 from
 // the first product to the last back-sweep step; x is written in TR.
 #pragma once
@@ -104,6 +104,26 @@ struct Family {
   int k, diagonal;
 };
 
+// The launch plan of the wide and block kernels (D > 16), made by
+// ops/cuda/btd_stream.py `rows_plan` (`_RowsPlan` mirrors it): the grid,
+// the former warps, the stages of the ring of family rows and the rows of a
+// diagonal family a stage takes, the buffers of a step's rows (two: the
+// formers form step t + 1 into the one the consumer's Schur update of step
+// t has released), and the dynamic shared memory's layout in bytes: the
+// stages' and row buffers' mbarriers at 0, then ry (the rhs's family sums,
+// D doubles), each kept Λ (lam[f], -1 where staged), a chunk's ΛH (lh)
+// and, for float32 residuals, its H and r in float64 (hd: chunk_elems
+// doubles of H, then r), the stages, and the rows with U_{t-1} after them
+// (rows_off), or, with scratch_block, those in scratch at scratch_block
+// bytes a block.
+struct RowsPlan {
+  int grid, formers, stages, chunk_rows, row_buffers, stage_bytes;
+  int rows_off, ry_off, lh_off, hd_off, chunk_elems, stage_off;
+  int lam[kMaxFamilies];
+  int smem;
+  long long scratch_block;
+};
+
 // The kernel's arguments (ops/cuda/btd_stream.py `_Args` mirrors them).
 // Blocks, Λ, addends and δ are TA; r_gp (b, t, j), r_s and r_g (b, j), H
 // and r are TR.  diag, off, phit_q, q_inv (b, t, i, j); ks, kg (b, i, j);
@@ -118,6 +138,7 @@ struct StreamArgs {
   void* z;        // (B, T1, D) TA, z_t; may be x where TA is TR
   void* gain;     // (B, T1 - 1, D, D) TA, X_t
   void* scratch;  // D > 32: the rows in global memory, or null
+  RowsPlan plan;  // D > 16
 };
 
 // The most producer warps a lane-group block takes (0: the kernel's
@@ -139,51 +160,6 @@ __device__ __forceinline__ T at(const View& v, long long i0, long long i1,
                                 long long i2 = 0, long long i3 = 0) {
   return static_cast<const T*>(
       v.p)[i0 * v.s[0] + i1 * v.s[1] + i2 * v.s[2] + i3 * v.s[3]];
-}
-
-// Element i of rhs_t from the GP and prior residuals, in float64.
-template <typename TA, typename TR>
-__device__ __forceinline__ double gp_rhs(const StreamArgs& a, int b, int t,
-                                         int i, int d) {
-  double y = 0.0;
-  if (t < a.steps - 1) {
-    double s = 0.0;
-    for (int j = 0; j < d; ++j)
-      s += double(at<TA>(a.phit_q, b, t, i, j)) * double(at<TR>(a.r_gp, b, t, j));
-    y = s;
-  }
-  if (t >= 1) {
-    double s = 0.0;
-    for (int j = 0; j < d; ++j)
-      s += double(at<TA>(a.q_inv, b, t - 1, i, j)) *
-           double(at<TR>(a.r_gp, b, t - 1, j));
-    y -= s;
-  }
-  if (t == 0) {
-    double s = 0.0;
-    for (int j = 0; j < d; ++j)
-      s += double(at<TA>(a.ks, b, i, j)) * double(at<TR>(a.r_s, b, j));
-    y += s;
-  }
-  if (t == a.steps - 1) {
-    double s = 0.0;
-    for (int j = 0; j < d; ++j)
-      s += double(at<TA>(a.kg, b, i, j)) * double(at<TR>(a.r_g, b, j));
-    y += s;
-  }
-  return y;
-}
-
-// (ΛH)[k][j] of family f at (b, t), in float64.
-template <typename TA, typename TR>
-__device__ __forceinline__ double lam_h(const Family& f, int b, int t, int k,
-                                        int j) {
-  if (f.diagonal)
-    return double(at<TA>(f.w, b, t, k)) * double(at<TR>(f.h, b, t, k, j));
-  double s = 0.0;
-  for (int l = 0; l < f.k; ++l)
-    s += double(at<TA>(f.w, b, t, k, l)) * double(at<TR>(f.h, b, t, l, j));
-  return s;
 }
 
 // -- D <= 16 ----------------------------------------------------------------
@@ -244,8 +220,9 @@ __device__ __forceinline__ T ld(const View& v, long long i0, long long i1,
                                              i2 * v.s[2] + i3 * v.s[3]));
 }
 
-// gp_rhs at a compile-time D, through ld, four columns' loads at a time
-// (fully unrolled at D = 16, the loads hoisted ahead of the sums spilled).
+// Element i of rhs_t from the GP and prior residuals, in float64, at a
+// compile-time D, through ld, four columns' loads at a time (fully
+// unrolled at D = 16, the loads hoisted ahead of the sums spilled).
 template <typename TA, typename TR, int D>
 __device__ __forceinline__ double narrow_gp_rhs(const StreamArgs& a, int b,
                                                 int t, int i) {
@@ -608,186 +585,605 @@ int narrow_geometry(int d, int batch, int* out) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// -- D = 17-32 --------------------------------------------------------------
+// -- D > 16: the wide (D = 17-32) and block (D > 32) kernels -----------------
+//
+// A persistent grid: block i takes problems i, i + grid, ... one after
+// another, and each block has three roles.
+// - One producer warp (the last) stages each step's family rows into a ring
+//   of `stages` stages in shared memory, ahead of their use: per family, the
+//   rows H (K x D), r (K) and, unless the launch keeps it, Λ (K x K, or K
+//   when diagonal), by cp.async (16-byte pieces where a run of H is
+//   contiguous, else element by element), completing on each stage's full
+//   mbarrier (cp.async.mbarrier.arrive); the formers release a stage on its
+//   empty mbarrier.  A family with a full Λ takes one stage whole; a diagonal
+//   one (the self-collision pairs: 115 x 18 on the 9-link arm, 411 x 34 on
+//   the 17-link arm) is streamed `chunk_rows` rows a stage.  A Λ that every
+//   problem and step shares (batch and time stride 0) is loaded once per
+//   block and kept.
+// - Former warps form each step's rows [C_t | U_t | y_t] (double) into two
+//   buffers.  rhs_t's GP and prior terms a row a
+//   thread and diag_t's lower triangle first; then, for each stage, the
+//   formers convert its H and r to float64 once (float32 residuals: once a
+//   chunk, not once a tile) and form its ΛH in shared memory, Λ_k H[k][j]
+//   for a diagonal Λ, Σ_l Λ[k][l] H[l][j] for a full one; then each thread
+//   takes the stage's rows into its 2 x 2 tiles of the lower triangle, with
+//   two or three barriers a stage, none a residual row.  Last, U_t by every
+//   former (coalesced loads of off_t), the addends, δ and the mirror.  The
+//   GP/prior blocks, addends and δ are read straight from global memory,
+//   each element once a step, none of them in a chain.
+// - Consumer warps (one, or kBlockConsumers past D = 32) run K-BTD's step
+//   on the rows (wide_schur + wide_pivots, or block_schur + block_pivots,
+//   each element's sums as in K-BTD whatever the team's size), release
+//   the previous step's rows once the Schur update has read them, store X_t
+//   and z_t, and run K-BTD's back sweep after each problem's last step.  So
+//   the formers form step t + 1 while the consumer pivots step t.
+// The warps, stages, chunk rows and the shared-memory layout
+// are the launch plan (ops/cuda/btd_stream.py `rows_plan`, plain Python):
+// the most blocks an SM that the registers and shared memory allow.  Past
+// the shared memory, the rows go to a global scratch buffer per block.
+//
+// What bounds it on an H100: the bytes are the family rows, read once (the
+// self-collision H dominates: 0.81 ms at the 17-link arm, B = 1024, in
+// float32), and the chain of T1 steps of D pivots each, as in K-BTD's wide
+// and block kernels.  The staging overlaps the rows' bytes with the chain,
+// and the formers take the assembly off it.
+//
+// Every element's sums keep the order of the kernels they replace: the wide
+// kernel keeps each family's sum apart (in the U columns) and adds it to the
+// row once; the block kernel adds each product straight into the row; ΛH
+// sums over l in order; then the addends and δ.
 
+// Most former warps a block takes (the plan chooses fewer where that keeps
+// more blocks an SM), the block kernel's consumer warps, and launch bounds
+// that leave the registers room not to spill while the arms' plans stay
+// resident at B = 1024 (see rows_plan): the wide kernel up to 80
+// registers, so 8 blocks of 3 warps an SM (6 of 4); the block kernel up to
+// 96, 2 blocks of 10 warps.  Four consumer warps pivot a step about as
+// fast as K-BTD's eight (a chain of D barriers), and leave the registers
+// to formers.
+constexpr int kWideFormers = 2;
+constexpr int kBlockFormers = 5;
+constexpr int kBlockConsumers = 4;
+
+// madd(a, b, c) = a b + c, fused or with the product rounded first.  Each
+// sum rounds as in the kernels these replace (their SASS on the H100): the
+// rhs products, ΛH of a full Λ and LM's δ fused in both; the family
+// products into a row fused in the block kernel but rounded first in the
+// wide one, where a select between the two triangles' products kept the
+// compiler from fusing them (kFuseRow<APART>).
+template <bool FUSED>
+__device__ __forceinline__ double madd(double a, double b, double c) {
+  return FUSED ? __fma_rn(a, b, c) : __dadd_rn(c, __dmul_rn(a, b));
+}
+
+template <bool APART>
+constexpr bool kFuseRow = !APART;
+constexpr bool kFuseRhs = true;
+constexpr bool kFuseLamH = true;
+constexpr bool kFuseDelta = true;
+
+__host__ __device__ constexpr int align16(int n) { return (n + 15) / 16 * 16; }
+
+// Byte offsets of a stage's r and Λ pieces for `rows` family rows (H first,
+// with 16 bytes to spare for matching its source's alignment).
+template <typename TR>
+__host__ __device__ inline int stage_r_off(int rows, int d) {
+  return align16(rows * d * static_cast<int>(sizeof(TR)) + 16);
+}
+template <typename TR>
+__host__ __device__ inline int stage_w_off(int rows, int d) {
+  return stage_r_off<TR>(rows, d) +
+         align16(rows * static_cast<int>(sizeof(TR)));
+}
+
+// Rows a stage takes of family f: the whole family (at least one chunk,
+// empty for K = 0) where Λ is full, else chunk_rows.
+__device__ __forceinline__ int chunk_step(const Family& f, int chunk_rows) {
+  return f.diagonal ? chunk_rows : (f.k > 1 ? f.k : 1);
+}
+
+template <typename TR>
+__device__ __forceinline__ const TR* h_rows(const Family& f, int b, int t,
+                                            int k0) {
+  return static_cast<const TR*>(f.h.p) +
+         (b * f.h.s[0] + t * f.h.s[1] + k0 * f.h.s[2]);
+}
+
+// Whether a chunk's H rows are one contiguous run, and where in the stage
+// they start: a contiguous run sits at its source's offset modulo 16, so
+// that its body copies in 16-byte pieces.
+template <typename TR>
+__device__ __forceinline__ int h_shift(const Family& f, const TR* src,
+                                       int rows, int d) {
+  const bool run = f.h.s[3] == 1 && (f.h.s[2] == d || rows <= 1);
+  return run ? static_cast<int>(reinterpret_cast<size_t>(src) & 15) : -1;
+}
+
+__device__ __forceinline__ void cp_arrive(unsigned long long* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The producer warp's copies of one chunk into stage st.
 template <typename TA, typename TR>
-__global__ void __launch_bounds__(kWarp)
-    btd_stream_kernel_wide(__grid_constant__ const StreamArgs a) {
-  __shared__ double rows[2][kWarp][kWideRow];
-  __shared__ double up[kWarp][kWarp + 1];
-  __shared__ double hk[kWarp];  // H[k] of the family row in hand
-  __shared__ double lk[kWarp];  // (ΛH)[k]
-  const int r = threadIdx.x;
-  const int d = a.d;
-  const bool own = r < d;
-  const int steps = a.steps;
-  const size_t dd = static_cast<size_t>(d) * d;
-  const int b = blockIdx.x;
-  TA* zb = static_cast<TA*>(a.z) + static_cast<size_t>(b) * steps * d;
-  TR* xb = static_cast<TR*>(a.x) + static_cast<size_t>(b) * steps * d;
-  TA* gn = static_cast<TA*>(a.gain) + static_cast<size_t>(b) * (steps - 1) * dd;
-  const int cz = 2 * d;
-
-  for (int t = 0; t < steps; ++t) {
-    double(*cur)[kWideRow] = rows[t & 1];
-    const double(*prev)[kWideRow] = rows[(t + 1) & 1];
-    const bool has_next = t < steps - 1;
-    double y = 0.0;
-    if (own) {
-      for (int j = 0; j < d; ++j)
-        cur[r][j] = at<TA>(a.diag, b, t, j <= r ? r : j, j <= r ? j : r);
-      y = gp_rhs<TA, TR>(a, b, t, r, d);
-    }
-    for (int n = 0; n < a.nfam; ++n) {
-      const Family& f = a.fam[n];
-      double ry = 0.0;
-      if (own)
-        for (int j = 0; j < d; ++j) cur[r][d + j] = 0.0;
-      for (int k = 0; k < f.k; ++k) {
-        if (own) {
-          hk[r] = at<TR>(f.h, b, t, k, r);
-          lk[r] = lam_h<TA, TR>(f, b, t, k, r);
-        }
-        __syncwarp();
-        if (own) {
-          const double hr = hk[r], lr = lk[r];
-          for (int j = 0; j < d; ++j)
-            cur[r][d + j] += j <= r ? hr * lk[j] : hk[j] * lr;
-          ry += lr * double(at<TR>(f.r, b, t, k));
-        }
-        __syncwarp();
-      }
-      if (own) {
-        for (int j = 0; j < d; ++j) cur[r][j] += cur[r][d + j];
-        y += ry;
-      }
-    }
-    if (own) {
-      if (a.diag_add.p)
-        for (int j = 0; j < d; ++j)
-          cur[r][j] += at<TA>(a.diag_add, b, t, j <= r ? r : j, j <= r ? j : r);
-      if (a.rhs_add.p) y += at<TA>(a.rhs_add, b, t, r);
-      if (a.delta.p) cur[r][r] = cur[r][r] + at<TA>(a.delta, b, 0) * cur[r][r];
-      for (int j = 0; j < d; ++j) {
-        double o = 0.0;
-        if (has_next) {
-          o = at<TA>(a.off, b, t, r, j);
-          if (a.off_add.p) o += at<TA>(a.off_add, b, t, r, j);
-        }
-        cur[r][d + j] = o;
-      }
-      cur[r][cz] = y;
-    }
-    __syncwarp();
-    wide_step<double>(cur, prev, up, t, d, r);
-    if (own) {
-      zb[static_cast<size_t>(t) * d + r] = static_cast<TA>(cur[r][cz]);
-      if (has_next)
-        for (int k = 0; k < d; ++k)
-          gn[t * dd + r * d + k] = static_cast<TA>(cur[r][d + k]);
+__device__ __forceinline__ void stage_chunk(const Family& f, bool kept, int b,
+                                            int t, int k0, int rows, int d,
+                                            unsigned char* st, int lane) {
+  constexpr int SR = static_cast<int>(sizeof(TR));
+  constexpr int SA = static_cast<int>(sizeof(TA));
+  if (rows == 0) return;
+  const TR* src = h_rows<TR>(f, b, t, k0);
+  const int n = rows * d;
+  const int shift = h_shift<TR>(f, src, rows, d);
+  if (shift >= 0) {
+    unsigned char* dst = st + shift;
+    int head = ((16 - shift) & 15) / SR;
+    head = head < n ? head : n;
+    const int body = (n - head) * SR / 16;
+    const int tail = head + body * 16 / SR;
+    for (int i = lane; i < head; i += kWarp)
+      cp_async<SR>(dst + i * SR, src + i);
+    for (int i = lane; i < body; i += kWarp)
+      cp_async<16>(dst + head * SR + i * 16,
+                   reinterpret_cast<const unsigned char*>(src + head) + i * 16);
+    for (int i = tail + lane; i < n; i += kWarp)
+      cp_async<SR>(dst + i * SR, src + i);
+  } else {
+    for (int e = lane; e < n; e += kWarp) {
+      const int k = e / d;
+      const int j = e - k * d;
+      cp_async<SR>(st + e * SR, src + (k * f.h.s[2] + j * f.h.s[3]));
     }
   }
-  if (own)
-    xb[static_cast<size_t>(steps - 1) * d + r] =
-        static_cast<TR>(rows[(steps - 1) & 1][r][cz]);
-  wide_back_sweep<TA, TR>(gn, zb, xb, steps, d, r);
+  unsigned char* rs = st + stage_r_off<TR>(rows, d);
+  const TR* r0 = static_cast<const TR*>(f.r.p) +
+                 (b * f.r.s[0] + t * f.r.s[1] + k0 * f.r.s[2]);
+  for (int k = lane; k < rows; k += kWarp)
+    cp_async<SR>(rs + k * SR, r0 + k * f.r.s[2]);
+  if (kept) return;
+  unsigned char* ws = st + stage_w_off<TR>(rows, d);
+  const TA* w0 = static_cast<const TA*>(f.w.p) +
+                 (b * f.w.s[0] + t * f.w.s[1] + k0 * f.w.s[2]);
+  if (f.diagonal) {
+    for (int k = lane; k < rows; k += kWarp)
+      cp_async<SA>(ws + k * SA, w0 + k * f.w.s[2]);
+  } else {
+    for (int e = lane; e < rows * f.k; e += kWarp) {
+      const int k = e / f.k;
+      const int l = e - k * f.k;
+      cp_async<SA>(ws + e * SA, w0 + (k * f.w.s[2] + l * f.w.s[3]));
+    }
+  }
 }
 
-// -- D > 32 -----------------------------------------------------------------
-
-// Doubles per problem of the block kernel's buffer: K-BTD's rows, then the
-// family row in hand, H[k] and (ΛH)[k].
-__host__ __device__ inline size_t stream_block_elems(int d) {
-  return block_elems(d) + 2 * static_cast<size_t>(d);
+// Tile e of the lower triangle in 2 x 2 tiles: rows 2 ip, 2 ip + 1 and
+// columns 2 cp, 2 cp + 1, cp <= ip, e = ip (ip + 1) / 2 + cp.
+__device__ __forceinline__ void tile_of(int e, int& ip, int& cp) {
+  int i = static_cast<int>((sqrtf(8.0f * e + 1.0f) - 1.0f) * 0.5f);
+  while ((i + 1) * (i + 2) / 2 <= e) ++i;
+  while (i * (i + 1) / 2 > e) --i;
+  ip = i;
+  cp = e - i * (i + 1) / 2;
 }
 
-template <typename TA, typename TR>
-__global__ void __launch_bounds__(kBlockX * kBlockY)
-    btd_stream_kernel_block(__grid_constant__ const StreamArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int d = a.d;
-  const int steps = a.steps;
-  const int b = blockIdx.x;
-  double* base = a.scratch ? static_cast<double*>(a.scratch) +
-                                 static_cast<size_t>(b) * stream_block_elems(d)
-                           : reinterpret_cast<double*>(smem);
+__device__ __forceinline__ void named_sync(unsigned id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The rows k of a chunk into one tile's accumulators, k in order, from the
+// chunk's H and ΛH in float64.
+template <bool APART>
+__device__ __forceinline__ void tile_rows(const double* hd, const double* lh,
+                                          const double* rd, int rows, int d,
+                                          int i0, int i1, int c0, int c1,
+                                          bool dg, double& x00, double& x10,
+                                          double& x01, double& x11,
+                                          double& y0, double& y1) {
+  for (int k = 0; k < rows; ++k) {
+    const double* hk = hd + k * d;
+    const double* lk = lh + k * d;
+    const double h0 = hk[i0], h1 = hk[i1], l0 = lk[c0], l1 = lk[c1];
+    x00 = madd<kFuseRow<APART>>(h0, l0, x00);
+    x10 = madd<kFuseRow<APART>>(h1, l0, x10);
+    x01 = madd<kFuseRow<APART>>(h0, l1, x01);
+    x11 = madd<kFuseRow<APART>>(h1, l1, x11);
+    if (dg) {
+      y0 = madd<kFuseRhs>(l0, rd[k], y0);
+      y1 = madd<kFuseRhs>(l1, rd[k], y1);
+    }
+  }
+}
+
+// The formers' part of one chunk: each thread's tiles take the chunk's rows
+// k in order into their accumulators.  APART (the wide kernel): a family's
+// sums start at 0 in the U columns (and ry for the rhs), and are added to
+// the row at the family's last chunk; else (the block kernel) each product
+// goes straight into the row.
+template <bool APART>
+__device__ __forceinline__ void form_chunk(double* cur, double* ry,
+                                           const double* hd, const double* lh,
+                                           const double* rd, bool first,
+                                           bool last, int rows, int d,
+                                           int ftid, int nft) {
   const int w = 2 * d + 1;
   const int cz = 2 * d;
-  const size_t step_elems = static_cast<size_t>(d) * w;
-  double* up = base + 2 * step_elems;
-  double* hk = base + block_elems(d);
-  double* lk = hk + d;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kBlockX + tx;
-  const int dd = d * d;
-  TA* zb = static_cast<TA*>(a.z) + static_cast<size_t>(b) * steps * d;
-  TR* xb = static_cast<TR*>(a.x) + static_cast<size_t>(b) * steps * d;
-  TA* gn = static_cast<TA*>(a.gain) + static_cast<size_t>(b) * (steps - 1) * dd;
-
-  for (int t = 0; t < steps; ++t) {
-    double* cur = base + (t & 1) * step_elems;
-    const double* prev = base + ((t + 1) & 1) * step_elems;
-    const bool has_next = t < steps - 1;
-    const size_t tdd = static_cast<size_t>(t) * dd;
-    // Thread (tx, ty) keeps element (i, c), c <= i, of the lower triangle
-    // and, at tx = 0, rhs[i] through every phase of the assembly.
-    for (int i = ty; i < d; i += kBlockY) {
-      for (int c = tx; c <= i; c += kBlockX)
-        cur[i * w + c] = double(at<TA>(a.diag, b, t, i, c));
-      if (tx == 0) cur[i * w + cz] = gp_rhs<TA, TR>(a, b, t, i, d);
-    }
-    for (int n = 0; n < a.nfam; ++n) {
-      const Family& f = a.fam[n];
-      for (int k = 0; k < f.k; ++k) {
-        __syncthreads();
-        for (int j = tid; j < d; j += kBlockX * kBlockY) {
-          hk[j] = double(at<TR>(f.h, b, t, k, j));
-          lk[j] = lam_h<TA, TR>(f, b, t, k, j);
-        }
-        __syncthreads();
-        const double rk = double(at<TR>(f.r, b, t, k));
-        for (int i = ty; i < d; i += kBlockY) {
-          for (int c = tx; c <= i; c += kBlockX)
-            cur[i * w + c] += hk[i] * lk[c];
-          if (tx == 0) cur[i * w + cz] += lk[i] * rk;
-        }
+  const int hp = (d + 1) / 2;
+  const int ntiles = hp * (hp + 1) / 2;
+  // Accumulators at element (i, j) of the rows: U's column j (APART) or
+  // C's; the rhs's at ry[i] (APART) or y.
+  const int acc = APART ? d : 0;
+  for (int e = ftid; e < ntiles; e += nft) {
+    int ip, cp;
+    tile_of(e, ip, cp);
+    const int i0 = 2 * ip, c0 = 2 * cp;
+    const bool dg = ip == cp;
+    const bool v1 = i0 + 1 < d;  // row i0 + 1 exists
+    const int i1 = v1 ? i0 + 1 : i0;
+    const int c1 = c0 + 1 < d ? c0 + 1 : c0;
+    // (i0, c0), (i1, c0), (i0, c1), (i1, c1); the rhs of i0, i1 on a
+    // diagonal tile.
+    double x00 = 0.0, x10 = 0.0, x01 = 0.0, x11 = 0.0, y0 = 0.0, y1 = 0.0;
+    if (!(APART && first)) {
+      x00 = cur[i0 * w + acc + c0];
+      x10 = cur[i1 * w + acc + c0];
+      x11 = cur[i1 * w + acc + c1];
+      if (!dg) x01 = cur[i0 * w + acc + c1];
+      if (dg) {
+        y0 = APART ? ry[i0] : cur[i0 * w + cz];
+        y1 = APART ? ry[i1] : cur[i1 * w + cz];
       }
     }
-    // Addends and damping on the lower triangle, then its mirror, U_t.
-    for (int i = ty; i < d; i += kBlockY) {
-      for (int c = tx; c < d; c += kBlockX) {
-        if (c <= i) {
-          double v = cur[i * w + c];
-          if (a.diag_add.p) v += double(at<TA>(a.diag_add, b, t, i, c));
-          if (c == i && a.delta.p) v = v + double(at<TA>(a.delta, b, 0)) * v;
-          cur[i * w + c] = v;
-          cur[c * w + i] = v;
-        }
-        double o = 0.0;
-        if (has_next) {
-          o = double(at<TA>(a.off, b, t, i, c));
-          if (a.off_add.p) o += double(at<TA>(a.off_add, b, t, i, c));
-        }
-        cur[i * w + d + c] = o;
+    tile_rows<APART>(hd, lh, rd, rows, d, i0, i1, c0, c1, dg, x00, x10, x01,
+                     x11, y0, y1);
+    const bool has01 = !dg && c0 + 1 < d;
+    const bool has11 = v1 && c0 + 1 < d;
+    if (APART && last) {
+      // The family's sums, added to the row once.
+      cur[i0 * w + c0] = __dadd_rn(cur[i0 * w + c0], x00);
+      if (v1) cur[i1 * w + c0] = __dadd_rn(cur[i1 * w + c0], x10);
+      if (has01) cur[i0 * w + c1] = __dadd_rn(cur[i0 * w + c1], x01);
+      if (has11) cur[i1 * w + c1] = __dadd_rn(cur[i1 * w + c1], x11);
+      if (dg) {
+        cur[i0 * w + cz] = __dadd_rn(cur[i0 * w + cz], y0);
+        if (v1) cur[i1 * w + cz] = __dadd_rn(cur[i1 * w + cz], y1);
       }
-      if (tx == 0 && a.rhs_add.p)
-        cur[i * w + cz] += double(at<TA>(a.rhs_add, b, t, i));
-    }
-    __syncthreads();
-    block_step(cur, prev, up, t, d);
-    for (int r = ty; r < d; r += kBlockY) {
-      if (has_next)
-        for (int c = tx; c < d; c += kBlockX)
-          gn[tdd + r * d + c] = static_cast<TA>(cur[r * w + d + c]);
-      if (tx == 0)
-        zb[static_cast<size_t>(t) * d + r] = static_cast<TA>(cur[r * w + cz]);
+    } else {
+      cur[i0 * w + acc + c0] = x00;
+      if (v1) cur[i1 * w + acc + c0] = x10;
+      if (has01) cur[i0 * w + acc + c1] = x01;
+      if (has11) cur[i1 * w + acc + c1] = x11;
+      if (dg) {
+        if (APART) {
+          ry[i0] = y0;
+          if (v1) ry[i1] = y1;
+        } else {
+          cur[i0 * w + cz] = y0;
+          if (v1) cur[i1 * w + cz] = y1;
+        }
+      }
     }
   }
-  const double* last = base + ((steps - 1) & 1) * step_elems;
-  for (int r = tid; r < d; r += kBlockX * kBlockY)
-    xb[static_cast<size_t>(steps - 1) * d + r] =
-        static_cast<TR>(last[r * w + cz]);
-  block_back_sweep<TA, TR>(last, up, gn, zb, xb, steps, d);
+}
+
+// Element i of rhs_t from the GP and prior residuals, in float64, through
+// ld, eight columns' loads at a time; each product fused into its sum, as
+// the kernels these replace did.
+template <typename TA, typename TR>
+__device__ __forceinline__ double rows_gp_rhs(const StreamArgs& a, int b,
+                                              int t, int i, int d) {
+  auto dot = [&](const View& m, int tm, const View& v, int tv, bool timed) {
+    double s = 0.0;
+#pragma unroll 8
+    for (int j = 0; j < d; ++j)
+      s = __fma_rn(double(timed ? ld<TA>(m, b, tm, i, j) : ld<TA>(m, b, i, j)),
+                   double(timed ? ld<TR>(v, b, tv, j) : ld<TR>(v, b, j)), s);
+    return s;
+  };
+  double y = 0.0;
+  if (t < a.steps - 1) y = dot(a.phit_q, t, a.r_gp, t, true);
+  if (t >= 1) y -= dot(a.q_inv, t - 1, a.r_gp, t - 1, true);
+  if (t == 0) y += dot(a.ks, 0, a.r_s, 0, false);
+  if (t == a.steps - 1) y += dot(a.kg, 0, a.r_g, 0, false);
+  return y;
+}
+
+// Element (i, j) of U_t: off_t (+ off_add_t), 0 at the last step.
+template <typename TA>
+__device__ __forceinline__ double u_elem(const StreamArgs& a, int b, int t,
+                                         bool has_next, int i, int j) {
+  if (!has_next) return 0.0;
+  const double o = double(ld<TA>(a.off, b, t, i, j));
+  return a.off_add.p ? __dadd_rn(o, double(ld<TA>(a.off_add, b, t, i, j)))
+                     : o;
+}
+
+// The formers' step (b, t) into cur, taking stages c, c + 1, ... of the
+// ring; returns the next stage's count.
+template <typename TA, typename TR, bool APART>
+__device__ __forceinline__ int form_step(
+    const StreamArgs& a, unsigned char* smem, double* cur, int b, int t, int c,
+    unsigned long long* full, unsigned long long* empty, int ftid, int nft) {
+  // b opaque to the compiler: each step recomputes its addresses rather than
+  // holding every view's per-problem base in registers across the steps.
+  asm volatile("" : "+r"(b));
+  const dgpmp2_stream::RowsPlan& pl = a.plan;
+  const int d = a.d;
+  const int w = 2 * d + 1;
+  const int cz = 2 * d;
+  const int hp = (d + 1) / 2;
+  const int ntiles = hp * (hp + 1) / 2;
+  double* ry = reinterpret_cast<double*>(smem + pl.ry_off);
+  double* lh = reinterpret_cast<double*>(smem + pl.lh_off);
+  // rhs_t from the GP and prior terms, a row a thread; the lower triangle of
+  // diag_t, each tile's loads issued before its stores.
+  for (int i = ftid; i < d; i += nft)
+    cur[i * w + cz] = rows_gp_rhs<TA, TR>(a, b, t, i, d);
+  for (int e = ftid; e < ntiles; e += nft) {
+    int ip, cp;
+    tile_of(e, ip, cp);
+    const int i0 = 2 * ip, c0 = 2 * cp;
+    const bool v1 = i0 + 1 < d, has01 = ip != cp && c0 + 1 < d;
+    const bool has11 = v1 && c0 + 1 < d;
+    const double d00 = double(ld<TA>(a.diag, b, t, i0, c0));
+    const double d10 = v1 ? double(ld<TA>(a.diag, b, t, i0 + 1, c0)) : 0.0;
+    const double d01 = has01 ? double(ld<TA>(a.diag, b, t, i0, c0 + 1)) : 0.0;
+    const double d11 =
+        has11 ? double(ld<TA>(a.diag, b, t, i0 + 1, c0 + 1)) : 0.0;
+    cur[i0 * w + c0] = d00;
+    if (v1) cur[(i0 + 1) * w + c0] = d10;
+    if (has01) cur[i0 * w + c0 + 1] = d01;
+    if (has11) cur[(i0 + 1) * w + c0 + 1] = d11;
+  }
+  // rhs_t is the diagonal tiles' owners' from here.
+  named_sync(1, nft);
+  for (int n = 0; n < a.nfam; ++n) {
+    const Family& f = a.fam[n];
+    const int step = chunk_step(f, pl.chunk_rows);
+    const TA* kept = pl.lam[n] >= 0
+                         ? reinterpret_cast<const TA*>(smem + pl.lam[n])
+                         : nullptr;
+    for (int k0 = 0; k0 == 0 || k0 < f.k; k0 += step, ++c) {
+      const int rows = f.k - k0 < step ? f.k - k0 : step;
+      const int s = c % pl.stages;
+      mbar_wait(full + s, (c / pl.stages) & 1);
+      const unsigned char* st = smem + pl.stage_off + s * pl.stage_bytes;
+      const int shift = rows ? h_shift<TR>(f, h_rows<TR>(f, b, t, k0), rows, d)
+                             : 0;
+      const TR* hs = reinterpret_cast<const TR*>(st + (shift > 0 ? shift : 0));
+      const TR* rs = reinterpret_cast<const TR*>(st + stage_r_off<TR>(rows, d));
+      const TA* ws =
+          kept ? kept + (f.diagonal ? k0 : 0)
+               : reinterpret_cast<const TA*>(st + stage_w_off<TR>(rows, d));
+      // The chunk's H and r in float64 (float32 residuals converted once
+      // here, not once a tile), and a diagonal Λ's (ΛH)[k][j] = Λ_k H[k][j];
+      // then a full Λ's (ΛH)[k][j] = Σ_l Λ[k][l] H[l][j], l in order.
+      const bool wide64 = sizeof(TR) == sizeof(double);
+      double* hw = reinterpret_cast<double*>(smem + pl.hd_off);
+      double* rw = hw + pl.chunk_elems;
+      const double* hd =
+          wide64 ? reinterpret_cast<const double*>(hs) : hw;
+      const double* rd =
+          wide64 ? reinterpret_cast<const double*>(rs) : rw;
+      named_sync(1, nft);  // the last chunk's tiles are done with hd and lh
+      for (int e = ftid; e < rows * d; e += nft) {
+        const double h = double(hs[e]);
+        if (!wide64) hw[e] = h;
+        if (f.diagonal) lh[e] = __dmul_rn(double(ws[e / d]), h);
+      }
+      if (!wide64)
+        for (int k = ftid; k < rows; k += nft) rw[k] = double(rs[k]);
+      if (!f.diagonal) {
+        named_sync(1, nft);
+        for (int e = ftid; e < rows * d; e += nft) {
+          const int k = e / d;
+          const int j = e - k * d;
+          const TA* wk = ws + k * f.k;
+          double acc = 0.0;
+#pragma unroll 4
+          for (int l = 0; l < f.k; ++l)
+            acc = madd<kFuseLamH>(double(wk[l]), hd[l * d + j], acc);
+          lh[e] = acc;
+        }
+      }
+      named_sync(1, nft);
+      form_chunk<APART>(cur, ry, hd, lh, rd, k0 == 0, k0 + step >= f.k, rows,
+                        d, ftid, nft);
+      mbar_arrive(empty + s);
+    }
+  }
+  // Every family sum is in (the U columns are free), so U_t by every
+  // former thread, a row's elements to consecutive threads; rhs_t's addend
+  // a row a thread; then the addends and δ on each tile's lower triangle,
+  // and its mirror.
+  named_sync(1, nft);
+  const bool has_next = t < a.steps - 1;
+#pragma unroll 4
+  for (int e = ftid; e < d * d; e += nft) {
+    const int i = e / d;
+    const int j = e - i * d;
+    cur[i * w + d + j] = u_elem<TA>(a, b, t, has_next, i, j);
+  }
+  if (a.rhs_add.p)
+    for (int i = ftid; i < d; i += nft)
+      cur[i * w + cz] =
+          __dadd_rn(cur[i * w + cz], double(ld<TA>(a.rhs_add, b, t, i)));
+  const double dl = a.delta.p ? double(ld<TA>(a.delta, b, 0)) : 0.0;
+  for (int e = ftid; e < ntiles; e += nft) {
+    int ip, cp;
+    tile_of(e, ip, cp);
+    for (int i = 2 * ip; i < 2 * ip + 2 && i < d; ++i) {
+      for (int j = 2 * cp; j < 2 * cp + 2 && j <= i; ++j) {
+        double v = cur[i * w + j];
+        if (a.diag_add.p)
+          v = __dadd_rn(v, double(ld<TA>(a.diag_add, b, t, i, j)));
+        if (i == j && a.delta.p) v = madd<kFuseDelta>(dl, v, v);
+        cur[i * w + j] = v;
+        cur[j * w + i] = v;
+      }
+    }
+  }
+  return c;
+}
+
+// SMEM: the rows in shared memory (scratch_block 0), so that the compiler
+// addresses them as shared memory, not through generic pointers.
+template <typename TA, typename TR, bool BLOCK, bool SMEM>
+__device__ __forceinline__ void rows_kernel(const StreamArgs& a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const dgpmp2_stream::RowsPlan& pl = a.plan;
+  const int d = a.d;
+  const int w = 2 * d + 1;
+  const int cz = 2 * d;
+  const int steps = a.steps;
+  const int ns = pl.stages, nr = pl.row_buffers;
+  const int nc = BLOCK ? kBlockConsumers : 1;
+  const int nf = pl.formers;
+  unsigned long long* full = reinterpret_cast<unsigned long long*>(smem);
+  unsigned long long* empty = full + ns;
+  unsigned long long* rfull = empty + ns;
+  unsigned long long* rempty = rfull + nr;
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const size_t step_elems = static_cast<size_t>(d) * w;
+  double* rows =
+      SMEM ? reinterpret_cast<double*>(smem + pl.rows_off)
+           : reinterpret_cast<double*>(static_cast<unsigned char*>(a.scratch) +
+                                       blockIdx.x * pl.scratch_block);
+  double* up = rows + nr * step_elems;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ns; ++s) {
+      mbar_init(full + s, kWarp);
+      mbar_init(empty + s, nf * kWarp);
+    }
+    for (int q = 0; q < nr; ++q) {
+      mbar_init(rfull + q, nf * kWarp);
+      mbar_init(rempty + q, nc * kWarp);
+    }
+  }
+  // Each Λ the launch keeps, loaded once.
+  for (int n = 0; n < a.nfam; ++n) {
+    const Family& f = a.fam[n];
+    if (pl.lam[n] < 0) continue;
+    TA* dst = reinterpret_cast<TA*>(smem + pl.lam[n]);
+    const int m = f.diagonal ? f.k : f.k * f.k;
+    for (int e = threadIdx.x; e < m; e += blockDim.x)
+      dst[e] = f.diagonal ? at<TA>(f.w, 0, 0, e)
+                          : at<TA>(f.w, 0, 0, e / f.k, e % f.k);
+  }
+  __syncthreads();
+
+  if (warp >= nc + nf) {
+    // The producer warp.
+    int c = 0;
+    for (int b = blockIdx.x; b < a.batch; b += gridDim.x)
+      for (int t = 0; t < steps; ++t)
+        for (int n = 0; n < a.nfam; ++n) {
+          const Family& f = a.fam[n];
+          const int step = chunk_step(f, pl.chunk_rows);
+          for (int k0 = 0; k0 == 0 || k0 < f.k; k0 += step, ++c) {
+            const int s = c % ns;
+            mbar_wait(empty + s, ((c / ns) & 1) ^ 1);
+            stage_chunk<TA, TR>(f, pl.lam[n] >= 0, b, t, k0,
+                                f.k - k0 < step ? f.k - k0 : step, d,
+                                smem + pl.stage_off + s * pl.stage_bytes, lane);
+            cp_arrive(full + s);
+          }
+        }
+    cp_wait_all();
+    return;
+  }
+
+  if (warp >= nc) {
+    // The former warps.
+    const int ftid = threadIdx.x - nc * kWarp;
+    const int nft = nf * kWarp;
+    int g = 0, c = 0;
+    for (int b = blockIdx.x; b < a.batch; b += gridDim.x)
+      for (int t = 0; t < steps; ++t, ++g) {
+        const int q = g % nr;
+        mbar_wait(rempty + q, ((g / nr) & 1) ^ 1);
+        c = form_step<TA, TR, !BLOCK>(a, smem, rows + q * step_elems, b, t, c,
+                                      full, empty, ftid, nft);
+        mbar_arrive(rfull + q);
+      }
+    return;
+  }
+
+  // The consumer warps.
+  const Team tm{lane, warp, kBlockConsumers, 2u};
+  const int dd = d * d;
+  int g = 0;
+  for (int b = blockIdx.x; b < a.batch; b += gridDim.x) {
+    TA* zb = static_cast<TA*>(a.z) + static_cast<size_t>(b) * steps * d;
+    TR* xb = static_cast<TR*>(a.x) + static_cast<size_t>(b) * steps * d;
+    TA* gn = static_cast<TA*>(a.gain) +
+             static_cast<size_t>(b) * (steps - 1) * dd;
+    for (int t = 0; t < steps; ++t, ++g) {
+      const int q = g % nr;
+      mbar_wait(rfull + q, (g / nr) & 1);
+      double* cur = rows + q * step_elems;
+      const double* prev = rows + ((g + nr - 1) % nr) * step_elems;
+      const bool has_next = t < steps - 1;
+      if (BLOCK)
+        block_schur(cur, prev, up, t, d, tm);
+      else
+        wide_schur(cur, prev, up, w, d + 1, t, d, lane);
+      // The previous step's rows are free for the formers.
+      if (g > 0) mbar_arrive(rempty + (g - 1) % nr);
+      const size_t tdd = static_cast<size_t>(t) * dd;
+      if (BLOCK) {
+        block_pivots(cur, up, d, tm);
+        for (int r = tm.ty; r < d; r += kBlockConsumers) {
+          if (has_next)
+            for (int c = tm.tx; c < d; c += kBlockX)
+              gn[tdd + r * d + c] = static_cast<TA>(cur[r * w + d + c]);
+          if (tm.tx == 0)
+            zb[static_cast<size_t>(t) * d + r] =
+                static_cast<TA>(cur[r * w + cz]);
+        }
+      } else {
+        wide_pivots(cur, up, w, d + 1, d, lane);
+        if (lane < d) {
+          zb[static_cast<size_t>(t) * d + lane] =
+              static_cast<TA>(cur[lane * w + cz]);
+          if (has_next)
+            for (int k = 0; k < d; ++k)
+              gn[tdd + lane * d + k] = static_cast<TA>(cur[lane * w + d + k]);
+        }
+      }
+    }
+    const double* last = rows + ((g + nr - 1) % nr) * step_elems;
+    const int tid = BLOCK ? warp * kWarp + lane : lane;
+    for (int r = tid; r < d; r += nc * kWarp)
+      xb[static_cast<size_t>(steps - 1) * d + r] =
+          static_cast<TR>(last[r * w + cz]);
+    if (BLOCK)
+      block_back_sweep<TA, TR>(last, up, gn, zb, xb, steps, d, tm);
+    else
+      wide_back_sweep<TA, TR>(gn, zb, xb, steps, d, lane);
+  }
+}
+
+
+template <typename TA, typename TR>
+__global__ void __launch_bounds__(kWarp * (2 + kWideFormers), 6)
+    btd_stream_kernel_wide(__grid_constant__ const StreamArgs a) {
+  rows_kernel<TA, TR, false, true>(a);  // D <= 32: the rows always fit
+}
+
+template <typename TA, typename TR>
+__global__ void __launch_bounds__(kWarp * (1 + kBlockConsumers + kBlockFormers),
+                                  2)
+    btd_stream_kernel_block(__grid_constant__ const StreamArgs a) {
+  if (a.plan.scratch_block)
+    rows_kernel<TA, TR, true, false>(a);
+  else
+    rows_kernel<TA, TR, true, true>(a);
 }
 
 template <typename TA, typename TR>
@@ -800,21 +1196,72 @@ int launch(const StreamArgs* args, void* stream) {
   if (a.d <= kNarrowMax) {
     const int rc = launch_narrow<TA, TR>(a, s);
     if (rc != 0) return rc;
-  } else if (a.d <= kMaxD) {
-    btd_stream_kernel_wide<TA, TR><<<a.batch, kWarp, 0, s>>>(a);
-  } else {
-    size_t smem = 0;
-    if (a.scratch == nullptr) {
-      smem = stream_block_elems(a.d) * sizeof(double);
-      const cudaError_t e = cudaFuncSetAttribute(
-          btd_stream_kernel_block<TA, TR>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    btd_stream_kernel_block<TA, TR>
-        <<<a.batch, dim3(kBlockX, kBlockY), smem, s>>>(a);
+    return static_cast<int>(cudaGetLastError());
   }
+  const dgpmp2_stream::RowsPlan& pl = a.plan;
+  const bool block = a.d > kMaxD;
+  const int formers_max = block ? kBlockFormers : kWideFormers;
+  if (pl.grid < 1 || pl.formers < 1 || pl.formers > formers_max ||
+      pl.stages < 1 || pl.row_buffers < 2 || pl.chunk_rows < 1 ||
+      (pl.scratch_block && (a.scratch == nullptr || !block)))
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto kernel = block ? btd_stream_kernel_block<TA, TR>
+                            : btd_stream_kernel_wide<TA, TR>;
+  // Opt in to the device's limit, not to this plan's bytes: the plan's
+  // occupancy queries (rows_occupancy) assume that limit.
+  int optin = 0;
+  int rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  if (pl.smem > optin) return static_cast<int>(cudaErrorInvalidConfiguration);
+  rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin));
+  if (rc != 0) return rc;
+  const int threads =
+      kWarp * ((block ? kBlockConsumers : 1) + pl.formers + 1);
+  kernel<<<pl.grid, threads, pl.smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wide (block = 0) or block kernel's registers, local bytes a thread
+// and most threads a block into out[0..2], the device's opt-in shared
+// memory and SMs into out[3..4]; opts the kernel in to that shared memory
+// with the carveout at shared memory first.
+template <typename TA, typename TR>
+int rows_attrs(int block, int* out) {
+  const auto kernel = block ? btd_stream_kernel_block<TA, TR>
+                            : btd_stream_kernel_wide<TA, TR>;
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int v[5] = {attr.numRegs, static_cast<int>(attr.localSizeBytes),
+                    attr.maxThreadsPerBlock, optin, sms};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
+// Blocks an SM of the wide or block kernel at `threads` and `smem` dynamic
+// shared bytes (after rows_attrs).
+template <typename TA, typename TR>
+int rows_occupancy(int block, int threads, int smem, int* out) {
+  const auto kernel = block ? btd_stream_kernel_block<TA, TR>
+                            : btd_stream_kernel_wide<TA, TR>;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, kernel, threads, smem));
 }
 
 }  // namespace

@@ -13,3 +13,14 @@ extern "C" int dgpmp2_btd_stream_mixed(const StreamArgs* a, void* stream) {
 extern "C" int dgpmp2_btd_stream_mixed_geometry(int d, int batch, int* out) {
   return narrow_geometry<double, float>(d, batch, out);
 }
+
+// The wide and block kernels' attributes and occupancy (rows_attrs,
+// rows_occupancy), for ops/cuda/btd_stream.py's launch plan.
+extern "C" int dgpmp2_btd_stream_mixed_rows_attrs(int block, int* out) {
+  return rows_attrs<double, float>(block, out);
+}
+
+extern "C" int dgpmp2_btd_stream_mixed_rows_occupancy(int block, int threads,
+                                                    int smem, int* out) {
+  return rows_occupancy<double, float>(block, threads, smem, out);
+}

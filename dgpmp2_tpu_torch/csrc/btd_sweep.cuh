@@ -240,42 +240,62 @@ __device__ __forceinline__ void sub_scaled(T* row, const T* piv, T f, int k0,
   for (; k < k1; ++k) row[k] -= f * piv[k];
 }
 
-// One step on the rows cur = [C_t | U_t | y_t] (y_t in column 2d), formed
-// and visible to the warp: the Schur update with prev = [. | X_{t-1} |
-// z_{t-1}] and up = U_{t-1} (row-major, stride kWarp + 1), then U_t into up
-// and Gauss-Jordan, which leaves [X_t | z_t] in cur.
+// The Schur update of one step on the rows cur = [C_t | U_t | y_t] (y_t in
+// column 2d; row r at cur + r * rs), formed and visible to the warp, with
+// prev = [. | X_{t-1} | z_{t-1}] and up = U_{t-1} (row r at up + r * us):
+// C_t -= U_{t-1}^T X_{t-1}, y_t -= U_{t-1}^T z_{t-1}, one row of X_{t-1} at a
+// time.  Neither prev nor up is read after it returns.
+template <typename T>
+__device__ __forceinline__ void wide_schur(T* cur, const T* prev,
+                                           const T* up, int rs, int us,
+                                           int t, int d, int r) {
+  const int cz = 2 * d;
+  if (t > 0 && r < d) {
+    T* row = cur + r * rs;
+    for (int k = 0; k < d; ++k) {
+      const T u = up[k * us + r];
+      row[cz] -= u * prev[k * rs + cz];
+      sub_scaled(row, prev + k * rs + d, u, 0, d);
+    }
+  }
+  __syncwarp();
+}
+
+// The rest of the step: U_t into up, then Gauss-Jordan, which leaves
+// [X_t | z_t] in cur.
+template <typename T>
+__device__ __forceinline__ void wide_pivots(T* cur, T* up, int rs, int us,
+                                            int d, int r) {
+  const bool own = r < d;
+  const int cz = 2 * d;
+  if (own)
+    for (int k = 0; k < d; ++k) up[r * us + k] = cur[r * rs + d + k];
+  // Gauss-Jordan: C_t becomes I, [U_t | y_t] becomes [X_t | z_t].  Rows
+  // r != j read pivot row j before lane j scales it.
+  for (int j = 0; j < d; ++j) {
+    const T inv = recip(cur[j * rs + j]);
+    if (own && r != j)
+      sub_scaled(cur + r * rs, cur + j * rs, cur[r * rs + j] * inv, j + 1,
+                 cz + 1);
+    __syncwarp();
+    if (r == j) {
+#pragma unroll 4
+      for (int k = j + 1; k <= cz; ++k) cur[j * rs + k] *= inv;
+    }
+    __syncwarp();
+  }
+}
+
+// One step on K-BTD's rows (kWideRow columns, up with kWarp + 1): the Schur
+// update, then the pivots.
 template <typename T>
 __device__ __forceinline__ void wide_step(T (*cur)[kWideRow],
                                           const T (*prev)[kWideRow],
                                           T (*up)[kWarp + 1], int t, int d,
                                           int r) {
-  const bool own = r < d;
-  const int cz = 2 * d;
-  // Schur update of row r: C_t -= U_{t-1}^T X_{t-1}, y_t -= U_{t-1}^T z_{t-1},
-  // one row of X_{t-1} at a time.
-  if (t > 0 && own) {
-    for (int k = 0; k < d; ++k) {
-      const T u = up[k][r];
-      cur[r][cz] -= u * prev[k][cz];
-      sub_scaled(cur[r], prev[k] + d, u, 0, d);
-    }
-  }
-  __syncwarp();
-  if (own)
-    for (int k = 0; k < d; ++k) up[r][k] = cur[r][d + k];
-  // Gauss-Jordan: C_t becomes I, [U_t | y_t] becomes [X_t | z_t].  Rows
-  // r != j read pivot row j before lane j scales it.
-  for (int j = 0; j < d; ++j) {
-    const T inv = recip(cur[j][j]);
-    if (own && r != j)
-      sub_scaled(cur[r], cur[j], cur[r][j] * inv, j + 1, cz + 1);
-    __syncwarp();
-    if (r == j) {
-#pragma unroll 4
-      for (int k = j + 1; k <= cz; ++k) cur[j][k] *= inv;
-    }
-    __syncwarp();
-  }
+  wide_schur(&cur[0][0], &prev[0][0], &up[0][0], kWideRow, kWarp + 1, t, d,
+             r);
+  wide_pivots(&cur[0][0], &up[0][0], kWideRow, kWarp + 1, d, r);
 }
 
 // Back sweep from x_{T-1} = z_{T-1}: x_t = z_t - X_t x_{t+1}; each lane
@@ -308,20 +328,40 @@ __host__ __device__ inline size_t block_elems(int d) {
          static_cast<size_t>(d) * (d + 1);
 }
 
-// One step on the double rows cur (row i: [C_t | U_t | y_t] at columns
-// [0, d), [d, 2d) and 2d, stride 2d + 1), formed and visible to the block:
-// the Schur update with prev and up = U_{t-1} (stride d + 1), U_t into up,
-// and Gauss-Jordan, which leaves [X_t | z_t] in cur.
-__device__ __forceinline__ void block_step(double* cur, const double* prev,
-                                           double* up, int t, int d) {
+// The threads that run a block kernel's step: (tx, ty) in kBlockX x ny,
+// each element of a step taken by one of them in the same order whatever
+// ny is; synchronised by sync(): the whole block (bar 0, K-BTD: ny =
+// kBlockY) or, in K-STREAM, its consumer warps on the named barrier `bar`.
+struct Team {
+  int tx, ty, ny;
+  unsigned bar;
+  __device__ __forceinline__ void sync() const {
+    if (bar == 0)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(kBlockX * ny)
+                   : "memory");
+  }
+};
+
+__device__ __forceinline__ Team whole_block() {
+  return Team{static_cast<int>(threadIdx.x), static_cast<int>(threadIdx.y),
+              kBlockY, 0u};
+}
+
+// The Schur update of one step on the double rows cur (row i: [C_t | U_t |
+// y_t] at columns [0, d), [d, 2d) and 2d, stride 2d + 1), formed and visible
+// to the team, with prev and up = U_{t-1} (stride d + 1): C_t -= U_{t-1}^T
+// X_{t-1}, y_t -= U_{t-1}^T z_{t-1}; the column c = d stands for y.  Neither
+// prev nor up is read after it returns.
+__device__ __forceinline__ void block_schur(double* cur, const double* prev,
+                                            const double* up, int t, int d,
+                                            const Team& tm) {
   const int w = 2 * d + 1;
   const int cz = 2 * d;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  // Schur update: C_t -= U_{t-1}^T X_{t-1}, y_t -= U_{t-1}^T z_{t-1}; the
-  // column c = d stands for y.
   if (t > 0) {
-    for (int r = ty; r < d; r += kBlockY) {
-      for (int c = tx; c <= d; c += kBlockX) {
+    for (int r = tm.ty; r < d; r += tm.ny) {
+      for (int c = tm.tx; c <= d; c += kBlockX) {
         const int col = c < d ? c : cz;
         const int pcol = c < d ? d + c : cz;
         double acc = cur[r * w + col];
@@ -330,51 +370,69 @@ __device__ __forceinline__ void block_step(double* cur, const double* prev,
         cur[r * w + col] = acc;
       }
     }
-    __syncthreads();
+    tm.sync();
   }
-  for (int i = ty; i < d; i += kBlockY)
-    for (int c = tx; c < d; c += kBlockX)
+}
+
+// The rest of the step: U_t into up, and Gauss-Jordan, which leaves [X_t |
+// z_t] in cur.
+__device__ __forceinline__ void block_pivots(double* cur, double* up, int d,
+                                             const Team& tm) {
+  const int w = 2 * d + 1;
+  const int cz = 2 * d;
+  for (int i = tm.ty; i < d; i += tm.ny)
+    for (int c = tm.tx; c < d; c += kBlockX)
       up[i * (d + 1) + c] = cur[i * w + d + c];
-  __syncthreads();
+  tm.sync();
   // Gauss-Jordan without scaling: pivot j takes cur[r][j] / cur[j][j]
   // times row j from every other row, over columns j + 1 .. 2d.  Row j
   // and column j are only read in pass j, so one barrier per pivot; each
   // row is divided by its pivot at the end: [X_t | z_t].
   for (int j = 0; j < d; ++j) {
     const double inv = recip(cur[j * w + j]);
-    for (int r = ty; r < d; r += kBlockY) {
+    for (int r = tm.ty; r < d; r += tm.ny) {
       if (r == j) continue;
       const double f = cur[r * w + j] * inv;
-      for (int k = j + 1 + tx; k <= cz; k += kBlockX)
+      for (int k = j + 1 + tm.tx; k <= cz; k += kBlockX)
         cur[r * w + k] -= f * cur[j * w + k];
     }
-    __syncthreads();
+    tm.sync();
   }
-  for (int r = ty; r < d; r += kBlockY) {
+  for (int r = tm.ty; r < d; r += tm.ny) {
     const double inv = recip(cur[r * w + r]);
-    for (int k = d + tx; k <= cz; k += kBlockX) cur[r * w + k] *= inv;
+    for (int k = d + tm.tx; k <= cz; k += kBlockX) cur[r * w + k] *= inv;
   }
-  __syncthreads();
+  tm.sync();
+}
+
+// One step on the rows, formed and visible to the block: the Schur update,
+// then the pivots.
+__device__ __forceinline__ void block_step(double* cur, const double* prev,
+                                           double* up, int t, int d) {
+  const Team tm = whole_block();
+  block_schur(cur, prev, up, t, d, tm);
+  block_pivots(cur, up, d, tm);
 }
 
 // Back sweep from x_{T-1} = z_{T-1} (the last step's rows, `last`): x_t =
 // z_t - X_t x_{t+1}, x_{t+1} held in the buffer of U (free now), a row per
-// thread; X_t from gn and z_t from zb, x_t written to xb from t = T - 2
-// down.
+// thread of the team; X_t from gn and z_t from zb, x_t written to xb from
+// t = T - 2 down.
 template <typename TG, typename TR>
 __device__ __forceinline__ void block_back_sweep(const double* last,
                                                  double* up, const TG* gn,
                                                  const TG* zb, TR* xb,
-                                                 int steps, int d) {
+                                                 int steps, int d,
+                                                 const Team& tm) {
   const int w = 2 * d + 1;
   const int cz = 2 * d;
   const int dd = d * d;
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  const int nt = kBlockX * kBlockY;
+  const int tid = tm.ty * kBlockX + tm.tx;
+  const int nt = kBlockX * tm.ny;
   double* xa = up;
   double* xn = up + d;
   for (int i = tid; i < d; i += nt) xa[i] = last[i * w + cz];
-  __syncthreads();
+  tm.sync();
   for (int t = steps - 2; t >= 0; --t) {
     const size_t tdd = static_cast<size_t>(t) * dd;
     for (int r = tid; r < d; r += nt) {
@@ -383,11 +441,19 @@ __device__ __forceinline__ void block_back_sweep(const double* last,
       xn[r] = acc;
       xb[static_cast<size_t>(t) * d + r] = static_cast<TR>(acc);
     }
-    __syncthreads();
+    tm.sync();
     double* tmp = xa;
     xa = xn;
     xn = tmp;
   }
+}
+
+template <typename TG, typename TR>
+__device__ __forceinline__ void block_back_sweep(const double* last,
+                                                 double* up, const TG* gn,
+                                                 const TG* zb, TR* xb,
+                                                 int steps, int d) {
+  block_back_sweep<TG, TR>(last, up, gn, zb, xb, steps, d, whole_block());
 }
 
 // Largest dynamic shared memory a block may opt in to on the current device.

@@ -42,11 +42,15 @@ _SIGNATURES = {
     "dgpmp2_btd_stream_f32": [_P, _P],
     "dgpmp2_btd_stream_f64": [_P, _P],
     "dgpmp2_btd_stream_mixed": [_P, _P],
-    "dgpmp2_btd_stream_scratch_bytes": [_I, _P],
     # (d, batch, out int[10]): the lane-group launch plan
-    "dgpmp2_btd_stream_f32_geometry": [_I, _I, _P],
-    "dgpmp2_btd_stream_f64_geometry": [_I, _I, _P],
-    "dgpmp2_btd_stream_mixed_geometry": [_I, _I, _P],
+    **{f"dgpmp2_btd_stream_{k}_geometry": [_I, _I, _P]
+       for k in ("f32", "f64", "mixed")},
+    # (block, out int[5]): the wide or block kernel's attributes; (block,
+    # threads, smem bytes, out int): its blocks an SM
+    **{f"dgpmp2_btd_stream_{k}_rows_attrs": [_I, _P]
+       for k in ("f32", "f64", "mixed")},
+    **{f"dgpmp2_btd_stream_{k}_rows_occupancy": [_I, _I, _I, _P]
+       for k in ("f32", "f64", "mixed")},
     # (cap) -> the previous cap
     "dgpmp2_btd_stream_set_producers": [_I],
     # (plan, sdf, points, out, stream); plan: ops/cuda/_tiles.LookupPlan.

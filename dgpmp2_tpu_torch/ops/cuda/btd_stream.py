@@ -25,17 +25,21 @@ residuals another, which is that of x: float32 and float32, float64 and
 float64, or float64 blocks with float32 residuals (the df32 engine).
 
 ``launches`` counts kernel launches in this process; it goes up by one in
-:func:`launch` and nowhere else.  :func:`geometry` reports the launch plan
-of D <= 16 (producer warps, ring stages, blocks an SM resident and needed,
-registers and spill bytes), and :func:`set_producers` caps the producer
-warps, for measuring that choice.
+:func:`launch` and nowhere else.  :func:`geometry` reports the launch plan:
+at D <= 16 the lane-group kernel's (producer warps, ring stages, blocks an
+SM resident and needed, registers and spill bytes), past 16 the wide or
+block kernel's (:func:`rows_plan`: warps, stages, chunk rows, shared
+bytes, blocks an SM).  :func:`set_producers` caps the lane group's
+producer warps and :func:`set_rows_plan` restricts the wide and block
+kernels' plan, for measuring those choices.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import List, Optional, Sequence
+import math
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
@@ -117,8 +121,20 @@ class _Family(ctypes.Structure):
                 ("diagonal", ctypes.c_int)]
 
 
+class _RowsPlan(ctypes.Structure):
+    """``RowsPlan`` of ``csrc/btd_stream.cuh``."""
+
+    _fields_ = ([(n, ctypes.c_int) for n in (
+        "grid", "formers", "stages", "chunk_rows", "row_buffers",
+        "stage_bytes", "rows_off", "ry_off", "lh_off", "hd_off", "chunk_elems",
+        "stage_off")]
+                + [("lam", ctypes.c_int * MAX_FAMILIES),
+                   ("smem", ctypes.c_int),
+                   ("scratch_block", ctypes.c_longlong)])
+
+
 class _Args(ctypes.Structure):
-    """``StreamArgs`` of ``csrc/btd_stream.cu``."""
+    """``StreamArgs`` of ``csrc/btd_stream.cuh``."""
 
     _fields_ = ([(n, _View) for n in ("diag", "off", "phit_q", "q_inv", "ks",
                                       "kg", "r_gp", "r_s", "r_g", "diag_add",
@@ -126,7 +142,8 @@ class _Args(ctypes.Structure):
                 + [("fam", _Family * MAX_FAMILIES)]
                 + [(n, ctypes.c_int) for n in ("nfam", "batch", "steps", "d")]
                 + [(n, ctypes.c_void_p) for n in ("x", "z", "gain",
-                                                  "scratch")])
+                                                  "scratch")]
+                + [("plan", _RowsPlan)])
 
 
 def _view(a: Optional[torch.Tensor], shape, dtype, device, name) -> _View:
@@ -148,20 +165,6 @@ def _view(a: Optional[torch.Tensor], shape, dtype, device, name) -> _View:
     return v
 
 
-@functools.lru_cache(maxsize=None)
-def scratch_bytes(d: int, device: torch.device) -> int:
-    """Bytes of global scratch per problem the kernel needs at ``d``: 0
-    unless D > 32 and its rows exceed the device's opt-in shared memory."""
-    from dgpmp2_tpu_torch.ops.cuda import _build
-
-    n = ctypes.c_longlong(0)
-    with torch.cuda.device(device):
-        rc = _build.library().dgpmp2_btd_stream_scratch_bytes(
-            d, ctypes.byref(n))
-    _build.check(rc, "btd_stream scratch query")
-    return int(n.value)
-
-
 KINDS = {(torch.float32, torch.float32): "f32",
          (torch.float64, torch.float64): "f64",
          (torch.float64, torch.float32): "mixed"}
@@ -170,16 +173,31 @@ GEOMETRY_KEYS = ("producers", "stages", "threads", "smem_bytes",
                  "registers", "local_bytes", "sms")
 
 
-def geometry(d: int, batch: int, kind: str, device=None) -> dict:
-    """The lane-group kernel's launch plan at ``d`` (1-16) and ``batch`` for
-    the instance ``kind`` (``f32``, ``f64`` or ``mixed``) on ``device`` (the
-    current CUDA device by default), as :data:`GEOMETRY_KEYS`: every block
-    of the grid is resident at once where ``resident_blocks_per_sm`` reaches
-    ``needed_blocks_per_sm``."""
+def geometry(d: int, batch: int, kind: str, device=None,
+             families: Optional[Sequence[FamilyShape]] = None) -> dict:
+    """The launch plan at ``d`` and ``batch`` for the instance ``kind``
+    (``f32``, ``f64`` or ``mixed``) on ``device`` (the current CUDA device
+    by default).  D <= 16: the lane-group kernel's, as
+    :data:`GEOMETRY_KEYS`; every block of the grid is resident at once
+    where ``resident_blocks_per_sm`` reaches ``needed_blocks_per_sm``.  Past
+    16: the wide or block kernel's for the ``families`` (their
+    :class:`FamilyShape`), as :data:`ROWS_GEOMETRY_KEYS`; its grid is
+    persistent, so every block is resident."""
     from dgpmp2_tpu_torch.ops.cuda import _build
 
+    index = torch.cuda.current_device() if device is None else \
+        torch.device("cuda", device).index if isinstance(device, int) else \
+        torch.device(device).index
+    if d > NARROW_MAX:
+        if families is None:
+            raise ValueError("btd_stream geometry past D = 16 needs the "
+                             "families' shapes")
+        plan = _plan(d, batch, kind, tuple(families), index)
+        regs, local = _rows_attrs(kind, d > WIDE_MAX, index)[:2]
+        out = dict(plan, registers=regs, local_bytes=local)
+        return {k: out[k] for k in ROWS_GEOMETRY_KEYS}
     out = (ctypes.c_int * len(GEOMETRY_KEYS))()
-    with torch.cuda.device(device):
+    with torch.cuda.device(index):
         rc = getattr(_build.library(), f"dgpmp2_btd_stream_{kind}_geometry")(
             d, batch, out)
     _build.check(rc, "btd_stream geometry query")
@@ -193,6 +211,236 @@ def set_producers(n: int) -> int:
     from dgpmp2_tpu_torch.ops.cuda import _build
 
     return int(_build.library().dgpmp2_btd_stream_set_producers(n))
+
+
+# -- the wide and block kernels' launch plan (D > 16) -----------------------
+
+NARROW_MAX = 16      # kNarrowMax: the lane-group kernel's largest D
+WIDE_MAX = 32        # kMaxD: the wide kernel's largest D
+WIDE_FORMERS = 2     # kWideFormers
+BLOCK_FORMERS = 5    # kBlockFormers
+BLOCK_CONSUMERS = 4  # kBlockConsumers
+# Buffers of a step's rows (a third measured no faster on the 9- and
+# 17-link arms and cost the 9-link arm blocks an SM).
+ROW_BUFFERS = 2
+# The choices the plan tries, in order of preference at equal residency.
+STAGES = (3, 2, 4)
+CHUNK_ROWS = (32, 64, 16)
+ROWS_GEOMETRY_KEYS = ("kernel", "warps", "formers", "consumers", "stages",
+                      "chunk_rows", "kept", "stage_bytes",
+                      "smem_bytes", "scratch_block", "grid",
+                      "resident_blocks_per_sm", "needed_blocks_per_sm",
+                      "problems_per_block", "registers", "local_bytes", "sms")
+
+
+@dataclasses.dataclass(frozen=True)
+class FamilyShape:
+    """What the plan needs of a family: K, a diagonal Λ, and whether every
+    problem and step shares its Λ (so that a block may keep it)."""
+
+    k: int
+    diagonal: bool
+    shared: bool
+
+
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def rows_chunks(fams: Sequence[FamilyShape], chunk_rows: int):
+    """(family, first row, rows) of each stage that one step takes, in the
+    kernels' order (``chunk_step``): a family with a full Λ whole, a
+    diagonal one ``chunk_rows`` rows at a time, an empty family one stage
+    of no rows."""
+    out = []
+    for n, f in enumerate(fams):
+        step = chunk_rows if f.diagonal else max(f.k, 1)
+        k0 = 0
+        while k0 == 0 or k0 < f.k:
+            out.append((n, k0, min(step, f.k - k0)))
+            k0 += step
+    return out
+
+
+def _stage_need(d, rows, f, kept, ta, tr):
+    """Bytes of a stage holding ``rows`` rows of family ``f``: H (with 16
+    bytes to match its source's alignment), r and, unless ``kept``, Λ
+    (``stage_r_off``, ``stage_w_off``)."""
+    w_off = _a16(rows * d * tr + 16) + _a16(rows * tr)
+    return w_off + (0 if kept else
+                    _a16(rows * (1 if f.diagonal else f.k) * ta))
+
+
+def rows_layout(d: int, fams: Sequence[FamilyShape], ta: int, tr: int, *,
+                formers: int, stages: int, chunk_rows: int, keep: bool,
+                optin: int) -> Optional[dict]:
+    """The wide or block kernel's dynamic shared memory at ``d`` for the
+    families ``fams`` (``ta``, ``tr``: bytes of a block and a residual
+    element), as ``RowsPlan``'s fields: the mbarriers, ry, each kept Λ
+    (``keep``: every shared Λ), the largest chunk's ΛH and (float32
+    residuals) its H and r in float64, the stages, then the rows and
+    U_{t-1}, or (the block kernel, D > 32) those in a scratch buffer a
+    block where they do not fit ``optin`` bytes.  None where that does not
+    fit."""
+    kept = [keep and f.shared for f in fams]
+    chunks = rows_chunks(fams, chunk_rows)
+    stage = max([_stage_need(d, rows, fams[n], kept[n], ta, tr)
+                 for n, _, rows in chunks], default=16)
+    off = _a16((2 * stages + 2 * ROW_BUFFERS) * 8)
+
+    def region(nbytes):
+        nonlocal off
+        at = off
+        off += _a16(nbytes)
+        return at
+
+    lay = dict(formers=formers, stages=stages, chunk_rows=chunk_rows,
+               row_buffers=ROW_BUFFERS, stage_bytes=stage)
+    lay["ry_off"] = region(d * 8)
+    lay["lam"] = [region((f.k if f.diagonal else f.k * f.k) * ta)
+                  if kept[n] else -1 for n, f in enumerate(fams)]
+    # A chunk's ΛH, and its H and r in float64 where the residuals are
+    # float32.
+    elems = max([rows * d for _, _, rows in chunks], default=0)
+    rows_max = max([rows for _, _, rows in chunks], default=0)
+    lay["lh_off"] = region(elems * 8)
+    lay["chunk_elems"] = elems
+    lay["hd_off"] = region((elems + rows_max) * 8 if tr == 4 else 0)
+    lay["stage_off"] = region(stages * stage)
+    rows_bytes = (ROW_BUFFERS * d * (2 * d + 1) + d * (d + 1)) * 8
+    if off + rows_bytes <= optin:
+        lay["rows_off"], lay["scratch_block"] = region(rows_bytes), 0
+    elif d <= WIDE_MAX:
+        return None  # the wide kernel keeps its rows in shared memory
+    else:
+        lay["rows_off"], lay["scratch_block"] = -1, _a16(rows_bytes)
+    lay["smem"] = off
+    lay["kept"] = sum(kept)
+    return lay if off <= optin else None
+
+
+def rows_plan(d: int, batch: int, ta: int, tr: int,
+              fams: Sequence[FamilyShape],
+              occupancy: Callable[[int, int], int], optin: int, sms: int,
+              caps: Optional[dict] = None) -> dict:
+    """The launch plan of the wide (D = 17-32) or block (D > 32) kernel:
+    ``occupancy(threads, smem)`` gives the blocks an SM.  Of the choices
+    (former warps, up to one per 32 tiles of the lower triangle; keeping
+    the shared Λs, stages, chunk rows; ``caps`` restricts each), the first
+    in the order of preference (more formers, keeping, :data:`STAGES`,
+    :data:`CHUNK_ROWS`) with the most blocks an SM, up to those the batch
+    needs.  The grid is persistent: those blocks on every SM, each taking a
+    problem after another."""
+    caps = caps or {}
+    block = d > WIDE_MAX
+    consumers = BLOCK_CONSUMERS if block else 1
+    hp = (d + 1) // 2
+    fmax = min(BLOCK_FORMERS if block else WIDE_FORMERS,
+               max(1, -(-hp * (hp + 1) // 2 // 32)))
+    need = -(-batch // sms)
+    best = None
+    for formers in range(fmax, 0, -1):
+        for keep in (True, False):
+            for stages in STAGES:
+                for ck in CHUNK_ROWS:
+                    choice = dict(formers=formers, keep=keep, stages=stages,
+                                  chunk_rows=ck)
+                    if any(choice[k] != v for k, v in caps.items()):
+                        continue
+                    lay = rows_layout(d, fams, ta, tr, formers=formers,
+                                      stages=stages, chunk_rows=ck, keep=keep,
+                                      optin=optin)
+                    if lay is None:
+                        continue
+                    threads = 32 * (consumers + formers + 1)
+                    res = occupancy(threads, lay["smem"])
+                    if res >= 1 and (best is None
+                                     or min(res, need) > best[0]):
+                        best = (min(res, need), res, threads, lay)
+    if best is None:
+        raise ValueError(f"btd_stream kernel: no launch plan at D={d} for "
+                         f"families {list(fams)} (caps {caps}) fits "
+                         f"{optin} bytes of shared memory")
+    _, res, threads, lay = best
+    grid = min(batch, res * sms)
+    return dict(lay, kernel="block" if block else "wide", grid=grid,
+                warps=threads // 32, consumers=consumers, threads=threads,
+                smem_bytes=lay["smem"], resident_blocks_per_sm=res,
+                needed_blocks_per_sm=-(-grid // sms),
+                problems_per_block=-(-batch // grid), sms=sms)
+
+
+_ROWS_CAPS: dict = {}
+
+
+def set_rows_plan(**caps) -> dict:
+    """Restrict the wide and block kernels' plan from the next launch on to
+    the given ``formers``, ``keep``, ``stages`` and ``chunk_rows`` (none
+    given: the plan's own choice), for timing those
+    choices; returns the previous restriction."""
+    global _ROWS_CAPS
+    bad = set(caps) - {"formers", "keep", "stages", "chunk_rows"}
+    if bad:
+        raise ValueError(f"set_rows_plan: unknown {sorted(bad)}")
+    prev, _ROWS_CAPS = _ROWS_CAPS, dict(caps)
+    _plan.cache_clear()
+    return prev
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_attrs(kind: str, block: bool, index: int):
+    """(registers, local bytes, most threads, opt-in shared bytes, SMs) of
+    the wide or block kernel of ``kind`` on device ``index``."""
+    from dgpmp2_tpu_torch.ops.cuda import _build
+
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(index):
+        rc = getattr(_build.library(),
+                     f"dgpmp2_btd_stream_{kind}_rows_attrs")(int(block), out)
+    _build.check(rc, "btd_stream attribute query")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(kind: str, block: bool, index: int, threads: int,
+               smem: int) -> int:
+    from dgpmp2_tpu_torch.ops.cuda import _build
+
+    _rows_attrs(kind, block, index)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = getattr(_build.library(),
+                     f"dgpmp2_btd_stream_{kind}_rows_occupancy")(
+            int(block), threads, smem, ctypes.byref(out))
+    _build.check(rc, "btd_stream occupancy query")
+    return int(out.value)
+
+
+_SIZES = {"f32": (4, 4), "f64": (8, 8), "mixed": (8, 4)}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(d: int, batch: int, kind: str, fams: tuple, index: int) -> dict:
+    block = d > WIDE_MAX
+    _, _, max_threads, optin, sms = _rows_attrs(kind, block, index)
+    return rows_plan(d, batch, *_SIZES[kind], fams,
+                     lambda n, smem: _occupancy(kind, block, index, n, smem)
+                     if n <= max_threads else 0, optin, sms, _ROWS_CAPS)
+
+
+def family_shapes(families: Sequence[Family], batch: int,
+                  t1: int) -> tuple:
+    """The :class:`FamilyShape` of each family of a launch at ``batch``
+    problems and ``t1`` states."""
+    out = []
+    for f in families:
+        w = f.w.expand(*((batch, t1, f.h.shape[-2]) if f.diagonal
+                         else (batch, t1, f.h.shape[-2], f.h.shape[-2])))
+        out.append(FamilyShape(
+            f.h.shape[-2], bool(f.diagonal),
+            (w.stride(0) == 0 or batch == 1) and (w.stride(1) == 0
+                                                   or t1 == 1)))
+    return tuple(out)
 
 
 def launch(diag, off, phiT_q, q_inv, ks_inv, kg_inv, r_gp, r_s, r_g,
@@ -241,8 +489,20 @@ def launch(diag, off, phiT_q, q_inv, ks_inv, kg_inv, r_gp, r_s, r_g,
     x = torch.empty((b, t1, d), dtype=tr, device=dev)
     z = x if ta == tr else torch.empty((b, t1, d), dtype=ta, device=dev)
     gain = torch.empty((b, max(t, 0), d, d), dtype=ta, device=dev)
-    n = scratch_bytes(d, dev)
-    scratch = torch.empty((b * n,), dtype=torch.uint8, device=dev) if n else None
+    scratch = None
+    if d > NARROW_MAX and b > 0:
+        plan = _plan(d, b, KINDS[(ta, tr)], family_shapes(families, b, t1),
+                     dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+        p = args.plan
+        for name, _ in _RowsPlan._fields_:
+            if name != "lam":
+                setattr(p, name, plan[name])
+        for i, v in enumerate(plan["lam"]):
+            p.lam[i] = v
+        if plan["scratch_block"]:
+            scratch = torch.empty((plan["grid"] * plan["scratch_block"],),
+                                  dtype=torch.uint8, device=dev)
     args.nfam, args.batch, args.steps, args.d = len(families), b, t1, d
     args.x, args.z, args.gain = x.data_ptr(), z.data_ptr(), gain.data_ptr()
     args.scratch = None if scratch is None else scratch.data_ptr()

@@ -986,7 +986,7 @@ def test_stream_kernel_matches_plain_in_float64(dev, case, lm):
     assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= 1e-10
 
 
-@pytest.mark.parametrize("case", ["point", "arm4", "arm9"])
+@pytest.mark.parametrize("case", ["point", "arm4", "arm9", "arm17"])
 def test_stream_kernel_float32_and_mixed_instances(dev, case):
     """The float32 instance within twice the standard float32 engine's
     error (against the float64 solve of the same float32 residuals) plus
@@ -1076,3 +1076,32 @@ def test_stream_lane_group_plan_keeps_every_block_resident(dev):
 
     _build.library()
     chip_smoke.check_stream_plans(chip_smoke.ptxas_summary(_build.build_log))
+
+
+@pytest.mark.parametrize("inst", ["float32", "float64", "mixed (df32)"])
+@pytest.mark.parametrize("d", [17, 18, 32, 33, 34, 48])
+def test_stream_wide_and_block_kernels_at_their_edges(dev, d, inst):
+    """The wide (D = 17-32) and block (D > 32) kernels against their plain
+    version, as phase 19 (a) holds the paths
+    (``chip_smoke.stream_rows_edges``): a shared and a per-problem full Λ
+    and a diagonal family of K in {1, chunk - 1, chunk, chunk + 1, 411}
+    rows, every addend, T1 in {1, 2, 3, stages + 1}, B in {1, 7, 1000},
+    under GN and LM, under the default plan and under 2 stages of 16 rows;
+    one launch each."""
+    import chip_smoke
+
+    rng = np.random.default_rng(100 + d)
+    assert chip_smoke.stream_rows_edges(dev, rng, ds=(d,),
+                                        insts=(inst,)) <= 1.0
+
+
+def test_stream_wide_and_block_plans_keep_every_block_resident(dev):
+    """Phase 2's check of the wide and block kernels: at B=1024 no instance
+    spills (ptxas, and the kernel's local memory), and each plan of the
+    arms' families and of phase 19 (a)'s random systems keeps every block
+    of its persistent grid resident."""
+    import chip_smoke
+    from dgpmp2_tpu_torch.ops.cuda import _build
+
+    _build.library()
+    chip_smoke.check_rows_plans(chip_smoke.ptxas_summary(_build.build_log))

@@ -27,9 +27,13 @@ bit-equal.  ``--stream`` times K-STREAM alone: its three instances on the
 first GN step of the 2-D and 3-D benches and of the 4-, 9- and 17-link
 arms (``chip_smoke.stream_args``; D = 4, 6, 8, 18, 34), at the 2-D bench
 also with the lane-group kernel's producer warps capped at 1, 3 and 7
-(``ops.cuda.btd_stream.set_producers``, where the tree has it), each with
-its bound and launch plan.  ``--stream-digest`` times nothing and writes
-the sha256 of K-STREAM's x on each of ``chip_smoke.py`` phase 19 (a)'s
+(``ops.cuda.btd_stream.set_producers``, where the tree has it), at the 9-
+and 17-link arms (the wide and block kernels) also under each restriction
+of :data:`ROWS_CHOICES` (``btd_stream.set_rows_plan``, where the tree has
+it), each with its bound and launch plan, and the standard engine's step
+at each path (``chip_smoke.standard_step_times``).  ``--stream-digest``
+times nothing and writes the sha256 of K-STREAM's x on each of
+``chip_smoke.py`` phase 19 (a)'s
 systems, GN and LM, in the three instances (``chip_smoke.stream_digests``).
 ``--gn`` adds ms per GN iteration of the 2-D (also under ``pallas_v3_1``),
 3-D, 2- and 4-link arm and heading-robot plans (``chip_smoke.plan_ms``)
@@ -140,6 +144,12 @@ def time_kernels(cs, dev, smi, btd_only=False):
 
 # K-STREAM's producer-warp caps timed at the 2-D bench.
 PRODUCER_CAPS = (1, 3, 7)
+# The wide and block kernels' plan restrictions timed at the 9- and
+# 17-link arms ({}: the plan's own choice).
+ROWS_CHOICES = ({}, {"formers": 1}, {"formers": 2}, {"formers": 3},
+                {"formers": 4}, {"stages": 2}, {"stages": 3}, {"stages": 4},
+                {"chunk_rows": 16}, {"chunk_rows": 32}, {"chunk_rows": 64},
+                {"keep": False})
 
 
 def time_stream(cs, dev, smi):
@@ -161,31 +171,52 @@ def time_stream(cs, dev, smi):
         problem = make()
         spec = problem[0]
         timing = {} if "bench" in label else cs.ARM_TIMING
+        d = spec.state_dim
         caps = (PRODUCER_CAPS if label == "2-D bench"
                 and hasattr(k, "set_producers") else (None,))
+        rows = (ROWS_CHOICES if d > 16 and hasattr(k, "set_rows_plan")
+                else ({},))
         for inst in cs.STREAM_INSTANCES:
             a, kw = cs.stream_args(problem, inst)
             x = k.launch(*a, **kw)
             bound_ms, bound_by = cs.stream_bound(a, kw, x)
+            kind = k.KINDS[(a[0].dtype, a[6].dtype)]
             for cap in caps:
-                rec = {"shape": f"{label} {inst}", "B": x.shape[0],
-                       "T1": spec.num_traj_states, "D": spec.state_dim,
-                       "instance": inst, "bound_ms": bound_ms,
-                       "bound_by": bound_by}
-                if cap is not None:
-                    k.set_producers(cap)
-                    rec["producer_cap"] = cap
-                try:
-                    if hasattr(k, "geometry") and spec.state_dim <= 16:
-                        rec["plan"] = k.geometry(
-                            spec.state_dim, x.shape[0],
-                            k.KINDS[(a[0].dtype, a[6].dtype)])
-                    timed(cs, smi, records, rec, lambda: k.launch(*a, **kw),
-                          "btd_stream_kernel", **timing)
-                finally:
+                for choice in rows:
+                    rec = {"shape": f"{label} {inst}", "B": x.shape[0],
+                           "T1": spec.num_traj_states, "D": d,
+                           "instance": inst, "bound_ms": bound_ms,
+                           "bound_by": bound_by}
                     if cap is not None:
-                        k.set_producers(0)
+                        k.set_producers(cap)
+                        rec["producer_cap"] = cap
+                    if choice:
+                        k.set_rows_plan(**choice)
+                        rec["rows_choice"] = choice
+                    try:
+                        if d <= 16 and hasattr(k, "geometry"):
+                            rec["plan"] = k.geometry(d, x.shape[0], kind)
+                        elif hasattr(k, "set_rows_plan"):
+                            rec["plan"] = k.geometry(
+                                d, x.shape[0], kind,
+                                families=k.family_shapes(a[9], x.shape[0],
+                                                         x.shape[1]))
+                        timed(cs, smi, records, rec,
+                              lambda: k.launch(*a, **kw),
+                              "btd_stream_kernel", **timing)
+                    except ValueError as e:  # no plan under this choice
+                        print(f"{label} {inst} {choice}: {e}")
+                    finally:
+                        if cap is not None:
+                            k.set_producers(0)
+                        if choice:
+                            k.set_rows_plan()
             del a, kw, x
+        if hasattr(cs, "standard_step_times"):
+            rec = {"shape": f"{label} standard engine's step (float32)",
+                   **cs.standard_step_times(problem, timing)}
+            records.append(rec)
+            print(f"[{smi}] {json.dumps(rec)}", flush=True)
         del problem
         torch.cuda.empty_cache()
     return records
