@@ -318,19 +318,58 @@ def build():
     for name, regs, spill_st, spill_ld, smem in rows:
         print(f"ptxas {kernel_name(name)}: {regs} registers, spill stores "
               f"{spill_st} B, spill loads {spill_ld} B, shared {smem} B")
-    # Each D of the narrow kernel, the wide and the block kernel, in two
-    # dtypes (K-BTD) and in three instances (K-STREAM: float32, float64 and
-    # the df32 engine's mixed one).
+    # K-BTD's instances (BTD_INSTANCES) in two dtypes; each D of K-STREAM's
+    # narrow kernel, its wide and its block kernel in three instances
+    # (float32, float64 and the df32 engine's mixed one).
     for kernel, label, want in (("btd_solve_kernel", "K-BTD",
-                                 2 * (BTD_NARROW + 2)),
+                                 2 * BTD_INSTANCES),
                                 ("btd_stream_kernel", "K-STREAM",
                                  3 * (BTD_NARROW + 2))):
         n = sum(kernel in r[0] for r in rows)
         if n != want:
             raise AssertionError(f"ptxas reported {n} {label} kernels, not "
                                  f"{want}")
+    check_btd_plans(rows, torch.device("cuda", 0))
     check_stream_plans(rows)
     check_rows_plans(rows)
+
+
+# K-BTD's plans phase 2 prints: every D of the wide kernel and the block
+# kernel's first two, the arms of 20, 24 and 32 links, and the largest D in
+# shared memory.
+BTD_PLAN_D = (*range(17, 35), 40, 48, 64)
+
+
+def check_btd_plans(rows, dev, b=B):
+    """K-BTD's wide and block launch plans at batch ``b`` in both dtypes
+    (``ops/cuda/btd_solve.geometry``: the kernel library's own plan):
+    threads, registers, shared bytes, blocks an SM
+    resident beside those the grid puts there, problems a block; raises on
+    a spill of any K-BTD instance (ptxas or the kernel's local memory) or a
+    block that would wait for another (the wide and block grids are
+    persistent: a plan holds this by its making)."""
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve
+
+    bad = [(kernel_name(n), st, ld) for n, _, st, ld, _ in rows
+           if kernel_name(n).startswith("btd_solve_kernel") and (st or ld)]
+    top = btd_smem_max(btd_solve, dev)
+    for dtype in (torch.float32, torch.float64):
+        for d in BTD_PLAN_D + (top,):
+            g = btd_solve.geometry(d, b, dtype, dev)
+            print(f"K-BTD {dtype} D={d} B={b} ({g['regime']} kernel, "
+                  f"instance {g['instance']}): {g['threads']} threads, "
+                  f"{g['registers']} registers, {g['local_bytes']} B local, "
+                  f"{g['smem_bytes']} B shared (staged one step ahead); "
+                  f"{g['resident_blocks_per_sm']} blocks an SM resident, "
+                  f"{g['needed_blocks_per_sm']} placed ({g['grid']} blocks, "
+                  f"{g['problems_per_block']} problems a block, {g['sms']} "
+                  f"SMs)")
+            if (g["local_bytes"] or g["resident_blocks_per_sm"]
+                    < g["needed_blocks_per_sm"]):
+                bad.append((str(dtype), d, g))
+    if bad:
+        raise AssertionError(f"K-BTD instances that spill or plans that "
+                             f"leave blocks waiting: {bad}")
 
 
 # The wide and block kernels' plans phase 2 checks besides the arms': D of
@@ -423,7 +462,8 @@ def kernel_name(mangled):
     for m in re.finditer(r"(?=(\d+)([a-z_]\w*))", mangled):
         n, ident = int(m[1]), m[2][:int(m[1])]
         if (len(ident) == n and "_kernel" in ident
-                and ident.rsplit("_kernel", 1)[1] in ("", "_wide", "_block")):
+                and ident.rsplit("_kernel", 1)[1] in ("", "_wide", "_block",
+                                                      "_scratch")):
             args = re.match(r"I(.*?)E", m[2][n:])
             if not args:
                 return ident
@@ -825,6 +865,9 @@ def spd_system(rng, b, t, d, dtype, dev):
 
 BTD_D = tuple(range(1, 33))  # every D of the narrow and the wide kernel
 BTD_NARROW = 16  # D = 1-16: one instance each; D = 17-32: the wide kernel
+# K-BTD's instances of a dtype: the lane group's D = 1-16, the wide kernel's
+# four register widths, the block kernel and the global-scratch kernel.
+BTD_INSTANCES = BTD_NARROW + 4 + 1 + 1
 # Past D = 32, the block kernel: arms of 17, 20, 24 and 32 links, then the
 # largest D whose rows fit the card's shared memory and the next (global
 # scratch rows), found from the kernel library at run time.
@@ -842,10 +885,15 @@ BTD_TIMED = (("2-D", B, T + 1, 4, torch.float32),
 # The wide kernel at the arms' T: a 9-link arm (D=18) and D=32.
 BTD_WIDE_TIMED = tuple((f"D={d} arm", B, 41, d, dtype) for d in (18, 32)
                        for dtype in (torch.float32, torch.float64))
-# NVIDIA's H100 SXM data sheet: HBM3 rate, and the dense rates outside the
-# tensor cores (float32 67 TFLOP/s, float64 34 TFLOP/s).
+# The block kernel at the arms' T, for tools/time_kernels.py --btd: D=33,
+# a 17-link arm's D=34, and a 32-link arm's D=64.
+BTD_BLOCK_TIMED = tuple((f"D={d} arm", B, 41, d, dtype) for d in (33, 34, 64)
+                        for dtype in (torch.float32, torch.float64))
+# NVIDIA's H100 SXM data sheet: HBM3 rate, and the dense peaks of each type
+# (float32 67 TFLOP/s outside the tensor cores; float64 67 TFLOP/s on the
+# FP64 tensor cores, 34 outside them).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 67e12}
 
 
 def bound(nbytes, flops, dtype):
@@ -857,15 +905,21 @@ def bound(nbytes, flops, dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def btd_flops(t, d):
+    """The fewest operations that solve one problem's block-tridiagonal
+    system of ``t`` steps of ``d``: per step a Cholesky of C_t (D³/3) and
+    the two triangular solves of z_t and x_t (2D²); per coupling the solve
+    W = L⁻¹U (D³), the symmetric Schur update of C's lower triangle
+    (D³), and the products Wᵀz and W x (4D²)."""
+    return t * (d ** 3 / 3 + 2 * d * d) + (t - 1) * (2 * d ** 3 + 4 * d * d)
+
+
 def btd_bound(b, t, d, dtype):
-    """K-BTD reads diag, off and rhs once and writes x once; per step and
-    problem it does the Schur product (2D³ + 2D²), Gauss-Jordan on the
-    D x (2D+1) rows (D²(3D+1)) and, in the back sweep, a matvec (2D²)."""
+    """K-BTD reads diag, off and rhs once and writes x once, and does
+    :func:`btd_flops` a problem."""
     sz = torch.finfo(dtype).bits // 8
     nbytes = sz * (b * t * d * d + b * (t - 1) * d * d + 2 * b * t * d)
-    flops = b * (t * (2 * d ** 3 + 2 * d * d + d * d * (3 * d + 1))
-                 + (t - 1) * 2 * d * d)
-    return bound(nbytes, flops, dtype)
+    return bound(nbytes, b * btd_flops(t, d), dtype)
 
 
 def dense_lambda(diag, off):
@@ -1028,6 +1082,61 @@ def check_btd_block(dev, smi, rng):
             del system, x_k, x_p
 
 
+def first_system(bench):
+    """The damped (reg = 0.1) system of a problem's first GN iteration."""
+    from dgpmp2_tpu_torch.core import gn, graph
+
+    spec, robot, params, th0, sdf = bench
+    res = graph.eval_residuals(spec, robot, params, th0, sdf)
+    return [a.contiguous() for a in gn.damped_system(
+        *graph.assemble_from_residuals(spec, params, res), 0.1)]
+
+
+# The arms whose systems take K-BTD's wide (D = 18) and block (D = 34)
+# kernels, timed on their own first-iteration systems in phase 3.
+BTD_ARMS = ("9-link arm", "17-link arm")
+
+
+def check_btd_arms(dev, smi, bench_np):
+    """K-BTD on phase 8's 9- and 17-link arms' own first-iteration systems
+    (float32, B=1024, T=41): held as :func:`check_btd_bench_system` holds
+    the bench's, then timed beside the bound, the plain version and
+    ``torch.linalg.solve`` on the dense (B, T·D, T·D) Λ (2.2 and 8.0 GB),
+    with the launch plan."""
+    from dgpmp2_tpu_torch.ops import tridiag
+    from dgpmp2_tpu_torch.ops.cuda import btd_solve as k
+
+    problems = constrained_problems(dev, bench_np)
+    for name in BTD_ARMS:
+        bench = problem_of(*problems[name])
+        check_btd_bench_system(name, bench)
+        diag, off, rhs = first_system(bench)
+        b, t, d = rhs.shape
+        rec = {}
+        kernel_ms(rec, lambda: k.launch(diag, off, rhs),
+                  lambda: tridiag.btd_solve(diag, off, rhs),
+                  "btd_solve_kernel", plain_reps=3, **ARM_TIMING)
+        rec["bound_ms"], rec["bound_by"] = btd_bound(b, t, d, diag.dtype)
+        g = k.geometry(d, b, diag.dtype)
+        try:
+            lam, r = dense_lambda(diag, off), rhs.reshape(b, t * d, 1)
+            lib = cuda_ms(lambda: torch.linalg.solve(lam, r), reps=2,
+                          warmup=1)
+            lib = f"{lib:.4f} ms"
+        except torch.cuda.OutOfMemoryError:
+            lib = "did not fit the card"
+        lam = r = None
+        torch.cuda.empty_cache()
+        print(f"[{smi}] K-BTD {name}'s first-iteration system B={b} T={t} "
+              f"D={d} {diag.dtype} ({g['regime']} kernel, {g['threads']} "
+              f"threads, {g['resident_blocks_per_sm']} blocks an SM, "
+              f"{g['problems_per_block']} problems a block): "
+              f"{times_line(rec)}; torch.linalg.solve on the dense Λ {lib}")
+        del bench, diag, off, rhs
+    del problems
+    torch.cuda.empty_cache()
+
+
 def check_btd_bench_system(name, bench):
     """K-BTD on a bench problem's own first-iteration system (damped,
     reg = 0.1).  Its conditioning is set by K_s⁻¹ = 1e4 and the GP's
@@ -1035,14 +1144,10 @@ def check_btd_bench_system(name, bench):
     kernel's float32 error against the float64 solve is within 4x the plain
     version's (+1e-6 relative), and the float64 kernel agrees with the
     float64 plain version to 1e-9."""
-    from dgpmp2_tpu_torch.core import gn, graph
     from dgpmp2_tpu_torch.ops import tridiag
     from dgpmp2_tpu_torch.ops.cuda import btd_solve as k
 
-    spec, robot, params, th0, sdf = bench
-    res = graph.eval_residuals(spec, robot, params, th0, sdf)
-    diag, off, rhs = gn.damped_system(
-        *graph.assemble_from_residuals(spec, params, res), 0.1)
+    diag, off, rhs = first_system(bench)
     sys64 = [a.double().contiguous() for a in (diag, off, rhs)]
     x64 = k.launch(*sys64)
     e64 = rel_err(x64, tridiag.btd_solve(*sys64))
@@ -1430,39 +1535,69 @@ def counters():
                               sdf_lookup_limbs, sdf_lookup_bwd, btd_stream)))
 
 
-# Launches of every path run through drive(), by kernel: the kernels line.
+# Launches of every path run through drive(), by kernel: the kernels line;
+# K-BTD's by regime (ops/cuda/btd_solve.REGIMES), as each path's counters
+# read them.
 TOTALS = dict.fromkeys(KERNELS, 0)
+BTD_REGIMES = ("lane", "wide", "block", "scratch")
+REGIME_TOTALS = dict.fromkeys(BTD_REGIMES, 0)
+
+
+def counted(run, mods, dev=None):
+    """``run()`` with the launch counters of ``mods`` (:func:`counters`),
+    K-BTD's by regime, set to 0 just before and read just after, on
+    ``dev`` (synchronized where it is a card): (its output, the counts,
+    K-BTD's launches by regime)."""
+    cuda = dev is None or dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+    for m in mods.values():
+        m.launches = 0
+    mods["btd_solve"].regime_launches = dict.fromkeys(BTD_REGIMES, 0)
+    out = run()
+    if cuda:
+        torch.cuda.synchronize()
+    return (out, {k: m.launches for k, m in mods.items()},
+            dict(mods["btd_solve"].regime_launches))
 
 
 def launch_counts(run):
-    """``run()`` with every launch counter, and K-LOOKUP-LIMB's count of
-    SDF splits ("limb_splits"), set to 0 just before and read just after:
-    (its output, the counts)."""
+    """``run()`` through :func:`counted` with every kernel's counter, and
+    K-LOOKUP-LIMB's count of SDF splits ("limb_splits"), set to 0 just
+    before and read just after: (its output, the counts, K-BTD's launches
+    by regime)."""
     mods = counters()
     limbs = mods["sdf_lookup_limbs"]
-    torch.cuda.synchronize()
-    for m in mods.values():
-        m.launches = 0
     limbs.splits = 0
-    out = run()
-    torch.cuda.synchronize()
-    counts = {k: m.launches for k, m in mods.items()}
+    out, counts, regimes = counted(run, mods)
     counts["limb_splits"] = limbs.splits
-    return out, counts
+    return out, counts, regimes
+
+
+def add_totals(counts, regimes):
+    """Add one path's counts, and K-BTD's launches by regime as its
+    counters read them, to the kernels line's; the regimes must sum to
+    K-BTD's count."""
+    if sum(regimes.values()) != counts["btd_solve"]:
+        raise AssertionError(f"K-BTD launches by regime {regimes} do not "
+                             f"sum to {counts['btd_solve']}")
+    for k in KERNELS:
+        TOTALS[k] += counts[k]
+    for k, n in regimes.items():
+        REGIME_TOTALS[k] += n
 
 
 def drive(name, run, want):
     """Run one path through :func:`launch_counts`; the counts must equal
     ``want`` (absent keys: 0), or ``want(out)`` where the count depends on
     the path's output."""
-    out, counts = launch_counts(run)
+    out, counts, regimes = launch_counts(run)
     want = want(out) if callable(want) else want
     want = {k: want.get(k, 0) for k in counts}
     print(f"{name} launches {json.dumps(counts)}, expected {json.dumps(want)}")
     if counts != want:
         raise AssertionError(f"{name}: launch counts {counts} != {want}")
-    for k in KERNELS:
-        TOTALS[k] += counts[k]
+    add_totals(counts, regimes)
     return out, counts
 
 
@@ -4066,17 +4201,6 @@ def mesh_process(rank, world, port, dev, b=B, t=T, iters=50,
     from dgpmp2_tpu_torch.parallel import sharding as sh
 
     mods = counters()
-
-    def counted(run):
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        for m in mods.values():
-            m.launches = 0
-        out = run()
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        return out, {k: m.launches for k, m in mods.items()}
-
     dist.init_process_group(
         "gloo", init_method=f"tcp://localhost:{port}", world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
@@ -4084,7 +4208,8 @@ def mesh_process(rank, world, port, dev, b=B, t=T, iters=50,
         mesh = sh.make_multihost_mesh(devices=[dev])
         cfg = gn.OptimConfig(reg=0.1, max_iters=iters, tol_delta=0.0)
         imgs, start, goal = bench_inputs(b)
-        rec = {"rank": rank, "mesh": mesh.shape, "launches": {}}
+        rec = {"rank": rank, "mesh": mesh.shape, "launches": {},
+               "btd_regimes": {}}
         for dtype in (torch.float32, torch.float64):
             spec, robot, params, th0, sdf = port_problem(imgs, start, goal,
                                                          dev, dtype, t)
@@ -4095,10 +4220,11 @@ def mesh_process(rank, world, port, dev, b=B, t=T, iters=50,
                 return sh.gather_batch([gn.plan(spec, robot, *s, cfg).th
                                         for s in shards], mesh=mesh)
 
-            got, counts = counted(run)
+            got, counts, regimes = counted(run, mods, dev)
             rec[f"plan_{str(dtype)[6:]}_max_abs_gap"] = float(
                 (got - want).abs().max())
             rec["launches"][f"plan_{str(dtype)[6:]}"] = counts
+            rec["btd_regimes"][f"plan_{str(dtype)[6:]}"] = regimes
             if dtype == torch.float64 and not rel_max(got, want) <= tol64:
                 raise AssertionError(f"process {rank}: float64 plan "
                                      f"{rel_max(got, want)}")
@@ -4111,8 +4237,10 @@ def mesh_process(rank, world, port, dev, b=B, t=T, iters=50,
         mesh2 = sh.make_multihost_mesh(2, devices=[dev, dev])
         state, step = train_steps(planner, variables, batch, unroll, tk,
                                   mesh2)
-        (state, metrics), counts = counted(lambda: step(state, batch, 0))
+        (state, metrics), counts, regimes = counted(
+            lambda: step(state, batch, 0), mods, dev)
         rec["launches"]["train_step"] = counts
+        rec["btd_regimes"]["train_step"] = regimes
         (w, ew), (g, eg), ok = step_verdict(
             step_errors(metrics, joined_weights(state), want_m, want_w),
             tol64)
@@ -4188,8 +4316,7 @@ def process_split(dev, smi):
                   f"{json.dumps(counts)}, expected {json.dumps(expect)}")
             if counts != expect:
                 raise AssertionError(f"16 (c) {run}: {counts}")
-            for k in KERNELS:
-                TOTALS[k] += counts[k]
+            add_totals(counts, rec["btd_regimes"][run])
         print(f"[{smi}] 16 (c) process {rec['rank']} of {PROC_WORLD} (mesh "
               f"{rec['mesh']}, gloo on the one card): its {B // PROC_WORLD} "
               f"rows of the B={B} bench gathered against the one-process "
@@ -4734,15 +4861,14 @@ def run_tool(name, argv, dev, smi, log_dir):
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(fp):
-                out, counts = launch_counts(lambda: m.main(argv))
+                out, counts, regimes = launch_counts(lambda: m.main(argv))
         except BaseException:
             fp.flush()
             print(log.read_text()[-6000:])
             raise
         wall = time.perf_counter() - t0
     check_tool_counts(name, counts, rec)
-    for k in KERNELS:
-        TOTALS[k] += counts[k]
+    add_totals(counts, regimes)
     print(f"[{smi}] tool {name}: {wall:.3f} s wall, {rec['plans']} gn.plan "
           f"calls of {rec['iters']} iterations; launches "
           f"{json.dumps({k: counts[k] for k in KERNELS})}", flush=True)
@@ -5121,7 +5247,7 @@ def stream_bound(args, kw, x):
     stored: a shared one once), x written once; operations per step and
     problem: the GP/prior rhs (4 D² + 2 D² at the ends), per family and
     residual row ΛH (2 K D, or D diagonal), the lower triangle's products
-    and rhs (D (D + 1) + 2 D), then K-BTD's sweep."""
+    and rhs (D (D + 1) + 2 D), then K-BTD's sweep (:func:`btd_flops`)."""
     from dgpmp2_tpu_torch.core import stream
 
     tensors = [*args[:9], *(v for v in kw.values() if v is not None)]
@@ -5135,7 +5261,7 @@ def stream_bound(args, kw, x):
     for f in fams:
         k = f.h.shape[-2]
         per += k * ((d if f.diagonal else 2 * k * d) + d * (d + 1) + 2 * d)
-    flops = b * t1 * (per + 2 * d ** 3 + 2 * d * d + d * d * (3 * d + 1))
+    flops = b * (t1 * per + btd_flops(t1, d))
     return bound(nbytes, flops, args[0].dtype)
 
 
@@ -5515,6 +5641,7 @@ def main():
     for name, rec in recs.items():
         rec.update(name=name, route="cuda")
     check_btd(dev, recs["btd_solve"], bench, smi)
+    check_btd_arms(dev, smi, bench_np)
     check_lookup(dev, recs["sdf_lookup"], bench, smi)
     check_lookup3d(dev, recs["sdf_lookup3d"], smi)
     lookups = path_lookups(dev)
@@ -5540,6 +5667,7 @@ def main():
                    recs["btd_stream"])
     for name, rec in recs.items():
         rec["launches"] = TOTALS[name]
+    recs["btd_solve"]["launches_by_regime"] = dict(REGIME_TOTALS)
     for rec in recs.values():
         print(f"[{smi}] {rec['name']}: {times_line(rec)}")
     for key, ms in per_iter.items():
@@ -5549,7 +5677,8 @@ def main():
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms")}
+                           "bound_by", "library_ms", "launches_by_regime")
+         if k in r}
         for r in recs.values()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

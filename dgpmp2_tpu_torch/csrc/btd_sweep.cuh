@@ -1,9 +1,17 @@
-// The block-Thomas sweeps shared by K-BTD (btd_solve.cu) and K-STREAM
-// (btd_stream.cu): each step's Schur update and Gauss-Jordan pivot, and the
-// back sweep, for the three kernel shapes (the lane group of D <= 16, the
-// warp of D = 17-32, the block of D > 32).  The kernels differ only in how
-// a step's rows [C_t | U_t | y_t] are formed: K-BTD loads them from an
-// assembled system, K-STREAM assembles them from the residual pieces.
+// The block-Thomas sweeps shared by K-BTD (btd_solve.cuh) and K-STREAM
+// (btd_stream.cuh): each step's Schur update and Gauss-Jordan pivot, and the
+// back sweep.  Which kernel runs which:
+//
+// - the lane group of D <= 16 (narrow_schur, narrow_pivot,
+//   narrow_back_sweep): K-BTD's btd_solve_kernel and K-STREAM's lane-group
+//   consumer;
+// - the warp of D = 17-32 (wide_schur, wide_pivots, wide_back_sweep, rows
+//   in shared memory) and the block of D > 32 (block_schur, block_pivots,
+//   block_back_sweep on a Team): K-STREAM's wide and block consumers, and
+//   K-BTD's global-scratch kernel past the shared memory (D >= 76 on an
+//   H100).  K-BTD's wide and block kernels below that keep their rows in
+//   registers instead (btd_solve.cuh); each output element goes through the
+//   same operations in the same order there, so the two give the same bits.
 //
 // The recurrence, with U_t = Λ[t, t+1] and C_t the Schur pivots:
 //
@@ -214,11 +222,7 @@ __device__ __forceinline__ void narrow_back_sweep(TG (*ring)[kWarp][SLOT],
   }
 }
 
-// -- D = 17-32: one warp per problem, the rows in shared memory -------------
-
-// Columns of a step's row [C_t | U_t | y_t] in shared memory: an odd
-// stride, so lane r's own column is free of bank conflicts.
-constexpr int kWideRow = 2 * kMaxD + 1;
+// -- D = 17-32: one warp per problem, the rows in shared memory (K-STREAM) --
 
 // row[k] -= f * piv[k] for k in [k0, k1), four columns a round with every
 // load issued before the stores: the two rows may be the same array, so
@@ -286,18 +290,6 @@ __device__ __forceinline__ void wide_pivots(T* cur, T* up, int rs, int us,
   }
 }
 
-// One step on K-BTD's rows (kWideRow columns, up with kWarp + 1): the Schur
-// update, then the pivots.
-template <typename T>
-__device__ __forceinline__ void wide_step(T (*cur)[kWideRow],
-                                          const T (*prev)[kWideRow],
-                                          T (*up)[kWarp + 1], int t, int d,
-                                          int r) {
-  wide_schur(&cur[0][0], &prev[0][0], &up[0][0], kWideRow, kWarp + 1, t, d,
-             r);
-  wide_pivots(&cur[0][0], &up[0][0], kWideRow, kWarp + 1, d, r);
-}
-
 // Back sweep from x_{T-1} = z_{T-1}: x_t = z_t - X_t x_{t+1}; each lane
 // reads back its own row of X_t (gn) and its own z_t (zb), and writes x_t
 // to xb (from t = T - 2 down; x_{T-1} is the caller's).
@@ -319,7 +311,8 @@ __device__ __forceinline__ void wide_back_sweep(const TG* gn, const TG* zb,
   }
 }
 
-// -- D > 32: a block of kBlockX x kBlockY threads per problem ---------------
+// -- D > 32: a team of kBlockX x ny threads per problem (K-STREAM, and
+//    K-BTD past the shared memory) ------------------------------------------
 
 // Elements (double) of the block kernels' rows per problem: two steps of D
 // rows of 2 D + 1 columns and U_{t-1} with D + 1 columns.
@@ -405,15 +398,6 @@ __device__ __forceinline__ void block_pivots(double* cur, double* up, int d,
   tm.sync();
 }
 
-// One step on the rows, formed and visible to the block: the Schur update,
-// then the pivots.
-__device__ __forceinline__ void block_step(double* cur, const double* prev,
-                                           double* up, int t, int d) {
-  const Team tm = whole_block();
-  block_schur(cur, prev, up, t, d, tm);
-  block_pivots(cur, up, d, tm);
-}
-
 // Back sweep from x_{T-1} = z_{T-1} (the last step's rows, `last`): x_t =
 // z_t - X_t x_{t+1}, x_{t+1} held in the buffer of U (free now), a row per
 // thread of the team; X_t from gn and z_t from zb, x_t written to xb from
@@ -446,14 +430,6 @@ __device__ __forceinline__ void block_back_sweep(const double* last,
     xa = xn;
     xn = tmp;
   }
-}
-
-template <typename TG, typename TR>
-__device__ __forceinline__ void block_back_sweep(const double* last,
-                                                 double* up, const TG* gn,
-                                                 const TG* zb, TR* xb,
-                                                 int steps, int d) {
-  block_back_sweep<TG, TR>(last, up, gn, zb, xb, steps, d, whole_block());
 }
 
 // Largest dynamic shared memory a block may opt in to on the current device.

@@ -38,6 +38,9 @@ _SIGNATURES = {
     "dgpmp2_btd_solve_f64": [_P] * 6 + [_I, _I, _I, _P],
     # (d, out bytes per problem)
     "dgpmp2_btd_scratch_bytes": [_I, _P],
+    # (d, batch, out int[10]): K-BTD's launch plan
+    "dgpmp2_btd_plan_f32": [_I, _I, _P],
+    "dgpmp2_btd_plan_f64": [_I, _I, _P],
     # (StreamArgs*, stream): ops/cuda/btd_stream._Args
     "dgpmp2_btd_stream_f32": [_P, _P],
     "dgpmp2_btd_stream_f64": [_P, _P],

@@ -1,11 +1,17 @@
-"""Wrapper of the K-BTD CUDA kernel (``csrc/btd_solve.cu``).
+"""Wrapper of the K-BTD CUDA kernel (``csrc/btd_solve.cuh``, its float32 and
+float64 instances ``btd_solve.cu`` and ``btd_solve_f64.cu``).
 
 Replaces the TPU kernels ``dgpmp2_tpu/ops/pallas/btd_solve.py`` and
 ``dgpmp2_tpu/ops/pallas/btd_stream.py``.  The plain version is
 :func:`dgpmp2_tpu_torch.ops.tridiag.btd_solve`.
 
 ``launches`` counts kernel launches in this process; it goes up by one in
-:func:`launch` and nowhere else.
+:func:`launch` and nowhere else, as does one of ``regime_launches`` (the
+lane group of D <= 16, the wide kernel of D = 17-32, the block kernel past
+32, its global-scratch twin past the shared memory), as the kernel
+library's own plan names it (:func:`regime`).  :func:`geometry` reports
+that plan with the registers and blocks an SM that the card gives it;
+:func:`team` is its rule for the regime, instance and threads.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ from dgpmp2_tpu_torch.ops import tridiag
 from dgpmp2_tpu_torch.ops.cuda import _build
 
 launches = 0
+REGIMES = ("lane", "wide", "block", "scratch")
+regime_launches = dict.fromkeys(REGIMES, 0)
 
 
 def launch(diag: torch.Tensor, off: torch.Tensor,
@@ -50,14 +58,115 @@ def launch(diag: torch.Tensor, off: torch.Tensor,
                 b, t, d, stream)
     _build.check(rc, "btd_solve kernel")
     launches += 1
+    regime_launches[regime(d, diag.dtype, diag.device)] += 1
     return x
+
+
+# -- the launch plan ----------------------------------------------------------
+#
+# The kernel library decides each launch (``make_plan`` in btd_solve.cuh:
+# regime, instance, threads, shared bytes, grid); :func:`geometry` reports
+# its answer.  :func:`team` is the rule it follows for the regime, the
+# instance and the threads, which the CPU tests check and the card's tests
+# hold equal to the library's.
+
+NARROW_MAX = 16  # kNarrowMax: the lane group's largest D
+WIDE_MAX = 32    # kMaxD: the wide kernel's largest D
+WIDE_WIDTHS = (20, 24, 28, 32)  # the wide kernel's register widths
+CHUNK = 16       # kChunk: elements of a row a block-kernel thread holds
+TILE_ROWS = 3    # kTileRows: rows a block-kernel thread holds
+BLOCK_MAX_THREADS = 256  # kBlockMaxThreads
+SCRATCH_THREADS = 256  # kBlockX * kBlockY
+GEOMETRY_KEYS = ("regime", "instance", "threads", "smem_bytes", "grid",
+                 "registers", "local_bytes", "static_smem_bytes",
+                 "resident_blocks_per_sm", "needed_blocks_per_sm",
+                 "problems_per_block", "sms")
+
+
+def block_tiles(d: int) -> int:
+    """Tiles of :data:`CHUNK` elements a row of the block kernel:
+    ceil((2 D + 1) / CHUNK)."""
+    return -(-(2 * d + 1) // CHUNK)
+
+
+def block_elems(d: int) -> int:
+    """Doubles of the global-scratch kernel's rows a problem: two steps of D
+    rows of 2 D + 1 and U_{t-1} (``block_elems``)."""
+    return d * (2 * d + 1) * 2 + d * (d + 1)
+
+
+def team(d: int, optin: int) -> tuple[str, int, int]:
+    """(regime, instance, threads) of K-BTD at ``d`` on a card whose blocks
+    may opt in to ``optin`` bytes of shared memory: the lane group
+    (instance D, a warp), the wide kernel (instance W, the register width D
+    is padded to; a warp a problem), the block kernel (instance
+    :data:`CHUNK`; :data:`TILE_ROWS` rows of :func:`block_tiles` tiles a
+    thread, rounded to warps) or, where the global-scratch kernel's rows
+    (:func:`block_elems`) would not fit ``optin``, that kernel.  Raises
+    where the block kernel's team exceeds :data:`BLOCK_MAX_THREADS`."""
+    if d < 1:
+        raise ValueError(f"btd_solve: D={d}")
+    if d <= NARROW_MAX:
+        return "lane", d, 32
+    if d <= WIDE_MAX:
+        return "wide", next(w for w in WIDE_WIDTHS if d <= w), 32
+    if block_elems(d) * 8 > optin:
+        return "scratch", 0, SCRATCH_THREADS
+    threads = -(-(-(-d // TILE_ROWS) * block_tiles(d)) // 32) * 32
+    if threads > BLOCK_MAX_THREADS:
+        raise ValueError(f"btd_solve: the block kernel at D={d} needs "
+                         f"{threads} threads (at most {BLOCK_MAX_THREADS})")
+    return "block", CHUNK, threads
+
+
+@functools.lru_cache(maxsize=None)
+def _library_plan(d: int, batch: int, dtype: torch.dtype, index: int) -> dict:
+    out = (ctypes.c_int * 10)()
+    with torch.cuda.device(index):
+        lib = _build.library()
+        fn = (lib.dgpmp2_btd_plan_f32 if dtype == torch.float32
+              else lib.dgpmp2_btd_plan_f64)
+        rc = fn(d, batch, out)
+    _build.check(rc, "btd_solve plan query")
+    plan = dict(zip(("regime", "instance", "threads", "smem_bytes",
+                     "registers", "local_bytes", "resident_blocks_per_sm",
+                     "grid", "sms", "static_smem_bytes"), out))
+    plan["regime"] = REGIMES[plan["regime"]]
+    return plan
+
+
+def _index(device) -> int:
+    if device is None:
+        return torch.cuda.current_device()
+    if isinstance(device, int):
+        return device
+    d = torch.device(device)
+    return torch.cuda.current_device() if d.index is None else d.index
+
+
+def regime(d: int, dtype: torch.dtype, device=None) -> str:
+    """The kernel the library launches at ``d`` (one of :data:`REGIMES`)."""
+    return _library_plan(d, 1, dtype, _index(device))["regime"]
+
+
+def geometry(d: int, batch: int, dtype: torch.dtype, device=None) -> dict:
+    """The kernel library's launch at ``d`` and ``batch`` on ``device`` (the
+    current CUDA device by default), as :data:`GEOMETRY_KEYS`: regime,
+    instance, threads, dynamic shared bytes and blocks; registers and local
+    bytes a thread, static shared bytes; blocks an SM resident and those
+    the grid puts on an SM (the wide and block grids are persistent: never
+    more), and problems a block (1: the batch in one wave)."""
+    g = dict(_library_plan(d, batch, dtype, _index(device)))
+    g["needed_blocks_per_sm"] = -(-g["grid"] // g["sms"])
+    g["problems_per_block"] = -(-batch // g["grid"])
+    return {k: g[k] for k in GEOMETRY_KEYS}
 
 
 @functools.lru_cache(maxsize=None)
 def scratch_bytes(d: int, device: torch.device) -> int:
     """Bytes of global scratch per problem the kernel needs at ``d``: 0
-    unless D > 32 and its rows (5 D² + 3 D doubles) exceed the device's
-    opt-in shared memory."""
+    unless D > 32 and the global-scratch kernel's rows (5 D² + 3 D doubles,
+    :func:`block_elems`) exceed the device's opt-in shared memory."""
     n = ctypes.c_longlong(0)
     with torch.cuda.device(device):
         rc = _build.library().dgpmp2_btd_scratch_bytes(d, ctypes.byref(n))

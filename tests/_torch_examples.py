@@ -191,6 +191,9 @@ def count_plain_launches(monkeypatch):
 
     def solve(diag, off, rhs):
         btd_solve.launches += 1
+        # The regime the kernel would take where its rows fit shared memory.
+        regime = btd_solve.team(rhs.shape[-1], 1 << 30)[0]
+        btd_solve.regime_launches[regime] += 1
         with torch.no_grad():
             return tridiag.btd_solve_factored(tridiag.btd_factor(diag, off),
                                               off, rhs)
@@ -221,6 +224,8 @@ def count_plain_launches(monkeypatch):
               sdf_lookup_limbs):
         monkeypatch.setattr(m, "launches", m.launches)
     monkeypatch.setattr(sdf_lookup_limbs, "splits", sdf_lookup_limbs.splits)
+    monkeypatch.setattr(btd_solve, "regime_launches",
+                        dict(btd_solve.regime_launches))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(btd_solve, "launch", solve)
     monkeypatch.setattr(btd_solve, "_ready", lambda a: a.contiguous())

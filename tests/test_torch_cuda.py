@@ -469,7 +469,7 @@ def test_btd_kernel_at_odd_and_wide_d_matches_plain(dev, d, dtype, tol):
         assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= tol
 
 
-@pytest.mark.parametrize("d", [17, 32])
+@pytest.mark.parametrize("d", [17, 21, 32])
 def test_btd_kernel_wide_reads_the_lower_triangle_and_differentiates(dev, d):
     """The wide kernel reads the lower triangle of each diag block, and its
     gradient is two launches of the implicit adjoint."""
@@ -520,7 +520,7 @@ def test_btd_kernel_beyond_shared_memory_matches_plain(dev, dtype, tol):
         assert float((x_k - x_p).abs().max() / x_p.abs().max()) <= tol
 
 
-@pytest.mark.parametrize("d", [33, 64])
+@pytest.mark.parametrize("d", [33, 48, 64])
 def test_btd_kernel_block_reads_the_lower_triangle_and_differentiates(dev, d):
     """Past D = 32 the kernel reads the lower triangle of each diag block,
     and its gradient is two launches of the implicit adjoint."""
@@ -539,6 +539,75 @@ def test_btd_kernel_block_reads_the_lower_triangle_and_differentiates(dev, d):
     tridiag.btd_solve(*c).backward(xbar)
     for u, v in zip(a, c):
         assert float((u.grad - v.grad).abs().max()) <= 1e-10
+
+
+def _smem_top(dev):
+    """The largest D whose rows fit the card's shared memory."""
+    d = 33
+    while k_btd.scratch_bytes(d + 1, dev) == 0:
+        d += 1
+    return d
+
+
+def _plan_edges():
+    """The wide and block kernels' plan edges, from ``btd_solve.team``: the
+    first and last D of each register width and, up to the first D of seven
+    tiles a row, of each count of tiles a row and of threads (33, 36/37,
+    39/40, 47/48, 54/55); and D = 18, 31 and 34 (18 and 34: the 9- and
+    17-link arms')."""
+    def key(d):
+        return k_btd.team(d, 1 << 30) + ((k_btd.block_tiles(d),)
+                                         if d > 32 else ())
+
+    return tuple(sorted({18, 31, 34} | {
+        d for d in range(17, 56) if key(d) != key(d - 1)
+        or (d < 55 and key(d) != key(d + 1))}))
+
+
+BTD_PLAN_EDGES = _plan_edges()
+
+
+@pytest.mark.parametrize("d", BTD_PLAN_EDGES + ("top", "top+1"))
+@pytest.mark.parametrize("dtype,tol,tol_block", [
+    (torch.float32, 1e-4, 1e-6), (torch.float64, 1e-10, 1e-13)])
+def test_btd_kernel_at_its_plan_edges(dev, d, dtype, tol, tol_block):
+    """The wide and block kernels at their instances' edges, the largest D
+    in shared memory and the next (global scratch), at B = 1 (one
+    problem) and 1000 at the arms' T = 41, and 4096 at T = 5 (past one
+    wave: a persistent block takes several problems); each launch counted
+    in its regime."""
+    if isinstance(d, str):
+        d = _smem_top(dev) + (d == "top+1")
+    for b, t in ((1, 41), (1000, 41), (4096, 5)):
+        diag, off, rhs = _spd(np.random.default_rng(d + b), b, t, d, dtype,
+                              dev)
+        regime = k_btd.regime(d, dtype, dev)
+        n = dict(k_btd.regime_launches)
+        x_k = k_btd.launch(diag, off, rhs)
+        assert k_btd.regime_launches[regime] == n[regime] + 1
+        x_p = tridiag.btd_solve(diag, off, rhs)
+        err = float((x_k - x_p).abs().max() / x_p.abs().max())
+        assert err <= (tol if d <= 32 else tol_block), (b, err)
+        del diag, off, rhs, x_k, x_p
+
+
+def test_btd_plans_follow_the_rule_and_keep_blocks_resident(dev):
+    """The kernel library's plan takes the regime, instance and threads of
+    ``btd_solve.team`` at every D up to one past the shared memory, in both
+    dtypes and at B = 1, 1024, 4096; no instance spills, and a wide or
+    block grid never puts more blocks on an SM than stay resident."""
+    top = _smem_top(dev)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for dtype in (torch.float32, torch.float64):
+        for d in range(1, top + 2):
+            for b in (1, 1024, 4096):
+                g = k_btd.geometry(d, b, dtype, dev)
+                assert (g["regime"], g["instance"], g["threads"]) == \
+                    k_btd.team(d, optin), (d, g)
+                assert g["local_bytes"] == 0, (d, g)
+                if g["regime"] in ("wide", "block"):
+                    assert (g["needed_blocks_per_sm"]
+                            <= g["resident_blocks_per_sm"]), (d, b, g)
 
 
 # Shapes that exercise the lookup kernels' tiles of 128 points: B·P below

@@ -12,15 +12,17 @@ The kernels come from the ``dgpmp2_tpu_torch`` package under ``--repo``
 archive <rev> dgpmp2_tpu_torch | tar -x -C DIR``).  Problems and timing
 helpers come from this checkout's ``chip_smoke.py``: each lookup is timed
 on the lookup a path makes (``chip_smoke.path_lookups``), K-BTD at
-``chip_smoke.BTD_TIMED`` and ``BTD_WIDE_TIMED`` (D = 18, 32; skipped by a
-tree whose K-BTD refuses them), K-LOOKUP-LIMB at L = 1, 2, 3 on the 2-D
+``chip_smoke.BTD_TIMED``, ``BTD_WIDE_TIMED`` (D = 18, 32; skipped by a
+tree whose K-BTD refuses them) and ``BTD_BLOCK_TIMED`` (D = 33, 34, 64), K-LOOKUP-LIMB at L = 1, 2, 3 on the 2-D
 paths' lookups ``chip_smoke.LIMB_SHAPES`` with the time of the tree's
 split of the SDF (the packed limbs, or in a tree from before them the
 (B, L, H, W) limb planes); each record holds ``chip_smoke.kernel_ms``'s
 times (device-only, CUDA graph, host-inclusive events, host µs per
 ``launch()``), the host µs per ``ops.sdf.lookup_nd`` call for the lookups
 (under the limb engine of its L for K-LOOKUP-LIMB), and the bound.
-``--btd`` times K-BTD alone; ``--btd-digest`` times nothing and writes the
+``--btd`` times K-BTD alone, also on the 9- and 17-link arms' own
+first-iteration systems (``chip_smoke.BTD_ARMS``, ``first_system``);
+``--btd-digest`` times nothing and writes the
 sha256 of K-BTD's output on each of ``chip_smoke.py`` phase 3's systems
 (``chip_smoke.btd_digests``), so that two trees' K-BTD can be held
 bit-equal.  ``--stream`` times K-STREAM alone: its three instances on the
@@ -126,8 +128,19 @@ def time_kernels(cs, dev, smi, btd_only=False):
         time_limbs(cs, smi, records, lookups)
     del lookups
     rng = np.random.default_rng(1)
-    for label, b, t, d, dtype in cs.BTD_TIMED + cs.BTD_WIDE_TIMED:
-        diag, off, rhs = cs.spd_system(rng, b, t, d, dtype, dev)
+    systems = [(label, dtype, lambda b=b, t=t, d=d, dtype=dtype:
+                cs.spd_system(rng, b, t, d, dtype, dev))
+               for label, b, t, d, dtype in
+               cs.BTD_TIMED + cs.BTD_WIDE_TIMED + cs.BTD_BLOCK_TIMED]
+    if btd_only:
+        problems = cs.constrained_problems(dev, cs.bench_inputs(cs.B))
+        systems += [(f"{name}'s first-iteration system", torch.float32,
+                     lambda name=name: cs.first_system(
+                         cs.problem_of(*problems[name])))
+                    for name in cs.BTD_ARMS]
+    for label, dtype, make in systems:
+        diag, off, rhs = make()
+        b, t, d = rhs.shape
         try:
             btd_solve.launch(diag, off, rhs)
         except ValueError as e:
@@ -138,7 +151,8 @@ def time_kernels(cs, dev, smi, btd_only=False):
                "bound_ms": bound_ms, "bound_by": bound_by}
         timed(cs, smi, records, rec,
               lambda a=(diag, off, rhs): btd_solve.launch(*a),
-              "btd_solve_kernel")
+              "btd_solve_kernel", **(cs.ARM_TIMING if d > 16 else {}))
+        del diag, off, rhs
     return records
 
 
