@@ -13,6 +13,9 @@ assembly in ``core/graph.py`` and the solve in ``ops/tridiag.btd_solve_auto``
 (the K-BTD kernel for CUDA tensors); the stream engine (``core/stream.py``),
 assembly and solve in one kernel, K-STREAM; and df32 (``core/df32.py``),
 float32 residuals with a float64 assembly and solve.
+
+:func:`plan` opens the profiler spans of ``utils.profiling`` (``dgpmp2.plan``
+and its stages); they cost one flag check when no profiler runs.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from dgpmp2_tpu_torch.core import graph as graph_lib
 from dgpmp2_tpu_torch.ops import tridiag
+from dgpmp2_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +152,18 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
                          "standard engine for float64 runs")
     if params_fix is None:
         params_fix = params
+    b, t1, d = th_init.shape
+    with annotate("dgpmp2.plan", {"B": b, "T+1": t1, "D": d,
+                                  "dtype": th_init.dtype, "engine": engine,
+                                  "method": cfg.method,
+                                  "max_iters": cfg.max_iters}):
+        return _plan(spec, robot, params, th_init, sdf, cfg, params_fix,
+                     track_best, engine)
+
+
+def _plan(spec, robot, params, th_init, sdf, cfg, params_fix, track_best,
+          engine) -> PlanResult:
+    """The body of :func:`plan`, its stages in their spans."""
     # The lookup kernels read a contiguous SDF batch; made so once here, a
     # strided one (as sdf_from_occupancy returns) is not copied per lookup.
     sdf = sdf.contiguous()
@@ -169,8 +185,12 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
 
     # One factor-graph evaluation per iteration feeds assembly and both
     # error traces; the GP/prior Gauss blocks are built once.
-    res = residuals(th_init)
-    err0 = weighted_err(res)
+    with annotate("dgpmp2.residuals"):
+        res = residuals(th_init)
+    with annotate("dgpmp2.errors"):
+        err0 = weighted_err(res)
+        if track_best:
+            best_s = _best_score(res).detach()
     static = graph_lib.assemble_static(spec, params, dtype)
     if engine in ("stream", "df32"):
         from dgpmp2_tpu_torch.core import df32 as df32_lib
@@ -189,50 +209,60 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
     reg = torch.tensor(cfg.reg, dtype=dtype, device=dev)
     if track_best:
-        best_th, best_s = th_init, _best_score(res).detach()
+        best_th = th_init
     errs, errs_ext = [], []
     for _ in range(cfg.max_iters):
         delta = lam if lm else reg
         if engine == "stream":
-            dth = stream_lib.stream_step(spec, params, ss, res, delta,
-                                         trust_region=lm)
+            with annotate("dgpmp2.solve"):
+                dth = stream_lib.stream_step(spec, params, ss, res, delta,
+                                             trust_region=lm)
         elif engine == "df32":
-            # GN's damping as the float64 value of cfg.reg, as in ss.
-            dth = df32_lib.df32_step_from_residuals(
-                spec, params, res, lam if lm else cfg.reg, trust_region=lm,
-                ss=ss)
+            with annotate("dgpmp2.solve"):
+                # GN's damping as the float64 value of cfg.reg, as in ss.
+                dth = df32_lib.df32_step_from_residuals(
+                    spec, params, res, lam if lm else cfg.reg,
+                    trust_region=lm, ss=ss)
         else:
-            diag, off, rhs = graph_lib.assemble_from_residuals(
-                spec, params, res, dtype=dtype, static=static)
-            diag, off, rhs = damped_system(diag, off, rhs, delta,
-                                           trust_region=lm)
-            dth = tridiag.btd_solve_auto(diag, off, rhs)
-        th_prop = th + dth
-        res_prop = residuals(th_prop)
-        err_prop = weighted_err(res_prop)
-        accept = (err_prop < err_old) if lm else torch.ones_like(conv)
-        take = accept & ~conv
-        th = torch.where(take[:, None, None], th_prop, th)
-        res = graph_lib.select(take, res_prop, res)
-        err_next = torch.where(take, err_prop, err_old)
-        if lm:
-            lam = torch.where(conv, lam,
-                              torch.where(accept, lam / 10.0, lam * 10.0))
-        trigger = _converged(dth, err_next - err_old, cfg)
-        if lm:
-            # A rejected proposal is not convergence: LM raises lambda and
-            # retries instead.
-            trigger = trigger & accept
-        iters = iters + (~conv).to(torch.int32)
-        conv = conv | trigger
-        err_old = err_next
-        errs.append(err_next)
-        errs_ext.append(ext_err(res))
+            with annotate("dgpmp2.assemble"):
+                diag, off, rhs = graph_lib.assemble_from_residuals(
+                    spec, params, res, dtype=dtype, static=static)
+                diag, off, rhs = damped_system(diag, off, rhs, delta,
+                                               trust_region=lm)
+            with annotate("dgpmp2.solve"):
+                dth = tridiag.btd_solve_auto(diag, off, rhs)
+        with annotate("dgpmp2.residuals"):
+            th_prop = th + dth
+            res_prop = residuals(th_prop)
+        with annotate("dgpmp2.errors"):
+            err_prop = weighted_err(res_prop)
+        with annotate("dgpmp2.update"):
+            accept = (err_prop < err_old) if lm else torch.ones_like(conv)
+            take = accept & ~conv
+            th = torch.where(take[:, None, None], th_prop, th)
+            res = graph_lib.select(take, res_prop, res)
+            err_next = torch.where(take, err_prop, err_old)
+            if lm:
+                lam = torch.where(conv, lam,
+                                  torch.where(accept, lam / 10.0, lam * 10.0))
+            trigger = _converged(dth, err_next - err_old, cfg)
+            if lm:
+                # A rejected proposal is not convergence: LM raises lambda
+                # and retries instead.
+                trigger = trigger & accept
+            iters = iters + (~conv).to(torch.int32)
+            conv = conv | trigger
+            err_old = err_next
+            errs.append(err_next)
+        with annotate("dgpmp2.errors"):
+            errs_ext.append(ext_err(res))
+            if track_best:
+                s = _best_score(res).detach()
         if track_best:
-            s = _best_score(res).detach()
-            better = s < best_s
-            best_th = torch.where(better[:, None, None], th, best_th)
-            best_s = torch.minimum(s, best_s)
+            with annotate("dgpmp2.update"):
+                better = s < best_s
+                best_th = torch.where(better[:, None, None], th, best_th)
+                best_s = torch.minimum(s, best_s)
     best_valid = None
     if track_best:
         best_valid = torch.isfinite(best_s)

@@ -61,6 +61,7 @@ from dgpmp2_tpu_torch.models.cov_head import (Dropout, FeedForwardHead,
 from dgpmp2_tpu_torch.ops import sdf as sdf_ops
 from dgpmp2_tpu_torch.ops import tridiag
 from dgpmp2_tpu_torch.parallel import sharding
+from dgpmp2_tpu_torch.utils.profiling import annotate
 from dgpmp2_tpu_torch.utils.tree import tree_map
 
 
@@ -301,24 +302,34 @@ class LearnedDiffGPMP2Planner:
               dth_prev, delta, trust_region, rng=None):
         """One learned GN iteration at ``th`` from its geometry."""
         spec, robot = self.spec, self.robot
-        covs, new_hidden = self.predict(variables, th, feats, hidden,
-                                        train=train, dth_prev=dth_prev,
-                                        rng=rng)
-        params = self.graph_params(params_fix, covs)
-        res = graph_lib.residuals_from_geometry(spec, robot, params, th, geom)
-        diag, off, rhs = graph_lib.assemble_from_residuals(spec, params, res,
-                                                           dtype=th.dtype)
-        diag, off, rhs = gn.damped_system(diag, off, rhs, delta,
-                                          trust_region=trust_region)
-        dth = tridiag.btd_solve_auto(diag, off, rhs)
-        err = graph_lib.error_from_residuals(spec, params, res).detach()
+        with annotate("dgpmp2.head"):
+            covs, new_hidden = self.predict(variables, th, feats, hidden,
+                                            train=train, dth_prev=dth_prev,
+                                            rng=rng)
+            params = self.graph_params(params_fix, covs)
+        with annotate("dgpmp2.residuals"):
+            res = graph_lib.residuals_from_geometry(spec, robot, params, th,
+                                                    geom)
+        with annotate("dgpmp2.assemble"):
+            diag, off, rhs = graph_lib.assemble_from_residuals(
+                spec, params, res, dtype=th.dtype)
+            diag, off, rhs = gn.damped_system(diag, off, rhs, delta,
+                                              trust_region=trust_region)
+        with annotate("dgpmp2.solve"):
+            dth = tridiag.btd_solve_auto(diag, off, rhs)
+        with annotate("dgpmp2.errors"):
+            err = graph_lib.error_from_residuals(spec, params, res).detach()
         # External error under the fully fixed params, eps included: a
         # learned eps shrinks the hinge residuals themselves, so the
         # learned weights could otherwise deflate err_ext.
-        res_fix = (res if params.eps is params_fix.eps else
-                   graph_lib.residuals_from_geometry(spec, robot, params_fix,
-                                                     th, geom))
-        err_ext = graph_lib.error_from_residuals(spec, params_fix, res_fix)
+        res_fix = res
+        if params.eps is not params_fix.eps:
+            with annotate("dgpmp2.residuals"):
+                res_fix = graph_lib.residuals_from_geometry(
+                    spec, robot, params_fix, th, geom)
+        with annotate("dgpmp2.errors"):
+            err_ext = graph_lib.error_from_residuals(spec, params_fix,
+                                                     res_fix)
         return dth, err, err_ext, params, new_hidden
 
     def step(self, variables, params_fix: graph_lib.GraphParams, th, sdf,
@@ -344,9 +355,11 @@ class LearnedDiffGPMP2Planner:
         """GP-MSE of the iterate if its interior is free of collision under
         the fixed params (GP-interpolated checks and self-collision
         included), else +inf; detached."""
-        res = graph_lib.residuals_from_geometry(self.spec, self.robot,
-                                                params_fix, th, geom)
-        return gn._best_score(res).detach()
+        with annotate("dgpmp2.residuals"):
+            res = graph_lib.residuals_from_geometry(self.spec, self.robot,
+                                                    params_fix, th, geom)
+        with annotate("dgpmp2.errors"):
+            return gn._best_score(res).detach()
 
     def plan(self, variables, params_fix: graph_lib.GraphParams, th_init,
              sdf, im, max_iters: Optional[int] = None, hidden=None,
@@ -370,13 +383,27 @@ class LearnedDiffGPMP2Planner:
             return self._plan_sharded(variables, params_fix, th_init, sdf, im,
                                       max_iters, hidden, track_best,
                                       return_final)
-        spec, robot = self.spec, self.robot
         iters = max_iters or self.cfg.max_iters
+        b, t1, d = th_init.shape
+        with annotate("dgpmp2.plan", {"B": b, "T+1": t1, "D": d,
+                                      "dtype": th_init.dtype,
+                                      "engine": "standard",
+                                      "method": self.cfg.method,
+                                      "max_iters": iters}):
+            return self._plan(variables, params_fix, th_init, sdf, im, iters,
+                              hidden, track_best, return_final)
+
+    def _plan(self, variables, params_fix, th_init, sdf, im, iters, hidden,
+              track_best, return_final):
+        """The body of :meth:`plan` on one device, its stages in their
+        spans."""
+        spec, robot = self.spec, self.robot
         lm = self.cfg.method == "lm"
         th_init = th_init.to(self.device)
         sdf = sdf.to(self.device).contiguous()
         im = im.to(self.device)
-        feats = self.conv_features(variables, self.stack_inputs(im, sdf))
+        with annotate("dgpmp2.encoder"):
+            feats = self.conv_features(variables, self.stack_inputs(im, sdf))
         b = th_init.shape[0]
         if self.recurrent and hidden is None:
             hidden = self.init_hidden(variables, b)
@@ -387,35 +414,45 @@ class LearnedDiffGPMP2Planner:
         th, dth_prev = th_init, torch.zeros_like(th_init)
         geom = None
         if lm or track_best:
-            geom = graph_lib.eval_geometry(spec, robot, th, sdf)
+            with annotate("dgpmp2.residuals"):
+                geom = graph_lib.eval_geometry(spec, robot, th, sdf)
         if track_best:
             best_th, best_s = th, self._best_score(params_fix, th, geom)
         errs, errs_ext = [], []
         for _ in range(iters):
             if geom is None:
-                geom = graph_lib.eval_geometry(spec, robot, th, sdf)
+                with annotate("dgpmp2.residuals"):
+                    geom = graph_lib.eval_geometry(spec, robot, th, sdf)
             dth, err, err_ext, params, hidden = self._step(
                 variables, params_fix, th, geom, feats, hidden, False,
                 dth_prev, lam if lm else reg, lm)
-            th_new, geom_new = th + dth, None
-            if lm or track_best:
-                geom_new = graph_lib.eval_geometry(spec, robot, th_new, sdf)
+            with annotate("dgpmp2.residuals"):
+                th_new, geom_new = th + dth, None
+                if lm or track_best:
+                    geom_new = graph_lib.eval_geometry(spec, robot, th_new,
+                                                       sdf)
+                if lm:
+                    res_prop = graph_lib.residuals_from_geometry(
+                        spec, robot, params, th_new, geom_new)
             if lm:
                 # Accept or reject on this iteration's covariances.
-                err_prop = graph_lib.error_from_residuals(
-                    spec, params, graph_lib.residuals_from_geometry(
-                        spec, robot, params, th_new, geom_new)).detach()
-                accept = err_prop < err
-                th_new = torch.where(accept[:, None, None], th_new, th)
-                dth = torch.where(accept[:, None, None], dth,
-                                  torch.zeros_like(dth))
-                lam = torch.where(accept, lam / 10.0, lam * 10.0)
-                geom_new = graph_lib.select(accept, geom_new, geom)
+                with annotate("dgpmp2.errors"):
+                    err_prop = graph_lib.error_from_residuals(
+                        spec, params, res_prop).detach()
+                with annotate("dgpmp2.update"):
+                    accept = err_prop < err
+                    th_new = torch.where(accept[:, None, None], th_new, th)
+                    dth = torch.where(accept[:, None, None], dth,
+                                      torch.zeros_like(dth))
+                    lam = torch.where(accept, lam / 10.0, lam * 10.0)
+                    geom_new = graph_lib.select(accept, geom_new, geom)
             if track_best:
                 s = self._best_score(params_fix, th_new, geom_new)
-                better = s < best_s
-                best_th = torch.where(better[:, None, None], th_new, best_th)
-                best_s = torch.minimum(s, best_s)
+                with annotate("dgpmp2.update"):
+                    better = s < best_s
+                    best_th = torch.where(better[:, None, None], th_new,
+                                          best_th)
+                    best_s = torch.minimum(s, best_s)
             th, dth_prev, geom = th_new, dth, geom_new
             errs.append(err)
             errs_ext.append(err_ext)

@@ -5,8 +5,9 @@ Port of ``dgpmp2_tpu/utils/profiling.py``:
 * :func:`trace`: a ``torch.profiler`` context that writes a Chrome trace
   (``trace.json``, loadable in Perfetto or ``chrome://tracing``) under a
   directory, with the card's kernels when the run has a card.
-* :func:`annotate`: ``torch.profiler.record_function``, so that a phase
-  shows up by name in a trace (names nest).
+* :func:`annotate`: a named range on the profiler's own timeline, so that
+  a phase shows up by name in a trace (names nest), and the kernels
+  launched inside it are counted to it.
 * :func:`time_compiled`: milliseconds per iteration of ``carry =
   step_fn(carry, *args)``.  The JAX package folds the iterations into one
   compiled ``fori_loop``; here, on a CUDA carry, :class:`CapturedSteps`
@@ -27,6 +28,34 @@ constants as tensors made before).  The GN step (``core.gn.gn_step``) is
 such a step when its damping is a tensor.  Every kernel is built, and the
 SDF split into limbs under a limb engine (``ops.sdf.LIMB_CACHE``), by the
 warm-up step that runs before the capture: ``nvcc`` cannot run inside one.
+
+The GN loops open these spans (:func:`annotate`), each a stage of the plan
+nested directly under ``dgpmp2.plan``; none is opened per iteration:
+
+* ``dgpmp2.plan``: a whole ``core.gn.plan`` or ``LearnedDiffGPMP2Planner.
+  plan``; its arguments (recorded with ``record_shapes``) are B, T+1, D,
+  the dtype, the engine, the method and the iterations.
+* ``dgpmp2.residuals``: the factor graph at a trajectory (forward
+  kinematics, the SDF lookup, the hinge), at the seed and at each
+  proposal θ + dθ, which it forms.
+* ``dgpmp2.assemble``: the block system and its damping (standard engine).
+* ``dgpmp2.solve``: the block-tridiagonal solve; under the stream and df32
+  engines the one fused step, assembly included.
+* ``dgpmp2.errors``: the weighted and the external errors and the
+  best-iterate score.
+* ``dgpmp2.update``: accept or reject, the masked update, LM's λ,
+  convergence, the iteration count; a second instance an iteration keeps
+  the best iterate under ``track_best``.
+* ``dgpmp2.encoder`` (once a learned plan) and ``dgpmp2.head`` (the head
+  and the covariance decode, once a learned iteration).
+
+When no profiler runs a span costs one flag check: :func:`annotate`
+returns one shared no-op context and builds nothing.  A span is a
+function-scope ``RecordFunction``: the profiler times it on the host and
+puts the kernels launched inside it to it (``device_time_total``), and,
+unlike ``torch.profiler.record_function``'s user scope, it adds no event of
+its own to the device's timeline, where it would read as a device
+operation.
 """
 from __future__ import annotations
 
@@ -61,8 +90,21 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+
+
+def annotate(name: str, args: dict | None = None):
+    """A profiler range ``name`` around the enclosed block (see the module
+    docstring), with ``args`` (values of int, float or str; others
+    formatted) recorded beside it; with no profiler running, the shared
+    no-op context."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    if args is None:
+        return torch._C._profiler._RecordFunctionFast(name)
+    return torch._C._profiler._RecordFunctionFast(name, (), {
+        k: v if isinstance(v, (int, float, str)) else str(v)
+        for k, v in args.items()})
 
 
 def launch_counts() -> dict:

@@ -1174,3 +1174,39 @@ def test_stream_wide_and_block_plans_keep_every_block_resident(dev):
 
     _build.library()
     chip_smoke.check_rows_plans(chip_smoke.ptxas_summary(_build.build_log))
+
+
+def test_plan_spans_add_no_device_event_and_hold_the_plans_kernels(dev):
+    """Under the profiler on the card a plan's spans add no event of their
+    own to the device's timeline (a ``record_function`` range would: a
+    user-scope range is mirrored there), and the kernels launched inside
+    its stages are the plan's, one K-BTD launch in each solve."""
+    import sys
+    from pathlib import Path
+
+    import chip_smoke
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    import profile_torch_plan
+
+    imgs, start, goal = chip_smoke.bench_inputs(64)
+    bench = chip_smoke.port_problem(imgs, start, goal, dev, torch.float32)
+    cfg = gn.OptimConfig(reg=0.1, max_iters=5, tol_delta=0.0)
+    gn.plan(*bench, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        gn.plan(*bench, cfg)
+        torch.cuda.synchronize()
+    events = prof.events()
+    assert not [e.name for e in events if e.device_type == DeviceType.CUDA
+                and e.name.startswith("dgpmp2.")]
+    table = profile_torch_plan.spans(events)
+    plan = table.pop("dgpmp2.plan")
+    assert table["dgpmp2.solve"]["launches"] == 5
+    assert sum(r["launches"] for r in table.values()) <= plan["launches"]
+    assert sum(r["device_us"] for r in table.values()) >= \
+        0.95 * plan["device_us"] > 0
+    assert 0 <= plan["idle_us"] < plan["interval_us"]

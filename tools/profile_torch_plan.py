@@ -17,22 +17,24 @@ T=40), the 5-link arm (D=10, T=40), the 9-link arm (D=18, T=40) or the
 ``track_best``; ``learned3d``: PointRobot3D in 32^3 voxels, T=20, LM); a
 2-D problem under the lookup engine ``--lookup``
 (``ops.sdf.set_lookup_method``, default "auto"; "pallas_v3_1" for
-K-LOOKUP-LIMB):
+K-LOOKUP-LIMB), ``torch.profiler`` over an ``--iters`` plan:
 
-* each layer of one iteration timed alone with CUDA events (median of 20):
-  residuals with the lookup, assembly, damping, the solve, and the
-  error/freeze bookkeeping; for the learned planner also the encoder (once
-  per plan) and the head with the decode;
-* ``torch.profiler`` over an ``--iters`` plan: device time by kernel, the
-  number of kernel launches per iteration, the device's busy share of the
-  wall time, and each of the port's kernels' device µs per launch in the
-  loop.  The Chrome trace goes to ``--out``.
+* each of the plan's spans (``utils.profiling``: residuals, assembly,
+  solve, errors, update; the learned planner's encoder and head): the
+  kernels launched inside it and their device ms, per iteration, and the
+  stages' share of the plan's device time;
+* host µs per launch inside ``dgpmp2.plan``, and the device's idle share
+  between the plan's first and last operation;
+* device time by kernel, the number of kernel launches per iteration, the
+  device's busy share of the wall time, and each of the port's kernels'
+  device µs per launch in the loop.  The Chrome trace goes to ``--out``.
 
 Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
 
 import argparse
+import bisect
 import dataclasses
 import os
 import sys
@@ -43,83 +45,51 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
-from dgpmp2_tpu_torch.core import gn, graph  # noqa: E402
+from dgpmp2_tpu_torch.core import gn  # noqa: E402
 from dgpmp2_tpu_torch.ops import sdf as sdf_ops  # noqa: E402
-from dgpmp2_tpu_torch.ops import tridiag  # noqa: E402
+from portbench.trace import COPIES, union_us  # noqa: E402
 
 
-def layer_times(bench, reg=0.1):
-    spec, robot, params, th0, sdf = bench
-    static = graph.assemble_static(spec, params, th0.dtype)
-    res = graph.eval_residuals(spec, robot, params, th0, sdf)
-    sys_ = graph.assemble_from_residuals(spec, params, res, static=static)
-    damped = gn.damped_system(*sys_, torch.tensor(reg, device=th0.device))
-    dth = tridiag.btd_solve_auto(*damped)
-    err = graph.error_from_residuals(spec, params, res)
-    conv = torch.zeros_like(err, dtype=torch.bool)
-    cfg = gn.OptimConfig(reg=reg)
+def spans(events) -> dict:
+    """Each ``dgpmp2.*`` span of a profiled run: its instances, host µs,
+    and the kernels launched inside it (a device operation is put to the
+    span whose host interval holds its runtime call, whose id it shares),
+    their count and device µs; ``dgpmp2.plan`` also the device µs from
+    each instance's first operation to its last and the idle µs there."""
+    from torch.autograd import DeviceType
 
-    def bookkeeping():
-        th_prop = th0 + dth
-        take = ~conv
-        torch.where(take[:, None, None], th_prop, th0)
-        graph.select(take, res, res)
-        e = graph.error_from_residuals(spec, params, res).detach()
-        torch.where(take, e, err)
-        gn._converged(dth, e - err, cfg)
-        graph.error_from_residuals(spec, params, res, q_inv=params.q_inv,
-                                   obs_inv=params.obs_inv)
-
-    layers = {
-        "residuals+lookup": lambda: graph.eval_residuals(spec, robot, params,
-                                                         th0, sdf),
-        "assembly": lambda: graph.assemble_from_residuals(spec, params, res,
-                                                          static=static),
-        "damping": lambda: gn.damped_system(*sys_, torch.tensor(
-            reg, device=th0.device)),
-        "solve (K-BTD)": lambda: tridiag.btd_solve_auto(*damped),
-        "errors+freeze": bookkeeping,
-    }
-    return {k: cs.cuda_ms(fn) for k, fn in layers.items()}
-
-
-def learned_layer_times(setup):
-    """Layer times of one learned GN iteration at the seed (no autograd)."""
-    planner, variables, params, th0, sdf, im = setup
-    spec, robot = planner.spec, planner.robot
-    lm = planner.cfg.method == "lm"
-    delta = (torch.full((th0.shape[0],), 1e-4, dtype=th0.dtype,
-                        device=th0.device) if lm else
-             torch.tensor(planner.cfg.reg, dtype=th0.dtype, device=th0.device))
-    stack = planner.stack_inputs(im, sdf)
-    feats = planner.conv_features(variables, stack)
-    hidden = planner.init_hidden(variables, th0.shape[0])
-    covs, _ = planner.predict(variables, th0, feats, hidden)
-    p = planner.graph_params(params, covs)
-    geom = graph.eval_geometry(spec, robot, th0, sdf)
-    res = graph.residuals_from_geometry(spec, robot, p, th0, geom)
-    sys_ = graph.assemble_from_residuals(spec, p, res, dtype=th0.dtype)
-    damped = gn.damped_system(*sys_, delta, trust_region=lm)
-
-    def errors():
-        graph.error_from_residuals(spec, p, res)
-        fixed = graph.residuals_from_geometry(spec, robot, params, th0, geom)
-        graph.error_from_residuals(spec, params, fixed)
-
-    layers = {
-        "encoder (per plan)": lambda: planner.conv_features(variables, stack),
-        "head+decode": lambda: planner.graph_params(params, planner.predict(
-            variables, th0, feats, hidden)[0]),
-        "residuals+lookup": lambda: graph.residuals_from_geometry(
-            spec, robot, p, th0, graph.eval_geometry(spec, robot, th0, sdf)),
-        "assembly": lambda: graph.assemble_from_residuals(spec, p, res,
-                                                          dtype=th0.dtype),
-        "damping": lambda: gn.damped_system(*sys_, delta, trust_region=lm),
-        "solve (K-BTD)": lambda: tridiag.btd_solve_auto(*damped),
-        "errors": errors,
-    }
-    with torch.no_grad():
-        return {k: cs.cuda_ms(fn) for k, fn in layers.items()}
+    host, launched, ops = {}, {}, []
+    for e in events:
+        t0, t1 = e.time_range.start, e.time_range.end
+        if e.device_type == DeviceType.CUDA:
+            ops.append((e.id, t0, t1, e.name))
+        elif e.name.startswith("dgpmp2."):
+            host.setdefault(e.name, []).append((t0, t1))
+        elif e.name.startswith("cu"):
+            launched[e.id] = t0
+    out = {}
+    for name, inst in host.items():
+        inst.sort()
+        starts = [t0 for t0, _ in inst]
+        rec = {"count": len(inst), "host_us": sum(t1 - t0 for t0, t1 in inst),
+               "launches": 0, "device_us": 0.0}
+        members = [[] for _ in inst]
+        for oid, t0, t1, op in ops:
+            at = launched.get(oid)
+            i = -1 if at is None else bisect.bisect_right(starts, at) - 1
+            if i < 0 or inst[i][1] < at:
+                continue
+            members[i].append((t0, t1))
+            if not op.startswith(COPIES):
+                rec["launches"] += 1
+                rec["device_us"] += t1 - t0
+        if name == "dgpmp2.plan":
+            hulls = [(min(m)[0], max(t1 for _, t1 in m), union_us(m))
+                     for m in members if m]
+            rec["interval_us"] = sum(hi - lo for lo, hi, _ in hulls)
+            rec["idle_us"] = sum(hi - lo - busy for lo, hi, busy in hulls)
+        out[name] = rec
+    return out
 
 
 def learned_setup(problem, dev):
@@ -153,11 +123,8 @@ def main():
     dev = torch.device("cuda", 0)
     cfg = gn.OptimConfig(reg=0.1, max_iters=args.iters, tol_delta=0.0)
     if args.problem.startswith("learned"):
-        setup = learned_setup(args.problem, dev)
-        planner, variables, params, th0, sdf, im = setup
-        print(f"[{smi}] layer times, ms (median of 20, one layer alone):")
-        for k, v in learned_layer_times(setup).items():
-            print(f"  {k:18s} {v:.4f}")
+        planner, variables, params, th0, sdf, im = learned_setup(
+            args.problem, dev)
 
         def run():
             with torch.no_grad():
@@ -177,11 +144,6 @@ def main():
         inputs = (cs.bench3d_inputs(cs.B, dev) if args.problem == "3d"
                   else cs.bench_inputs(cs.B))
         bench = cs.port_problem(*inputs, dev, torch.float32)
-
-    print(f"[{smi}] layer times, ms (median of 20, one layer alone):")
-    for k, v in layer_times(bench).items():
-        print(f"  {k:18s} {v:.4f}")
-
     report(smi, args, *cs.profile_plan(bench, cfg))
 
 
@@ -200,6 +162,20 @@ def report(smi, args, prof, rec):
             print(f"[{smi}] {label}: {k['launches']} launches, {k['us']:.2f} "
                   f"µs device time per launch, {k['share']:.3f} of device "
                   f"time")
+    table, n = spans(prof.events()), args.iters
+    print(f"[{smi}] spans: instances, launches and device ms per iteration")
+    for name, r in sorted(table.items()):
+        print(f"  {name:18s} {r['count']:5d} {r['launches'] / n:8.2f} "
+              f"{r['device_us'] / 1e3 / n:9.4f}")
+    plan = table.get("dgpmp2.plan")
+    if plan and plan["launches"]:
+        stages = sum(r["device_us"] for k, r in table.items()
+                     if k != "dgpmp2.plan")
+        print(f"[{smi}] stages {stages / plan['device_us']:.4f} of the "
+              f"plan's device time; {plan['host_us'] / plan['launches']:.2f} "
+              f"host µs per launch; device idle "
+              f"{plan['idle_us'] / plan['interval_us']:.4f} of the plan's "
+              f"device interval")
     events = prof.key_averages()
     print(events.table(sort_by="self_device_time_total", row_limit=25))
     os.makedirs(args.out, exist_ok=True)
