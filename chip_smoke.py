@@ -3,6 +3,11 @@
 
     python3 chip_smoke.py
 
+A plan whose launches are counted (:func:`counted`, so :func:`drive`) or
+profiled (:func:`profile_run`) runs the eager loop (:func:`eager_plans`);
+elsewhere ``core.gn.plan`` captures and replays its CUDA graph as for any
+caller, and a timing loop of plans warms up twice, so its runs replay.
+
 Phases, in order; any failed check raises, so the exit code is non-zero:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
@@ -148,7 +153,10 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
     1e-12, ``slice_env2d`` the 3-D field's slice; (c) 20 GN steps of the
     2-D bench (B=1024, float32) captured in one CUDA graph
     (``utils.profiling.CapturedSteps``): a replay bit-equal to the eager
-    steps; ms per iteration captured (``time_compiled``) and eager; (d)
+    steps; ms per iteration captured (``time_compiled``) and eager; then
+    ``core.gn.plan`` of the bench four times (LM, ``track_best``): eager,
+    captured, replayed, each bit-equal to the eager loop in every output,
+    ``gn.graph_counts`` and ``gn.graph_launches`` read; (d)
     ``PlanningService(mesh=)`` with phase 14 (a)'s planner at batch 256 on
     a mesh of the one card, on a mesh of two entries of it (two shards of
     128 rows) and on one of every visible card when there are more: 256
@@ -625,21 +633,38 @@ def profile_plan(bench, cfg):
     return profile_run(lambda: gn.plan(*bench, cfg))
 
 
-def profile_run(run):
-    """``run()`` once under ``torch.profiler``, after a warm-up: the
-    profiler, and a record of the wall ms, the device-busy ms, the device
-    operations and, for each of the port's kernels that ran, its launches,
-    device µs per launch and share of the device time."""
+@contextlib.contextmanager
+def eager_plans():
+    """Every ``core.gn.plan`` inside the block runs the eager loop, on any
+    thread: no CUDA graph is captured or replayed (a replay's kernels are
+    counted in ``gn.graph_launches``, not by the kernel wrappers)."""
+    from dgpmp2_tpu_torch.core import gn
+
+    device, gn._GRAPH_DEVICE = gn._GRAPH_DEVICE, None
+    try:
+        yield
+    finally:
+        gn._GRAPH_DEVICE = device
+
+
+def profile_run(run, eager=True):
+    """``run()`` once under ``torch.profiler``, after a warm-up, its plans
+    the eager loop (:func:`eager_plans`; with ``eager`` false, the path
+    ``core.gn.plan`` takes for any caller): the profiler, and a record of
+    the wall ms, the device-busy ms, the device operations and, for each of
+    the port's kernels that ran, its launches, device µs per launch and
+    share of the device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    with eager_plans() if eager else contextlib.nullcontext():
         run()
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
     # Kernel rows only: an op's row repeats the device time of its kernels.
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -1544,17 +1569,18 @@ REGIME_TOTALS = dict.fromkeys(BTD_REGIMES, 0)
 
 
 def counted(run, mods, dev=None):
-    """``run()`` with the launch counters of ``mods`` (:func:`counters`),
-    K-BTD's by regime, set to 0 just before and read just after, on
-    ``dev`` (synchronized where it is a card): (its output, the counts,
-    K-BTD's launches by regime)."""
+    """``run()``, its plans the eager loop (:func:`eager_plans`), with the
+    launch counters of ``mods`` (:func:`counters`), K-BTD's by regime, set
+    to 0 just before and read just after, on ``dev`` (synchronized where
+    it is a card): (its output, the counts, K-BTD's launches by regime)."""
     cuda = dev is None or dev.type == "cuda"
     if cuda:
         torch.cuda.synchronize()
     for m in mods.values():
         m.launches = 0
     mods["btd_solve"].regime_launches = dict.fromkeys(BTD_REGIMES, 0)
-    out = run()
+    with eager_plans():
+        out = run()
     if cuda:
         torch.cuda.synchronize()
     return (out, {k: m.launches for k, m in mods.items()},
@@ -2035,8 +2061,9 @@ def multistart(dev):
 def iter_ms(run):
     """ms per GN iteration of ``run(n)``, a plan of n iterations:
     (200-iteration plan - 50-iteration plan) / 150, each the median of 5
-    CUDA-event runs after one warm-up."""
-    t50, t200 = (cuda_ms(lambda: run(n), reps=5, warmup=1) for n in (50, 200))
+    CUDA-event runs after two warm-ups (a ``core.gn.plan`` key's second
+    plan captures its graph: the runs replay it)."""
+    t50, t200 = (cuda_ms(lambda: run(n), reps=5, warmup=2) for n in (50, 200))
     return t50, t200, (t200 - t50) / 150.0
 
 
@@ -2122,7 +2149,7 @@ def timing(smi, bench, bench3, problems, ms_run):
               f"iterations {t200:.3f} ms, ms per GN iteration "
               f"{per_iter[key]:.4f}")
     for name in MS_RUNS:
-        ms = cuda_ms(lambda: ms_run(name), reps=5, warmup=1)
+        ms = cuda_ms(lambda: ms_run(name), reps=5, warmup=2)
         print(f"[{smi}] multistart_ms_b{MS_B}_k{MS_K}_{name} {ms:.3f}")
     planner, variables, params, th0, sdf, im = learned_setup(
         bench[3].device, *bench_inputs(B))
@@ -3826,16 +3853,16 @@ def capture(dev, smi, bench):
                 step, th0, params, sdf, iters=CAPTURE_STEPS)
             out["replay"] = out["steps"].replay().clone()
 
-    # One solve and one lookup a step: the eager steps, the warm-up step,
-    # and the captured steps, counted at capture (where nothing runs) for
-    # the one replay that runs them.
-    n = 2 * CAPTURE_STEPS + 1
+    # One solve and one lookup a step: the eager steps and the warm-up
+    # step; the capture's counts are taken back (nothing runs there), and
+    # the replay's kernels are the graph's launches.
+    n = CAPTURE_STEPS + 1
     drive("15 (c) capture", run, {"btd_solve": n, "sdf_lookup": n})
     per_replay = out["steps"].launches
     print(f"15 (c) one replay of the captured graph launches "
-          f"{json.dumps(per_replay)} (counted once, at capture)")
-    if per_replay != {**dict.fromkeys(KERNELS, 0),
-                      "btd_solve": CAPTURE_STEPS,
+          f"{json.dumps(per_replay)} (not counted by the wrappers)")
+    if per_replay != {"btd_solve": CAPTURE_STEPS,
+                      "btd_solve.lane": CAPTURE_STEPS,
                       "sdf_lookup": CAPTURE_STEPS}:
         raise AssertionError(f"15 (c) captured launches {per_replay}")
     diff = float((out["replay"] - out["eager"]).abs().max())
@@ -3858,6 +3885,51 @@ def capture(dev, smi, bench):
               f"{best:.4f} ms per iteration best, {median:.4f} median, of 5 "
               f"runs of {CAPTURE_STEPS} steps")
     del out
+    captured_plan(smi, bench)
+
+
+def captured_plan(smi, bench, calls=4):
+    """15 (c): ``core.gn.plan`` of the 2-D bench (B=1024, float32, LM with
+    ``track_best``, CAPTURE_STEPS iterations) ``calls`` times: the first
+    runs eagerly, the second captures its CUDA graph, every one answers
+    what ``gn._eager_plan`` answers, bit for bit, in every output, and the
+    answer of each call survives the next.  ``gn.graph_counts`` reads 1
+    eager plan (and the reference's), 1 capture and ``calls`` − 2 replays
+    (its graphs dropped and counts zeroed first), and the replays ran
+    ``calls`` − 1 times the eager plan's kernels (``gn.graph_launches``),
+    none of which the kernel wrappers counted."""
+    from dgpmp2_tpu_torch.core import gn
+    from dgpmp2_tpu_torch.utils import profiling
+
+    cfg = gn.OptimConfig(reg=0.1, max_iters=CAPTURE_STEPS, tol_delta=0.0,
+                         method="lm")
+    gn._reset_graphs()
+    with torch.no_grad():
+        c0 = profiling.counters()
+        ref = gn._eager_plan(*bench, cfg, track_best=True)
+        torch.cuda.synchronize()
+        c1 = profiling.counters()
+        outs = [gn.plan(*bench, cfg, track_best=True) for _ in range(calls)]
+        torch.cuda.synchronize()
+        c2 = profiling.counters()
+    one = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+    counts, ran = dict(gn.graph_counts), dict(gn.graph_launches)
+    wrappers = {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]}
+    same = [all(torch.equal(getattr(o, f), getattr(ref, f))
+                for f in gn.PlanResult._fields
+                if getattr(ref, f) is not None) for o in outs]
+    print(f"[{smi}] 15 (c) core.gn.plan B={B} LM track_best, {calls} calls: "
+          f"paths {json.dumps(counts)}, replays ran {json.dumps(ran)}, "
+          f"wrappers counted {json.dumps(wrappers)} (one eager plan: "
+          f"{json.dumps(one)}), bit-equal to the eager loop {same}")
+    if counts != {"eager": 2, "captures": 1, "replays": calls - 2,
+                  "evictions": 0}:
+        raise AssertionError(f"15 (c) captured plan paths {counts}")
+    if ran != {k: (calls - 1) * n for k, n in one.items()} or wrappers != one:
+        raise AssertionError(f"15 (c) captured plan launches {ran}, "
+                             f"{wrappers} against {one}")
+    if not all(same):
+        raise AssertionError(f"15 (c) captured plan not bit-equal: {same}")
 
 
 def sharded_service(dev, smi):
@@ -5455,7 +5527,7 @@ def arm_engine_plans(dev, smi, bench_np, names=ENGINE_ARMS):
                                                       sdf))[1]
                     for m, q in plans.items()}
             t = {m: cuda_ms(lambda q=q: q.plan(th0, start, goal, sdf),
-                            reps=3, warmup=1) for m, q in plans.items()}
+                            reps=3, warmup=2) for m, q in plans.items()}
             k = n - n // 2
             busy = (prof[n]["busy_ms"] - prof[n // 2]["busy_ms"]) / k
             per = (prof[n]["ops"] - prof[n // 2]["ops"]) / k

@@ -14,19 +14,50 @@ assembly in ``core/graph.py`` and the solve in ``ops/tridiag.btd_solve_auto``
 assembly and solve in one kernel, K-STREAM; and df32 (``core/df32.py``),
 float32 residuals with a float64 assembly and solve.
 
-:func:`plan` opens the profiler spans of ``utils.profiling`` (``dgpmp2.plan``
-and its stages); they cost one flag check when no profiler runs.
+On the card :func:`plan` replays a CUDA graph of its whole loop where the
+inputs allow it: every tensor input on one CUDA device, nothing for
+autograd to record (grad mode off, or no input requiring grad), no capture
+already under way, and the same key (:func:`_graph_key`: the spec, the
+robot, the shapes, strides and dtypes, the engine, the ``OptimConfig``,
+``track_best``, which fields of the params are ``None``, the device and
+the generation of the process-wide settings, ``utils.settings``) seen once
+before.  The first plan of a key runs eagerly and warms up the kernels;
+the second copies its inputs into static buffers, captures the loop on
+them and replays it; each later one copies its inputs in, replays, and
+returns clones of the outputs, so a result survives the next call.  The
+graphs of one device share one memory pool, which holds the largest
+graph's intermediates and every graph's outputs, and so run one at a time:
+a call, on any stream, waits for the last call's clones on its device
+before its inputs are copied in.  The :data:`GRAPH_CACHE` graphs used
+last are kept; an evicted key is forgotten, and its next plan runs
+eagerly as a first sighting.  Every other plan runs the eager loop.  Either way the loop
+never reads a device value on the host, so a replay computes what the
+eager loop computes, bit for bit.  :data:`graph_counts` counts the plans
+by path (``eager``, ``captures``, ``replays``) and the graphs evicted.
+The kernel wrappers' launch counters count the eager loop's launches
+alone; the kernels the replays ran are summed in :data:`graph_launches`,
+by counter of ``utils.profiling.counters``.
+
+:func:`plan` opens the profiler spans of ``utils.profiling``: ``dgpmp2.plan``
+(its ``graph`` argument names the path) and, in the eager loop, its stages;
+they cost one flag check when no profiler runs.  A replay opens
+``dgpmp2.plan`` alone.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import threading
 from typing import NamedTuple, Optional
 
 import torch
 
 from dgpmp2_tpu_torch.core import graph as graph_lib
 from dgpmp2_tpu_torch.ops import tridiag
+from dgpmp2_tpu_torch.utils import profiling, settings
 from dgpmp2_tpu_torch.utils.profiling import annotate
+from dgpmp2_tpu_torch.utils.tree import leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,8 +171,31 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
     steps multiply it by 10).  ``params_fix`` supplies the fixed external
     covariances of the ``err_ext`` trace; it defaults to ``params``.  The JAX
     package's ``unroll`` (a ``lax.scan`` option) has no counterpart in a
-    Python loop and is not taken.
+    Python loop and is not taken.  On the card a plan whose key was seen
+    before replays a CUDA graph of the loop (see the module docstring).
     """
+    engine = _engine(cfg, th_init)
+    if params_fix is None:
+        params_fix = params
+    key = _graph_key(spec, robot, params, params_fix, th_init, sdf, cfg,
+                     track_best, engine)
+    if key is not None and (key in _graphs or key in _seen):
+        with _lock:
+            return _graph_plan(key, spec, robot, params, params_fix, th_init,
+                               sdf, cfg, track_best, engine)
+    out = _eager_plan(spec, robot, params, th_init, sdf, cfg, params_fix,
+                      track_best)
+    if key is not None:
+        with _lock:
+            _seen[key] = None
+            _seen.move_to_end(key)
+            while len(_seen) > _SEEN:
+                _seen.popitem(last=False)
+    return out
+
+
+def _engine(cfg: OptimConfig, th_init: torch.Tensor) -> str:
+    """The resolved engine; refuses an unknown method and a float64 df32."""
     if cfg.method not in ("gauss_newton", "lm"):
         raise ValueError(
             f"unknown method {cfg.method!r}; expected 'gauss_newton' or 'lm'"
@@ -150,20 +204,243 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
     if engine == "df32" and th_init.dtype != torch.float32:
         raise ValueError("engine='df32' is a float32 accuracy mode; use the "
                          "standard engine for float64 runs")
+    return engine
+
+
+def _span(th_init, engine, cfg, graph):
+    b, t1, d = th_init.shape
+    return annotate("dgpmp2.plan", {"B": b, "T+1": t1, "D": d,
+                                    "dtype": th_init.dtype, "engine": engine,
+                                    "method": cfg.method,
+                                    "max_iters": cfg.max_iters,
+                                    "graph": graph})
+
+
+def _eager_plan(spec, robot, params, th_init, sdf, cfg, params_fix=None,
+                track_best=False) -> PlanResult:
+    """:func:`plan` as the eager loop, whatever its inputs: the stage spans
+    open, and no graph is captured or replayed."""
+    engine = _engine(cfg, th_init)
     if params_fix is None:
         params_fix = params
-    b, t1, d = th_init.shape
-    with annotate("dgpmp2.plan", {"B": b, "T+1": t1, "D": d,
-                                  "dtype": th_init.dtype, "engine": engine,
-                                  "method": cfg.method,
-                                  "max_iters": cfg.max_iters}):
+    with _lock:
+        graph_counts["eager"] += 1
+    with _span(th_init, engine, cfg, "eager"):
+        reg = torch.tensor(cfg.reg, dtype=th_init.dtype,
+                           device=th_init.device)
         return _plan(spec, robot, params, th_init, sdf, cfg, params_fix,
-                     track_best, engine)
+                     track_best, engine, reg)
+
+
+# -- the captured plan ------------------------------------------------------
+
+# Captured plans kept, the ones used last: the most keys one caller cycles
+# through, a PlanningService over a mesh of four cards with staged
+# multistart (two phases a shard); a plain planner makes one key a batch
+# shape, multistart two.
+GRAPH_CACHE = 8
+_SEEN = 64  # keys of eager plans remembered, the ones used last
+_GRAPH_DEVICE = "cuda"  # the device type whose plans are captured
+_graphs: "collections.OrderedDict[tuple, _CapturedPlan]" = \
+    collections.OrderedDict()
+_seen: "collections.OrderedDict[tuple, None]" = collections.OrderedDict()
+_lock = threading.Lock()
+# By device: the memory pool its captured plans share, and an event
+# recorded after the last replay's clones.
+_pools: dict = {}
+_done: dict = {}
+# Plans by path (each plan adds one to eager, captures or replays) and the
+# graphs evicted.
+graph_counts = dict.fromkeys(("eager", "captures", "replays", "evictions"),
+                             0)
+# Kernels the replays ran, by counter of utils.profiling.counters.
+graph_launches: "collections.Counter[str]" = collections.Counter()
+
+
+def _settings() -> tuple:
+    """The process-wide settings that change what a plan launches."""
+    return (settings.generation, graph_lib.BROADCAST_MAX,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.is_inference_mode_enabled())
+
+
+def _compact(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with each broadcast dimension (stride 0) cut to one element."""
+    for dim, (size, stride) in enumerate(zip(x.shape, x.stride())):
+        if stride == 0 and size > 1:
+            x = x.narrow(dim, 0, 1)
+    return x
+
+
+def _overlaps(x: torch.Tensor) -> bool:
+    """Whether two elements of ``x`` share memory."""
+    need = 1
+    for stride, size in sorted((st, n) for n, st in zip(x.shape, x.stride())
+                               if n > 1):
+        if stride < need:
+            return True
+        need += stride * (size - 1)
+    return False
+
+
+def _inputs(args) -> tuple:
+    """The distinct tensors of ``args`` and, for each tensor leaf, the index
+    of its distinct tensor."""
+    index: dict = {}
+    tensors = []
+    pattern = []
+    for x in leaves(args):
+        if id(x) not in index:
+            index[id(x)] = len(tensors)
+            tensors.append(x)
+        pattern.append(index[id(x)])
+    return tensors, tuple(pattern)
+
+
+def _graph_key(spec, robot, params, params_fix, th_init, sdf, cfg,
+               track_best, engine):
+    """What a captured plan depends on, or ``None`` where the plan runs
+    eagerly: an input off the card or on another device, an input autograd
+    would record, a capture under way, an empty batch, or an input whose
+    memory overlaps itself."""
+    args = (params, params_fix, th_init, sdf)
+    tensors, pattern = _inputs(args)
+    dev = th_init.device
+    if dev.type != _GRAPH_DEVICE or th_init.numel() == 0:
+        return None
+    if any(x.device != dev for x in tensors):
+        return None
+    if torch.is_grad_enabled() and any(x.requires_grad for x in tensors):
+        return None
+    if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return None
+    if any(_overlaps(_compact(x)) for x in tensors):
+        return None
+    nones = tuple(tuple(f.name for f in dataclasses.fields(p)
+                        if getattr(p, f.name) is None)
+                  for p in (params, params_fix))
+    shapes = tuple((tuple(x.shape), x.stride(), x.dtype) for x in tensors)
+    try:
+        key = (spec, robot, cfg, track_best, engine, dev, nones, shapes,
+               pattern, _settings())
+        hash(key)
+    except TypeError:  # a robot or spec that cannot be a key
+        return None
+    return key
+
+
+class _CapturedPlan:
+    """One plan's loop captured in a ``torch.cuda.CUDAGraph`` on static
+    copies of its inputs (each broadcast input kept broadcast, every stride
+    as given), and the kernels one replay launches, by counter
+    (``utils.profiling.capture``)."""
+
+    def __init__(self, args, tensors, run, consts=()):
+        self.device = tensors[0].device
+        self.consts = consts  # tensors the graph reads, made before capture
+        self.bases = []
+        static = {}
+        for x in tensors:
+            c = _compact(x)
+            base = torch.empty_strided(c.shape, c.stride(), dtype=c.dtype,
+                                       device=c.device)
+            base.copy_(c)
+            self.bases.append(base)
+            static[id(x)] = base.expand(x.shape)
+        self.args = tree_map(lambda x: static[id(x)], args)
+        self.out, self.launches = profiling.capture(
+            lambda: run(*self.args), self._capturing())
+
+    @contextlib.contextmanager
+    def _capturing(self):
+        self.graph = torch.cuda.CUDAGraph()
+        pool = _pools.setdefault(self.device, torch.cuda.graph_pool_handle())
+        with torch.cuda.device(self.device), torch.cuda.graph(
+                self.graph, pool=pool, capture_error_mode="thread_local"):
+            yield
+
+    @contextlib.contextmanager
+    def _ordered(self):
+        """The block on the device's current stream, after the last call's
+        clones on the device: a replay writes the memory that another
+        graph's outputs, or its own, occupy until they are cloned."""
+        with torch.cuda.device(self.device):
+            stream = torch.cuda.current_stream()
+            done = _done.setdefault(self.device, torch.cuda.Event())
+            stream.wait_event(done)
+            yield
+            done.record(stream)
+
+    def _replay(self):
+        self.graph.replay()
+
+    def reset(self):
+        """Free the graph and its memory pool."""
+        self.graph.reset()
+
+    def __call__(self, tensors) -> PlanResult:
+        """Replay on ``tensors`` (the inputs' distinct tensors, in the
+        captured order): clones of the outputs."""
+        with self._ordered():
+            for base, x in zip(self.bases, tensors):
+                base.copy_(_compact(x))
+            self._replay()
+            out = PlanResult(*(None if x is None else x.clone()
+                               for x in self.out))
+        graph_launches.update(self.launches)
+        return out
+
+
+def _graph_plan(key, spec, robot, params, params_fix, th_init, sdf, cfg,
+                track_best, engine) -> PlanResult:
+    """The plan of a key seen before, under :data:`_lock`: captured now if no
+    graph of it is kept, then replayed."""
+    args = (params, params_fix, th_init, sdf)
+    tensors, _ = _inputs(args)
+    entry = _graphs.get(key)
+    with _span(th_init, engine, cfg, "replay" if entry else "capture"):
+        if entry is None:
+            reg = torch.tensor(cfg.reg, dtype=th_init.dtype,
+                               device=th_init.device)
+
+            def run(params, params_fix, th_init, sdf):
+                return _plan(spec, robot, params, th_init, sdf, cfg,
+                             params_fix, track_best, engine, reg)
+
+            entry = _CapturedPlan(args, tensors, run, consts=(reg,))
+            _seen.pop(key, None)
+            _graphs[key] = entry
+            while len(_graphs) > GRAPH_CACHE:
+                _, old = _graphs.popitem(last=False)
+                old.reset()
+                graph_counts["evictions"] += 1
+            graph_counts["captures"] += 1
+        else:
+            graph_counts["replays"] += 1
+        _graphs.move_to_end(key)
+        return entry(tensors)
+
+
+def _reset_graphs() -> None:
+    """Drop every graph and key kept, and zero :data:`graph_counts` and
+    :data:`graph_launches`."""
+    with _lock:
+        for entry in _graphs.values():
+            entry.reset()
+        _graphs.clear()
+        _seen.clear()
+        _pools.clear()
+        _done.clear()
+        for k in graph_counts:
+            graph_counts[k] = 0
+        graph_launches.clear()
 
 
 def _plan(spec, robot, params, th_init, sdf, cfg, params_fix, track_best,
-          engine) -> PlanResult:
-    """The body of :func:`plan`, its stages in their spans."""
+          engine, reg) -> PlanResult:
+    """The body of :func:`plan`, its stages in their spans; ``reg`` is
+    ``cfg.reg`` as a 0-d tensor of the plan's dtype on its device, made by
+    the caller (a capture refuses the copy from the host)."""
     # The lookup kernels read a contiguous SDF batch; made so once here, a
     # strided one (as sdf_from_occupancy returns) is not copied per lookup.
     sdf = sdf.contiguous()
@@ -207,7 +484,6 @@ def _plan(spec, robot, params, th_init, sdf, cfg, params_fix, track_best,
     conv = torch.zeros((b,), dtype=torch.bool, device=dev)
     lam = torch.full((b,), cfg.lm_lambda_init, dtype=dtype, device=dev)
     iters = torch.zeros((b,), dtype=torch.int32, device=dev)
-    reg = torch.tensor(cfg.reg, dtype=dtype, device=dev)
     if track_best:
         best_th = th_init
     errs, errs_ext = [], []

@@ -44,6 +44,7 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from dgpmp2_tpu_torch.ops import tridiag
+from dgpmp2_tpu_torch.utils import settings
 
 launches = 0
 MAX_FAMILIES = 5
@@ -210,7 +211,9 @@ def set_producers(n: int) -> int:
     choice; returns the previous cap."""
     from dgpmp2_tpu_torch.ops.cuda import _build
 
-    return int(_build.library().dgpmp2_btd_stream_set_producers(n))
+    prev = int(_build.library().dgpmp2_btd_stream_set_producers(n))
+    settings.changed()
+    return prev
 
 
 # -- the wide and block kernels' launch plan (D > 16) -----------------------
@@ -384,6 +387,7 @@ def set_rows_plan(**caps) -> dict:
         raise ValueError(f"set_rows_plan: unknown {sorted(bad)}")
     prev, _ROWS_CAPS = _ROWS_CAPS, dict(caps)
     _plan.cache_clear()
+    settings.changed()
     return prev
 
 

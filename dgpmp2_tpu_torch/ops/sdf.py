@@ -37,6 +37,8 @@ import weakref
 import torch
 import torch.nn.functional as F
 
+from dgpmp2_tpu_torch.utils import settings
+
 # Peak bytes of one min-plus intermediate before the EDT evaluates its output
 # axis in chunks.  The dense form needs lanes·n² int32: at B = 1024 on the
 # 130-px padded grid that is 9 GB.  A chunk holds at least one output
@@ -147,6 +149,7 @@ def set_oob_mode(mode: str) -> None:
     if mode not in OOB_MODES:
         raise ValueError(mode)
     _OOB_MODE = mode
+    settings.changed()
 
 
 def _axis(p: torch.Tensor, n: int, reference: bool):
@@ -438,6 +441,7 @@ def set_lookup_method(method: str) -> None:
     if method not in EXACT_ENGINES and method not in LIMB_ENGINES:
         raise ValueError(method)
     _LOOKUP_METHOD = method
+    settings.changed()
 
 
 def _world_lims(*lims):
@@ -496,6 +500,7 @@ def set_lookup3d_method(method: str) -> None:
     if method not in LOOKUP3D_ENGINES:
         raise ValueError(method)
     _LOOKUP3D_METHOD = method
+    settings.changed()
 
 
 def lookup_nd(sdf: torch.Tensor, points: torch.Tensor, res, x_lims, y_lims,

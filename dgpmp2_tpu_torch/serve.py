@@ -504,9 +504,12 @@ class PlanningService:
     def warmup(self, sdf_shape: Optional[tuple] = None) -> None:
         """Plan one batch ahead of traffic, so that the first dispatch does
         not pay for the kernels' build (``nvcc`` at first launch) and their
-        launch plans at this batch width.  Plans against the world bank
-        when worlds are registered and no ``sdf_shape`` is given, else
-        against ones of ``sdf_shape``.  Counts nothing in ``stats``."""
+        launch plans at this batch width.  On the card it plans twice, so
+        that ``core.gn.plan`` captures its CUDA graph here (a key's second
+        plan) and a dispatch of the same shapes replays it.  Plans against
+        the world bank when worlds are registered and no ``sdf_shape`` is
+        given, else against ones of ``sdf_shape``.  Counts nothing in
+        ``stats``."""
         spec = self.planner.spec
         b, d = self.batch_size, spec.state_dim
         rows = b // len(self._shards)
@@ -526,8 +529,10 @@ class PlanningService:
                     0, torch.zeros(rows, dtype=torch.int64, device=dev))
             return self._upload(np.ones((rows,) + tuple(sdf_shape)), dev)
 
+        passes = 2 if any(d.type == "cuda" for d, _ in self._shards) else 1
         with self._lock, torch.no_grad():
-            self._dispatch(start, goal, None, sdfs, extra)
+            for _ in range(passes):
+                self._dispatch(start, goal, None, sdfs, extra)
 
     def plan_batch_sync(self, requests: Sequence[PlanRequest]):
         """Plan up to ``batch_size`` requests in one dispatch and return

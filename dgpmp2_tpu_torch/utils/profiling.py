@@ -18,9 +18,13 @@ Port of ``dgpmp2_tpu/utils/profiling.py``:
 
 Capture runs the Python of ``step_fn`` once: every kernel wrapper's launch
 counter (``ops/cuda/*.launches``) goes up once per captured launch, at
-capture, where nothing runs, and not at a replay.  The capture's count
-thus stands for one replay; a caller that checks exact launch counts over
-n replays adds ``CapturedSteps.launches`` × (n − 1) itself.  A step that
+capture, where nothing runs, and not at a replay.  :func:`capture`, which
+:class:`CapturedSteps` and ``core.gn.plan``'s captured loop share, takes
+those counts back and returns them as the graph's launches a replay
+(:func:`counters`, :func:`add_counts`): the counters count the kernels
+launched eagerly, and a caller that needs a graph's kernels over n
+replays reads its launches × n (``core.gn.graph_launches`` sums them for
+the captured plans).  A step that
 can be captured never waits for the host: no ``.item()``, ``.cpu()``,
 branch on a device value, or tensor made on the card from a Python value
 (``torch.tensor(0.1, device="cuda")`` is a host-to-device copy; pass such
@@ -34,7 +38,10 @@ nested directly under ``dgpmp2.plan``; none is opened per iteration:
 
 * ``dgpmp2.plan``: a whole ``core.gn.plan`` or ``LearnedDiffGPMP2Planner.
   plan``; its arguments (recorded with ``record_shapes``) are B, T+1, D,
-  the dtype, the engine, the method and the iterations.
+  the dtype, the engine, the method and the iterations, and for
+  ``core.gn.plan`` its path, ``graph``: ``eager``, ``capture`` or
+  ``replay``.  A replay opens this span alone: its kernels run inside one
+  graph launch, and none of the stage spans below opens.
 * ``dgpmp2.residuals``: the factor graph at a trajectory (forward
   kinematics, the SDF lookup, the hinge), at the seed and at each
   proposal θ + dθ, which it forms.
@@ -107,10 +114,53 @@ def annotate(name: str, args: dict | None = None):
         for k, v in args.items()})
 
 
+def _kernel(name: str):
+    return importlib.import_module(f"dgpmp2_tpu_torch.ops.cuda.{name}")
+
+
 def launch_counts() -> dict:
     """The kernel wrappers' launch counters, by kernel."""
-    return {n: importlib.import_module(f"dgpmp2_tpu_torch.ops.cuda.{n}")
-            .launches for n in _KERNEL_MODULES}
+    return {n: _kernel(n).launches for n in _KERNEL_MODULES}
+
+
+def counters() -> dict:
+    """Every counter of the kernel wrappers: :func:`launch_counts`, K-BTD's
+    launches by regime (``btd_solve.<regime>``) and K-LOOKUP-LIMB's SDF
+    splits (``sdf_lookup_limbs.splits``)."""
+    out = launch_counts()
+    for regime, n in _kernel("btd_solve").regime_launches.items():
+        out[f"btd_solve.{regime}"] = n
+    out["sdf_lookup_limbs.splits"] = _kernel("sdf_lookup_limbs").splits
+    return out
+
+
+def add_counts(delta: dict) -> None:
+    """Add ``delta`` (keys of :func:`counters`) to the counters."""
+    for key, n in delta.items():
+        name, _, sub = key.partition(".")
+        mod = _kernel(name)
+        if not sub:
+            mod.launches += n
+        elif sub == "splits":
+            mod.splits += n
+        else:
+            mod.regime_launches[sub] += n
+
+
+def capture(run: Callable, capturing):
+    """``run()`` inside ``capturing`` (a ``torch.cuda.graph`` context): its
+    output, and the kernels that one replay of the graph launches, by
+    counter of :func:`counters` (those that launched).  Nothing runs at
+    capture, so the counts it took are taken back."""
+    before = counters()
+    try:
+        with capturing:
+            out = run()
+    finally:
+        after = counters()
+        add_counts({k: before[k] - after[k] for k in after})
+    return out, {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
 
 
 class CapturedSteps:
@@ -124,8 +174,8 @@ class CapturedSteps:
     they are: the graph reads their memory, so change them only in place.
     One warm-up step runs first on a side stream (kernel builds, launch
     plans, the allocator's pool) and is discarded.  ``launches`` holds the
-    kernel launches one replay makes, by kernel (see the module
-    docstring).
+    kernel launches one replay makes, by counter (:func:`capture`); the
+    counters count none of them.
     """
 
     def __init__(self, step_fn: Callable, carry_init, *args,
@@ -138,16 +188,16 @@ class CapturedSteps:
         with torch.cuda.stream(side):
             step_fn(tree_map(torch.clone, carry_init), *args)
         torch.cuda.current_stream().wait_stream(side)
-        before = launch_counts()
         self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
+
+        def steps():
             out = self.carry
             for _ in range(iters):
                 out = step_fn(out, *args)
             for dst, src in zip(leaves(self.carry), leaves(out)):
                 dst.copy_(src)
-        after = launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after}
+
+        _, self.launches = capture(steps, torch.cuda.graph(self.graph))
 
     def replay(self):
         """Run the captured steps once (asynchronously); returns the

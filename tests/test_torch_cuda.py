@@ -1180,7 +1180,9 @@ def test_plan_spans_add_no_device_event_and_hold_the_plans_kernels(dev):
     """Under the profiler on the card a plan's spans add no event of their
     own to the device's timeline (a ``record_function`` range would: a
     user-scope range is mirrored there), and the kernels launched inside
-    its stages are the plan's, one K-BTD launch in each solve."""
+    its stages are the plan's, one K-BTD launch in each solve.  The eager
+    loop (``gn._eager_plan``) is profiled: a replay of the captured plan
+    opens no stage span."""
     import sys
     from pathlib import Path
 
@@ -1194,11 +1196,11 @@ def test_plan_spans_add_no_device_event_and_hold_the_plans_kernels(dev):
     imgs, start, goal = chip_smoke.bench_inputs(64)
     bench = chip_smoke.port_problem(imgs, start, goal, dev, torch.float32)
     cfg = gn.OptimConfig(reg=0.1, max_iters=5, tol_delta=0.0)
-    gn.plan(*bench, cfg)
+    gn._eager_plan(*bench, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        gn.plan(*bench, cfg)
+        gn._eager_plan(*bench, cfg)
         torch.cuda.synchronize()
     events = prof.events()
     assert not [e.name for e in events if e.device_type == DeviceType.CUDA

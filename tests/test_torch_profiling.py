@@ -220,7 +220,8 @@ def test_the_stage_spans_nest_under_the_plan_as_often_as_the_loop_runs(
 
 def test_the_plan_span_records_the_counts_at_its_boundary():
     """With ``record_shapes`` the plan span carries B, T+1, D, the dtype,
-    the engine, the method and the iterations."""
+    the engine, the method, the iterations and the path (a CPU plan runs
+    the eager loop)."""
     run = PLANS["standard"]()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU],
@@ -229,7 +230,8 @@ def test_the_plan_span_records_the_counts_at_its_boundary():
     plan = next(e for e in prof.events() if e.name == "dgpmp2.plan")
     assert plan.kwinputs == {"B": 3, "T+1": 9, "D": 4,
                              "dtype": "torch.float64", "engine": "standard",
-                             "method": "gauss_newton", "max_iters": ITERS}
+                             "method": "gauss_newton", "max_iters": ITERS,
+                             "graph": "eager"}
 
 
 def _tool():

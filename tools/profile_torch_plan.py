@@ -29,6 +29,12 @@ K-LOOKUP-LIMB), ``torch.profiler`` over an ``--iters`` plan:
   device's busy share of the wall time, and each of the port's kernels'
   device µs per launch in the loop.  The Chrome trace goes to ``--out``.
 
+The stage table profiles the eager loop (``chip_smoke.profile_run``).  A
+plan of ``core.gn.plan`` is then run twice (eagerly, then captured) and one
+replay of its CUDA graph profiled: its device ms and kernel launches a
+call, and its wall ms, beside the eager loop's (not for the learned plan,
+whose loop is not captured).
+
 Needs a CUDA device; imports no JAX.
 """
 from __future__ import annotations
@@ -144,7 +150,22 @@ def main():
         inputs = (cs.bench3d_inputs(cs.B, dev) if args.problem == "3d"
                   else cs.bench_inputs(cs.B))
         bench = cs.port_problem(*inputs, dev, torch.float32)
-    report(smi, args, *cs.profile_plan(bench, cfg))
+    prof, eager = cs.profile_plan(bench, cfg)
+    report(smi, args, prof, eager)
+    gn.plan(*bench, cfg)  # the key's first plan, eager; the next captures
+    prof_r, replay = cs.profile_run(lambda: gn.plan(*bench, cfg),
+                                    eager=False)
+    print(f"[{smi}] a call of {args.iters} iterations, replayed / eager: "
+          f"device {replay['busy_ms']:.3f} / {eager['busy_ms']:.3f} ms, "
+          f"{launches(prof_r)} / {launches(prof)} kernel launches, wall "
+          f"{replay['wall_ms']:.3f} / {eager['wall_ms']:.3f} ms")
+
+
+def launches(prof) -> int:
+    """Kernels the device ran in a profile (copies and fills left out)."""
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(COPIES))
 
 
 def report(smi, args, prof, rec):
