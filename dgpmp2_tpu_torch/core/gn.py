@@ -36,7 +36,10 @@ eager loop computes, bit for bit.  :data:`graph_counts` counts the plans
 by path (``eager``, ``captures``, ``replays``) and the graphs evicted.
 The kernel wrappers' launch counters count the eager loop's launches
 alone; the kernels the replays ran are summed in :data:`graph_launches`,
-by counter of ``utils.profiling.counters``.
+by counter of ``utils.profiling.counters``.  ``LearnedDiffGPMP2Planner.
+plan`` runs its loop by the same rules through the same machinery
+(:func:`graph_key`, :func:`run_loop`): one cache, one pool and one event a
+device, and one set of counters for both loops.
 
 :func:`plan` opens the profiler spans of ``utils.profiling``: ``dgpmp2.plan``
 (its ``graph`` argument names the path) and, in the eager loop, its stages;
@@ -179,19 +182,8 @@ def plan(spec: graph_lib.GraphSpec, robot, params: graph_lib.GraphParams,
         params_fix = params
     key = _graph_key(spec, robot, params, params_fix, th_init, sdf, cfg,
                      track_best, engine)
-    if key is not None and (key in _graphs or key in _seen):
-        with _lock:
-            return _graph_plan(key, spec, robot, params, params_fix, th_init,
-                               sdf, cfg, track_best, engine)
-    out = _eager_plan(spec, robot, params, th_init, sdf, cfg, params_fix,
-                      track_best)
-    if key is not None:
-        with _lock:
-            _seen[key] = None
-            _seen.move_to_end(key)
-            while len(_seen) > _SEEN:
-                _seen.popitem(last=False)
-    return out
+    return _run_plan(key, spec, robot, params, params_fix, th_init, sdf, cfg,
+                     track_best, engine)
 
 
 def _engine(cfg: OptimConfig, th_init: torch.Tensor) -> str:
@@ -221,15 +213,28 @@ def _eager_plan(spec, robot, params, th_init, sdf, cfg, params_fix=None,
     """:func:`plan` as the eager loop, whatever its inputs: the stage spans
     open, and no graph is captured or replayed."""
     engine = _engine(cfg, th_init)
-    if params_fix is None:
-        params_fix = params
-    with _lock:
-        graph_counts["eager"] += 1
-    with _span(th_init, engine, cfg, "eager"):
+    return _run_plan(None, spec, robot, params,
+                     params if params_fix is None else params_fix, th_init,
+                     sdf, cfg, track_best, engine)
+
+
+def _run_plan(key, spec, robot, params, params_fix, th_init, sdf, cfg,
+              track_best, engine) -> PlanResult:
+    """:func:`plan`'s loop by :func:`run_loop`'s rules under ``key``."""
+    args = (params, params_fix, th_init, sdf)
+
+    def make_run():
         reg = torch.tensor(cfg.reg, dtype=th_init.dtype,
                            device=th_init.device)
-        return _plan(spec, robot, params, th_init, sdf, cfg, params_fix,
-                     track_best, engine, reg)
+
+        def run(params, params_fix, th_init, sdf):
+            return _plan(spec, robot, params, th_init, sdf, cfg, params_fix,
+                         track_best, engine, reg)
+
+        return run, (reg,)
+
+    return run_loop(key, lambda: args, make_run,
+                    lambda path: _span(th_init, engine, cfg, path))
 
 
 # -- the captured plan ------------------------------------------------------
@@ -297,16 +302,17 @@ def _inputs(args) -> tuple:
     return tensors, tuple(pattern)
 
 
-def _graph_key(spec, robot, params, params_fix, th_init, sdf, cfg,
-               track_best, engine):
-    """What a captured plan depends on, or ``None`` where the plan runs
-    eagerly: an input off the card or on another device, an input autograd
-    would record, a capture under way, an empty batch, or an input whose
+def graph_key(batch: torch.Tensor, args, static) -> Optional[tuple]:
+    """What a captured loop depends on: ``static`` (hashable: its options),
+    and the device, the shapes, strides and dtypes of the distinct tensors
+    of ``args`` (its inputs, a pytree) and how its leaves alias them, and
+    the process-wide settings; or ``None`` where the loop runs eagerly: an
+    input off the card or on another device, an input autograd would
+    record, a capture under way, an empty ``batch``, or an input whose
     memory overlaps itself."""
-    args = (params, params_fix, th_init, sdf)
     tensors, pattern = _inputs(args)
-    dev = th_init.device
-    if dev.type != _GRAPH_DEVICE or th_init.numel() == 0:
+    dev = batch.device
+    if dev.type != _GRAPH_DEVICE or batch.numel() == 0:
         return None
     if any(x.device != dev for x in tensors):
         return None
@@ -316,17 +322,27 @@ def _graph_key(spec, robot, params, params_fix, th_init, sdf, cfg,
         return None
     if any(_overlaps(_compact(x)) for x in tensors):
         return None
-    nones = tuple(tuple(f.name for f in dataclasses.fields(p)
-                        if getattr(p, f.name) is None)
-                  for p in (params, params_fix))
     shapes = tuple((tuple(x.shape), x.stride(), x.dtype) for x in tensors)
     try:
-        key = (spec, robot, cfg, track_best, engine, dev, nones, shapes,
-               pattern, _settings())
+        key = (static, dev, shapes, pattern, _settings())
         hash(key)
     except TypeError:  # a robot or spec that cannot be a key
         return None
     return key
+
+
+def nones(*params: graph_lib.GraphParams) -> tuple:
+    """The fields of each GraphParams that are ``None``."""
+    return tuple(tuple(f.name for f in dataclasses.fields(p)
+                       if getattr(p, f.name) is None) for p in params)
+
+
+def _graph_key(spec, robot, params, params_fix, th_init, sdf, cfg,
+               track_best, engine):
+    """What :func:`plan`'s captured loop depends on (:func:`graph_key`)."""
+    return graph_key(th_init, (params, params_fix, th_init, sdf),
+                     (spec, robot, cfg, track_best, engine,
+                      nones(params, params_fix)))
 
 
 class _CapturedPlan:
@@ -378,47 +394,61 @@ class _CapturedPlan:
         """Free the graph and its memory pool."""
         self.graph.reset()
 
-    def __call__(self, tensors) -> PlanResult:
+    def __call__(self, tensors):
         """Replay on ``tensors`` (the inputs' distinct tensors, in the
         captured order): clones of the outputs."""
         with self._ordered():
             for base, x in zip(self.bases, tensors):
                 base.copy_(_compact(x))
             self._replay()
-            out = PlanResult(*(None if x is None else x.clone()
-                               for x in self.out))
+            out = tree_map(torch.clone, self.out)
         graph_launches.update(self.launches)
         return out
 
 
-def _graph_plan(key, spec, robot, params, params_fix, th_init, sdf, cfg,
-                track_best, engine) -> PlanResult:
-    """The plan of a key seen before, under :data:`_lock`: captured now if no
-    graph of it is kept, then replayed."""
-    args = (params, params_fix, th_init, sdf)
-    tensors, _ = _inputs(args)
-    entry = _graphs.get(key)
-    with _span(th_init, engine, cfg, "replay" if entry else "capture"):
-        if entry is None:
-            reg = torch.tensor(cfg.reg, dtype=th_init.dtype,
-                               device=th_init.device)
+def run_loop(key, inputs, make_run, span):
+    """A plan's loop by the captured-loop rules (the module docstring),
+    which :func:`plan` and ``LearnedDiffGPMP2Planner.plan`` share.
 
-            def run(params, params_fix, th_init, sdf):
-                return _plan(spec, robot, params, th_init, sdf, cfg,
-                             params_fix, track_best, engine, reg)
-
-            entry = _CapturedPlan(args, tensors, run, consts=(reg,))
-            _seen.pop(key, None)
-            _graphs[key] = entry
-            while len(_graphs) > GRAPH_CACHE:
-                _, old = _graphs.popitem(last=False)
-                old.reset()
-                graph_counts["evictions"] += 1
-            graph_counts["captures"] += 1
-        else:
-            graph_counts["replays"] += 1
-        _graphs.move_to_end(key)
-        return entry(tensors)
+    ``inputs()`` gives the loop's inputs, a pytree of tensors; what it runs
+    (the learned planner's encoder) runs eagerly on every path.
+    ``make_run()`` gives ``(run, consts)``: ``run(*inputs)`` is the loop,
+    and ``consts`` the tensors it reads that are made before a capture.
+    ``span(path)`` opens the plan's span, its ``graph`` argument ``path``.
+    ``key`` (:func:`graph_key`; ``None``: eager) decides the path: a key's
+    first plan runs eagerly, its second captures, later ones replay."""
+    if key is None or (key not in _graphs and key not in _seen):
+        with _lock:
+            graph_counts["eager"] += 1
+        with span("eager"):
+            run, _ = make_run()
+            out = run(*inputs())
+        if key is not None:
+            with _lock:
+                _seen[key] = None
+                _seen.move_to_end(key)
+                while len(_seen) > _SEEN:
+                    _seen.popitem(last=False)
+        return out
+    with _lock:
+        entry = _graphs.get(key)
+        with span("replay" if entry else "capture"):
+            args = inputs()
+            tensors, _ = _inputs(args)
+            if entry is None:
+                run, consts = make_run()
+                entry = _CapturedPlan(args, tensors, run, consts)
+                _seen.pop(key, None)
+                _graphs[key] = entry
+                while len(_graphs) > GRAPH_CACHE:
+                    _, old = _graphs.popitem(last=False)
+                    old.reset()
+                    graph_counts["evictions"] += 1
+                graph_counts["captures"] += 1
+            else:
+                graph_counts["replays"] += 1
+            _graphs.move_to_end(key)
+            return entry(tensors)
 
 
 def _reset_graphs() -> None:

@@ -38,6 +38,10 @@ splits the batch's rows over the mesh's data shards (and processes), runs
 each shard's plan on its data row (:func:`row_variables`: the encoder and
 decode on the row's first device, the feed-forward head tensor-parallel
 over the row's model devices) and gathers the plans.
+
+On the card the GN loop after the encoder runs through ``core.gn``'s
+captured-loop machinery, as ``core.gn.plan``'s loop does: replayed as one
+CUDA graph from a key's second plan, each shard's replica on its own card.
 """
 from __future__ import annotations
 
@@ -378,37 +382,85 @@ class LearnedDiffGPMP2Planner:
         ``cfg.method == "lm"`` each problem keeps a lambda (×10 on a
         rejected step, ÷10 on an accepted one), both errors of the test
         taken under this iteration's predicted covariances.
+
+        The encoder runs eagerly on every call.  On the card the loop after
+        it replays one CUDA graph by ``core.gn.plan``'s rules
+        (``core.gn.run_loop``): a key's (:meth:`_graph_key`) first plan runs
+        eagerly, its second captures, and later ones copy the features and
+        the other inputs in, replay and return clones.  The plan runs
+        eagerly where autograd would record (the weights included), where
+        an input is off the card, and under a capture; the span
+        ``dgpmp2.plan`` names the path in ``graph``.
         """
         if isinstance(variables, sharding.ShardedParams):
             return self._plan_sharded(variables, params_fix, th_init, sdf, im,
                                       max_iters, hidden, track_best,
                                       return_final)
         iters = max_iters or self.cfg.max_iters
-        b, t1, d = th_init.shape
-        with annotate("dgpmp2.plan", {"B": b, "T+1": t1, "D": d,
-                                      "dtype": th_init.dtype,
-                                      "engine": "standard",
-                                      "method": self.cfg.method,
-                                      "max_iters": iters}):
-            return self._plan(variables, params_fix, th_init, sdf, im, iters,
-                              hidden, track_best, return_final)
-
-    def _plan(self, variables, params_fix, th_init, sdf, im, iters, hidden,
-              track_best, return_final):
-        """The body of :meth:`plan` on one device, its stages in their
-        spans."""
-        spec, robot = self.spec, self.robot
-        lm = self.cfg.method == "lm"
         th_init = th_init.to(self.device)
         sdf = sdf.to(self.device).contiguous()
         im = im.to(self.device)
-        with annotate("dgpmp2.encoder"):
-            feats = self.conv_features(variables, self.stack_inputs(im, sdf))
+        b, t1, d = th_init.shape
+        key = self._graph_key(variables, params_fix, th_init, sdf, im, iters,
+                              hidden, track_best, return_final)
+
+        def inputs():
+            with annotate("dgpmp2.encoder"):
+                feats = self.conv_features(variables,
+                                           self.stack_inputs(im, sdf))
+            return feats, params_fix, th_init, sdf, hidden
+
+        def make_run():
+            reg = torch.tensor(self.cfg.reg, dtype=th_init.dtype,
+                               device=self.device)
+
+            def run(feats, params_fix, th_init, sdf, hidden):
+                return self._loop(variables, params_fix, th_init, sdf, feats,
+                                  iters, hidden, track_best, return_final,
+                                  reg)
+
+            return run, (reg,)
+
+        def span(path):
+            return annotate("dgpmp2.plan", {"B": b, "T+1": t1, "D": d,
+                                            "dtype": th_init.dtype,
+                                            "engine": "standard",
+                                            "method": self.cfg.method,
+                                            "max_iters": iters,
+                                            "graph": path})
+
+        return gn.run_loop(key, inputs, make_run, span)
+
+    def _graph_key(self, variables, params_fix, th_init, sdf, im, iters,
+                   hidden, track_best, return_final):
+        """What the captured loop depends on (``core.gn.graph_key``): the
+        inputs, the planner's own attributes and the loop's options, and
+        the weights: every one's shape, dtype and device (one device, none
+        for autograd to record), and the head's by identity and storage as
+        well, since the graph reads them in place (an update in place is
+        read by the next replay; a weight replaced makes a new key)."""
+        head = variables["head"]
+        read = tuple((name, id(w), w.data_ptr())
+                     for name, w in head.named_parameters())
+        static = (type(self), tuple(vars(self).items()), type(head), read,
+                  iters, hidden is None, track_best, return_final,
+                  gn.nones(params_fix))
+        args = (th_init, sdf, im, params_fix, hidden,
+                tuple(variables.parameters()))
+        return gn.graph_key(th_init, args, static)
+
+    def _loop(self, variables, params_fix, th_init, sdf, feats, iters, hidden,
+              track_best, return_final, reg):
+        """The learned GN loop of :meth:`plan` on one device from the
+        encoder's ``feats``, its stages in their spans; ``reg`` is
+        ``cfg.reg`` as a 0-d tensor of the plan's dtype on its device, made
+        by the caller (a capture refuses the copy from the host)."""
+        spec, robot = self.spec, self.robot
+        lm = self.cfg.method == "lm"
         b = th_init.shape[0]
         if self.recurrent and hidden is None:
             hidden = self.init_hidden(variables, b)
         dtype = th_init.dtype
-        reg = torch.tensor(self.cfg.reg, dtype=dtype, device=self.device)
         lam = torch.full((b,), self.cfg.lm_lambda_init, dtype=dtype,
                          device=self.device)
         th, dth_prev = th_init, torch.zeros_like(th_init)

@@ -19,7 +19,7 @@ Port of ``dgpmp2_tpu/utils/profiling.py``:
 Capture runs the Python of ``step_fn`` once: every kernel wrapper's launch
 counter (``ops/cuda/*.launches``) goes up once per captured launch, at
 capture, where nothing runs, and not at a replay.  :func:`capture`, which
-:class:`CapturedSteps` and ``core.gn.plan``'s captured loop share, takes
+:class:`CapturedSteps` and the captured loops of ``core.gn`` share, takes
 those counts back and returns them as the graph's launches a replay
 (:func:`counters`, :func:`add_counts`): the counters count the kernels
 launched eagerly, and a caller that needs a graph's kernels over n
@@ -38,10 +38,11 @@ nested directly under ``dgpmp2.plan``; none is opened per iteration:
 
 * ``dgpmp2.plan``: a whole ``core.gn.plan`` or ``LearnedDiffGPMP2Planner.
   plan``; its arguments (recorded with ``record_shapes``) are B, T+1, D,
-  the dtype, the engine, the method and the iterations, and for
-  ``core.gn.plan`` its path, ``graph``: ``eager``, ``capture`` or
-  ``replay``.  A replay opens this span alone: its kernels run inside one
-  graph launch, and none of the stage spans below opens.
+  the dtype, the engine, the method, the iterations and the path,
+  ``graph``: ``eager``, ``capture`` or ``replay``.  A replay opens this
+  span alone (the learned plan's also ``dgpmp2.encoder``, which runs
+  eagerly): its loop's kernels run inside one graph launch, and none of
+  the stage spans below opens.
 * ``dgpmp2.residuals``: the factor graph at a trajectory (forward
   kinematics, the SDF lookup, the hinge), at the seed and at each
   proposal θ + dθ, which it forms.

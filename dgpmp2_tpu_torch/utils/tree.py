@@ -1,6 +1,7 @@
-"""Pytrees of tensors: nested tuples, lists, dicts and dataclasses (such
-as ``core.graph.GraphParams``), with ``None`` and other leaves kept as
-they are."""
+"""Pytrees of tensors: nested tuples (named ones too, such as
+``core.gn.PlanResult``), lists, dicts and dataclasses (such as
+``core.graph.GraphParams``), with ``None`` and other leaves kept as they
+are."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,6 +13,8 @@ def tree_map(fn, tree):
     """``fn`` on every tensor of ``tree``, the structure kept."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, x) for x in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(tree_map(fn, x) for x in tree)
     if isinstance(tree, dict):

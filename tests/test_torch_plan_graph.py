@@ -24,6 +24,8 @@ from dgpmp2_tpu_torch.ops.cuda import btd_stream
 from dgpmp2_tpu_torch.utils import profiling
 from dgpmp2_tpu_torch.utils.trajectory import straight_line_traj
 
+from _torch_graph import fake_card  # noqa: F401 - a fixture
+
 FIELDS = gn.PlanResult._fields
 
 
@@ -80,34 +82,6 @@ def _same(a: gn.PlanResult, b: gn.PlanResult) -> bool:
 
 # -- on the CPU: the decision, the key, the counters ---------------------------
 
-class _EagerCapture(gn._CapturedPlan):
-    """The captured plan with its graph replaced: "capture" runs the call
-    on the static buffers, and each "replay" runs it there again and writes
-    its outputs over the captured ones, as a graph's replay does; neither
-    is counted by the kernel wrappers, as on the card."""
-
-    def __init__(self, args, tensors, run, consts=()):
-        self.run = run
-        super().__init__(args, tensors, run, consts)
-
-    def _capturing(self):
-        return contextlib.nullcontext()
-
-    def _ordered(self):
-        return contextlib.nullcontext()
-
-    def _replay(self):
-        # A graph's replay runs no Python: the wrappers count nothing.
-        out, _ = profiling.capture(lambda: self.run(*self.args),
-                                   contextlib.nullcontext())
-        for dst, src in zip(self.out, out):
-            if dst is not None:
-                dst.copy_(src)
-
-    def reset(self):
-        self.run = None
-
-
 @contextlib.contextmanager
 def _setting(setter, value, old):
     """``setter(value)`` inside the block, ``setter(old)`` after it."""
@@ -122,17 +96,6 @@ def _lookup_method(method):
     """The 2-D lookup engine set to ``method`` inside the block."""
     return _setting(sdf_ops.set_lookup_method, method,
                     sdf_ops._LOOKUP_METHOD)
-
-
-@pytest.fixture
-def fake_card(monkeypatch):
-    """Plans on the CPU take the captured path through the fake graph;
-    graphs and counts start empty and are dropped after."""
-    monkeypatch.setattr(gn, "_GRAPH_DEVICE", "cpu")
-    monkeypatch.setattr(gn, "_CapturedPlan", _EagerCapture)
-    gn._reset_graphs()
-    yield
-    gn._reset_graphs()
 
 
 def test_the_decision_declines_every_plan_on_the_cpu():
