@@ -11,7 +11,7 @@ caller, and a timing loop of plans warms up twice, so its runs replay.
 Phases, in order; any failed check raises, so the exit code is non-zero:
 
 1. device: require CUDA, print the card's name and power limit, turn TF32 off;
-2. build the six CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc,
+2. build the seven CUDA kernels from ``dgpmp2_tpu_torch/csrc`` with nvcc,
    printing every kernel's registers and spills (36 K-BTD instances: D = 1
    to 16, the wide kernel of D = 17-32 and the block kernel of D > 32, in
    two dtypes; 54 K-STREAM instances, the same shapes in three: float32,
@@ -43,7 +43,11 @@ Phases, in order; any failed check raises, so the exit code is non-zero:
    K-LOOKUP-LIMB bit-equal at L = 1, 2, 3 on the 2-D bench plan's points,
    uniform random points, the 2-link arm's P=246 and the B=4096 pool, and
    at the tile edges, timed at L=1 on the bench plan's points beside the
-   split of the SDF into its packed limbs (once per plan).  Every kernel's
+   split of the SDF into its packed limbs (once per plan); K-NORM (the
+   learned encoder's LayerNorm, ReLU and max-pool) against the library
+   chain at the first encoder block's shape (B=1024, 128x128x16, float32)
+   and in float64 in 2-D and 3-D with its backward, then timed at each of
+   the learned cell's five blocks and their sum.  Every kernel's
    ``ms`` is its device-only time (``torch.profiler``, L2 flushed), beside
    a CUDA-graph replay, CUDA events around one call (host-inclusive), the
    host µs per ``launch()`` call, its bound and its plain version;
@@ -289,7 +293,10 @@ CONFIGS = ROOT / "dgpmp2_tpu_torch" / "configs"
 B, T, IMSIZE, VOX = 1024, 100, 128, 64
 LIMS = (-5.0, 5.0)
 KERNELS = ("btd_solve", "sdf_lookup", "sdf_lookup3d", "sdf_lookup_limbs",
-           "sdf_lookup_bwd", "btd_stream")
+           "sdf_lookup_bwd", "btd_stream", "encoder_norm")
+# K-NORM launches of one forward of the learned encoder on the card, one a
+# block (models/conv_encoder.FEATURES); its backward launches as many again.
+NORMS = 5
 
 
 _T0 = time.perf_counter()
@@ -1409,6 +1416,218 @@ def trajectory_points(rng, b, p, noise=0.1):
     return s + t * (g - s) + noise * rng.standard_normal((b, p, 3))
 
 
+# K-NORM at the learned cell's five encoder blocks, B=1024: (input spatial
+# shape, channels, pooled) of each block's LayerNorm, ReLU and max-pool.
+ENCODER_BLOCKS = (((128, 128), 16, True), ((64, 64), 16, True),
+                  ((32, 32), 16, True), ((16, 16), 32, True),
+                  ((8, 8), 32, False))
+
+
+def encoder_norm_bound(b, spatial, c, pool, dtype):
+    """K-NORM reads the block's input and the scales and offsets once and
+    writes its output once; ~8 operations an input value (the mean's add,
+    the variance's subtract and fma, the affine's multiply and fma, the
+    max)."""
+    n_in = b * int(np.prod(spatial)) * c
+    n_out = b * int(np.prod([s // 2 if pool else s for s in spatial])) * c
+    sz = torch.finfo(dtype).bits // 8
+    return bound(sz * (n_in + n_out + 2 * c), 8 * n_in, dtype)
+
+
+def encoder_norm_inputs(dev, b, spatial, c, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, *spatial, c, generator=g, device=dev, dtype=dtype)
+    w = 1.0 + 0.3 * torch.randn(c, generator=g, device=dev, dtype=dtype)
+    bias = 0.3 * torch.randn(c, generator=g, device=dev, dtype=dtype)
+    return x, w, bias
+
+
+def check_encoder_norm(dev, record, smi):
+    """K-NORM against its plain version (the library chain ``F.layer_norm``
+    → ``torch.relu`` → ``max_pool2d``/``3d``) on the card: float64 and 3-D
+    at small shapes, the backward against the chain's autograd there; then
+    at each of the learned cell's five blocks in float32, B=1024, the
+    output held to the chain's and timed (device-only, L2 flushed) beside
+    its bound and the chain's time, the five summed: the encoder's whole
+    norm stage; then the backward at the training batch
+    (:func:`encoder_norm_backward`)."""
+    from dgpmp2_tpu_torch.models.conv_encoder import LN_EPS
+    from dgpmp2_tpu_torch.ops.cuda import encoder_norm as k
+
+    errs = {}
+    for label, shp, c2, pool2 in (("float64 2-D", (7, 33, 31), 32, True),
+                                  ("float64 3-D", (3, 9, 8, 7), 16, True),
+                                  ("float64 last block", (5, 8, 8), 32,
+                                   False)):
+        a = (*encoder_norm_inputs(dev, shp[0], shp[1:], c2, torch.float64),
+             pool2, LN_EPS)
+        errs[label] = norm_err(k.launch(*a), k.plain(*a))
+        ins = [t.clone().requires_grad_(True) for t in a[:3]]
+        ref = [t.clone().requires_grad_(True) for t in a[:3]]
+        go = torch.randn(k.plain(*a).shape, device=dev, dtype=torch.float64)
+        k.norm_relu_pool(*ins, *a[3:]).backward(go)
+        k.plain(*ref, *a[3:]).backward(go)
+        errs[f"{label} backward"] = max(norm_err(u.grad, v.grad)
+                                        for u, v in zip(ins, ref))
+    print(f"[{smi}] K-NORM against the library chain, max error over max "
+          f"|value|: {json.dumps(errs)} (tol 1e-10)")
+    if max(errs.values()) > 1e-10:
+        raise AssertionError(f"K-NORM off its plain version: {errs}")
+
+    b = B
+    stage = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0}
+    worst = 0.0
+    for i, (spatial, c, pool) in enumerate(ENCODER_BLOCKS):
+        a = (*encoder_norm_inputs(dev, b, spatial, c, torch.float32), pool,
+             LN_EPS)
+        err = norm_err(k.launch(*a), k.plain(*a))
+        rec = {}
+        kernel_ms(rec, lambda: k.launch(*a), lambda: k.plain(*a),
+                  "encoder_norm_kernel")
+        rec["bound_ms"], rec["bound_by"] = encoder_norm_bound(
+            b, spatial, c, pool, torch.float32)
+        print(f"[{smi}] K-NORM block {i + 1} B={b} {spatial}x{c} "
+              f"{'pooled' if pool else 'no pool'} float32: max error over "
+              f"max |value| {err:.3e} against the library chain (tol 1e-5); "
+              f"{times_line(rec)} (the plain version is the library chain)")
+        if not err <= 1e-5:
+            raise AssertionError(f"K-NORM block {i + 1} off the library "
+                                 f"chain: {err}")
+        worst = max(worst, err)
+        for key in stage:
+            stage[key] += rec[key]
+        if i == 0:
+            record.update(rec, library_ms=rec["plain_ms"])
+        del a
+    record["max_abs_err"] = worst
+    print(f"[{smi}] K-NORM the encoder's five blocks, B={b} float32: "
+          f"device-only {stage['ms']:.4f} ms, bound {stage['bound_ms']:.4f} "
+          f"ms (bytes), share of bound {stage['bound_ms'] / stage['ms']:.4f}; "
+          f"library chain {stage['plain_ms']:.4f} ms")
+    record["stage"] = stage
+    record["backward"] = encoder_norm_backward(dev, smi)
+
+
+def norm_err(got, want):
+    """Largest difference over the largest |value| of ``want`` (1 at
+    least)."""
+    return float((got - want).abs().max() / max(1.0, float(
+        want.abs().max())))
+
+
+def near_ties(dx, dx_ref, x, w, bias, pool):
+    """(largest difference of ``dx`` from ``dx_ref`` over max |dx_ref|
+    outside the near ties, the near ties where they differ by more than
+    1e-5 of it): a near tie is a 2×2 window of a pooled 2-D block where, in
+    some channel, the two largest values after the chain's LayerNorm and
+    ReLU are positive and within 8 float32 ulps of each other, so that the
+    kernel's rounding and the chain's may each make another pixel the
+    max."""
+    from dgpmp2_tpu_torch.models.conv_encoder import LN_EPS
+
+    diff = (dx - dx_ref).abs() / max(1.0, float(dx_ref.abs().max()))
+    if not pool:
+        return float(diff.max()), 0
+
+    def windows(a):  # (B, H, W, C) -> (B, H/2, W/2, C, 4)
+        b, h, w_, c = a.shape
+        a = a[:, :h // 2 * 2, :w_ // 2 * 2]
+        return a.reshape(b, h // 2, 2, w_ // 2, 2, c).permute(
+            0, 1, 3, 5, 2, 4).reshape(b, h // 2, w_ // 2, c, 4)
+
+    y = torch.relu(torch.nn.functional.layer_norm(x, (x.shape[-1],), w,
+                                                  bias, LN_EPS))
+    top = windows(y).topk(2, dim=-1).values
+    # A pixel's LayerNorm backward mixes its channels: a window at a time.
+    near = ((top[..., 0] > 0) & (top[..., 0] - top[..., 1] <= 8 * torch.finfo(
+        y.dtype).eps * top[..., 0])).any(-1)
+    worst = windows(diff).amax((-2, -1))
+    moved = int(((worst > 1e-5) & near).sum())
+    return float(worst.masked_fill(near, 0.0).max()), moved
+
+
+def encoder_norm_backward(dev, smi, b=None):
+    """K-NORM's backward at the training step's batch (``TRAIN_B``) at each
+    of the five blocks in float32: its kernel device-only (profiler, L2
+    flushed) beside its bound by bytes (it reads the block's input and the
+    output's cotangent, and writes the input's), and the whole backward as
+    training runs it (``torch.autograd.grad`` through
+    :func:`~dgpmp2_tpu_torch.ops.cuda.encoder_norm.norm_relu_pool`: the
+    kernel and the sum of its scale and offset partials) beside the library
+    chain's autograd backward, both by CUDA events with the L2 flushed and
+    the forward's graph kept.  The input's cotangent is held to the
+    chain's at 1e-5 outside the windows :func:`near_ties` finds, where a
+    float32 rounding decides which pixel takes the window's cotangent; the
+    scale's and offset's are reported (the float64 check holds them).
+    Returns the five blocks' sums."""
+    from dgpmp2_tpu_torch.models.conv_encoder import LN_EPS
+    from dgpmp2_tpu_torch.ops.cuda import encoder_norm as k
+
+    b = b or TRAIN_B
+    sums = {"ms": 0.0, "bound_ms": 0.0, "autograd_ms": 0.0,
+            "library_ms": 0.0}
+    for i, (spatial, c, pool) in enumerate(ENCODER_BLOCKS):
+        x, w, bias = encoder_norm_inputs(dev, b, spatial, c, torch.float32,
+                                         seed=i + 1)
+        ins = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        ref = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+        out = k.norm_relu_pool(*ins, pool, LN_EPS)
+        want = k.plain(*ref, pool, LN_EPS)
+        go = torch.randn(out.shape, device=dev, generator=torch.Generator(
+            device=dev).manual_seed(i), dtype=torch.float32)
+
+        def grads():
+            return torch.autograd.grad(out, ins, go, retain_graph=True)
+
+        def chain():
+            return torch.autograd.grad(want, ref, go, retain_graph=True)
+
+        (dx, *dp), (dx_ref, *dp_ref) = grads(), chain()
+        err, moved = near_ties(dx, dx_ref, x, w, bias, pool)
+        err_p = max(norm_err(u, v) for u, v in zip(dp, dp_ref))
+        rec = {"ms": device_ms(lambda: k.launch_backward(
+                   x, w, bias, go, pool, LN_EPS), "encoder_norm_bwd_kernel"),
+               "autograd_ms": cuda_ms(grads, reps=10, flush=True),
+               "library_ms": cuda_ms(chain, reps=10, flush=True)}
+        n_in, n_out = x.numel(), go.numel()
+        rec["bound_ms"], by = bound(4 * (2 * n_in + n_out + 4 * c),
+                                    16 * n_in, torch.float32)
+        print(f"[{smi}] K-NORM backward block {i + 1} B={b} {spatial}x{c} "
+              f"{'pooled' if pool else 'no pool'} float32: kernel "
+              f"device-only {rec['ms']:.4f} ms (profiler, L2 flushed), "
+              f"bound {rec['bound_ms']:.4f} ms ({by}), share of bound "
+              f"{rec['bound_ms'] / rec['ms']:.4f}; autograd backward "
+              f"{rec['autograd_ms']:.4f} ms against the library chain's "
+              f"{rec['library_ms']:.4f} ms (events, L2 flushed); the "
+              f"input's cotangent max error over max |value| {err:.3e} "
+              f"outside near ties (tol 1e-5), {moved} near-tie windows "
+              f"routed to another pixel; the scale's and offset's "
+              f"{err_p:.3e} (reported)")
+        if not err <= 1e-5:
+            raise AssertionError(f"K-NORM backward block {i + 1} off the "
+                                 f"library chain: {err}")
+        for key in sums:
+            sums[key] += rec[key]
+        del x, ins, ref, out, want, go
+    print(f"[{smi}] K-NORM backward, the encoder's five blocks, B={b} "
+          f"float32: kernel device-only {sums['ms']:.4f} ms, bound "
+          f"{sums['bound_ms']:.4f} ms, share of bound "
+          f"{sums['bound_ms'] / sums['ms']:.4f}; autograd backward "
+          f"{sums['autograd_ms']:.4f} ms against the library chain's "
+          f"{sums['library_ms']:.4f} ms")
+    return sums
+
+
+def encoder_norm_alone(dev, smi):
+    """Phase 3's K-NORM check alone: ``python3 -c 'import torch, chip_smoke
+    as cs; smi = cs.device_info(); cs.encoder_norm_alone(torch.device(
+    "cuda", 0), smi)'`` (the library is built at the first launch)."""
+    phase("3 K-NORM alone")
+    rec = {}
+    check_encoder_norm(dev, rec, smi)
+    print(json.dumps({"encoder_norm": rec}))
+
+
 def check_lookup3d(dev, record, smi):
     """K-LOOKUP3D bit-equal to its plain version at B=1024, 64^3, P=101 on
     trajectory points (corners, faces and far points too) and at the edge
@@ -1553,11 +1772,13 @@ def counters():
     """The kernel wrappers' modules, by kernel name (K-LOOKUP-LIMB's also
     counts its SDF splits)."""
     from dgpmp2_tpu_torch.ops.cuda import (btd_solve, btd_stream,
-                                           sdf_lookup, sdf_lookup3d,
-                                           sdf_lookup_bwd, sdf_lookup_limbs)
+                                           encoder_norm, sdf_lookup,
+                                           sdf_lookup3d, sdf_lookup_bwd,
+                                           sdf_lookup_limbs)
 
     return dict(zip(KERNELS, (btd_solve, sdf_lookup, sdf_lookup3d,
-                              sdf_lookup_limbs, sdf_lookup_bwd, btd_stream)))
+                              sdf_lookup_limbs, sdf_lookup_bwd, btd_stream,
+                              encoder_norm)))
 
 
 # Launches of every path run through drive(), by kernel: the kernels line;
@@ -2204,7 +2425,8 @@ def learned(dev, bench_np):
     """The learned planner at full width in float32 (phase 11), each path
     through drive() with exact launch counts: one K-BTD launch per
     iteration, one lookup per iteration plus one at the seed (LM or
-    track_best), one more per multistart scoring; then the gradient check
+    track_best), one more per multistart scoring, the encoder's NORMS
+    K-NORM launches a plan (two plans when staged); then the gradient check
     (:func:`learned_gradient`)."""
     phase("11 learned planner (B=1024, float32)")
     from dgpmp2_tpu_torch.core import gn
@@ -2220,7 +2442,8 @@ def learned(dev, bench_np):
     # 2-D, the campaign's configuration at its static init.
     ff = learned_setup(dev, *bench_np)
     out, _ = drive("learned 2-D feed-forward", lambda: plan(
-        ff, track_best=True), {"btd_solve": n, "sdf_lookup": n + 1})
+        ff, track_best=True), {"btd_solve": n, "sdf_lookup": n + 1,
+                               "encoder_norm": NORMS})
     check_learned_plan("learned 2-D feed-forward (eps_bounded, track_best)",
                        ff[0], *ff[2:5], out, n, 2, T)
     # At static init the head emits the static covariances: its first 5
@@ -2244,7 +2467,8 @@ def learned(dev, bench_np):
     # 2-D, the GRU head with random weights about the static init.
     gru = learned_setup(dev, *bench_np, lkw=EPS_BOUNDED_GRU, weights_seed=5)
     out, _ = drive("learned 2-D GRU", lambda: plan(gru, track_best=True),
-                   {"btd_solve": n, "sdf_lookup": n + 1})
+                   {"btd_solve": n, "sdf_lookup": n + 1,
+                    "encoder_norm": NORMS})
     th, errs, errs_ext, hidden, th_final = out
     finite = all(bool(torch.isfinite(x).all())
                  for x in (th, errs, errs_ext, th_final, *hidden))
@@ -2260,7 +2484,8 @@ def learned(dev, bench_np):
     p3 = learned_setup(dev, occ, start, goal, lkw=LEARN3D, method="lm",
                        t=LEARN3D_T)
     out, _ = drive("learned 3-D", lambda: plan(p3),
-                   {"btd_solve": n, "sdf_lookup3d": n + 1})
+                   {"btd_solve": n, "sdf_lookup3d": n + 1,
+                    "encoder_norm": NORMS})
     check_learned_plan("learned 3-D (ConvEncoder3D, 32^3, T=20, LM)",
                        p3[0], *p3[2:5], out, n, 3, LEARN3D_T)
     del p3, out
@@ -2278,7 +2503,8 @@ def learned(dev, bench_np):
                     amp=2.0, **kw)
 
         res, _ = drive(f"learned multistart {name}", run, {
-            "btd_solve": n, "sdf_lookup": n + (4 if kw else 2)})
+            "btd_solve": n, "sdf_lookup": n + (4 if kw else 2),
+            "encoder_norm": NORMS * (2 if kw else 1)})
         pool = 2 * kw["keep"] if kw else MS_K
         if (tuple(res.th.shape) != (MS_B, T + 1, 4)
                 or not bool(torch.isfinite(res.th).all())
@@ -2354,11 +2580,12 @@ def learned_gradient(dev, b=64, iters=5):
                 # A forward solve per iteration and an adjoint one for each
                 # but the last, whose step reaches no err_ext; a K-LOOKUP-BWD
                 # launch for each lookup but the seed's, whose points carry
-                # no gradient.
+                # no gradient; the encoder's forward and backward.
                 drive(f"learned gradient (float64, B={b}, seed {seed}, "
                       f"{decode} decode)", run,
                       {"btd_solve": 2 * iters - 1, "sdf_lookup": iters,
-                       "sdf_lookup_bwd": iters - 1})
+                       "sdf_lookup_bwd": iters - 1,
+                       "encoder_norm": 2 * NORMS})
             else:
                 run()
             grads.append(_leaves(convert.learned_grads_to_flax(variables)))
@@ -2427,6 +2654,37 @@ def counting_plans():
         yield rec
     finally:
         gn.plan = plan
+
+
+@contextlib.contextmanager
+def counting_norms():
+    """Count the K-NORM launches of the encoders' calls on the card while
+    the block runs (``ConvEncoder`` and ``ConvEncoder3D``: the learned
+    planners' and the initializer network's): a launch a block for each
+    forward, and as many again where a backward reaches its output.  The
+    term of a tool's K-NORM count, whose encoder calls depend on its
+    data."""
+    from dgpmp2_tpu_torch.models.conv_encoder import ConvEncoder
+
+    forward, rec = ConvEncoder.forward, {"launches": 0}
+
+    def add(n):
+        rec["launches"] += n
+
+    def counted(self, x):
+        out = forward(self, x)
+        if out.is_cuda:
+            n = len(self.features)
+            add(n)
+            if out.requires_grad:
+                out.register_hook(lambda _, n=n: add(n))
+        return out
+
+    ConvEncoder.forward = counted
+    try:
+        yield rec
+    finally:
+        ConvEncoder.forward = forward
 
 
 def plan_counts(rec, lookup="sdf_lookup", after=1):
@@ -2849,12 +3107,14 @@ def train_step_counts(steps, unroll=TRAIN_UNROLL, remat=True, plan_iters=0,
     ``remat``, and its adjoint; a lookup at the seed and at each new
     iterate, again in the recompute; a K-LOOKUP-BWD launch per GN step (the
     new iterate's lookup, whose geometry the loss and the next step
-    share)."""
+    share); the encoder's forward and backward once a step, outside the
+    windows (NORMS K-NORM launches each), and its forward once a plan."""
     again = unroll if remat else 0
     plan_lookups = plan_iters + (seed_lookup + 2 if plan_iters else 0)
     return {"btd_solve": steps * (2 * unroll + again) + plan_iters,
             "sdf_lookup": steps * (1 + unroll + again) + plan_lookups,
-            "sdf_lookup_bwd": steps * unroll}
+            "sdf_lookup_bwd": steps * unroll,
+            "encoder_norm": NORMS * (2 * steps + (1 if plan_iters else 0))}
 
 
 def lookup_bwd_bound(points, ndim, taps, dtype, sdf_grad):
@@ -3569,7 +3829,7 @@ def serving(dev, smi):
     serve_drive("serving (d) learned", svc, lambda: asyncio_run(
         svc, lambda: serve_levels(bench, smi, "(d) learned", svc, make(),
                                   (1, SERVE_B), 2, iters, exact_iters=True)),
-        gn_per)
+        {**gn_per, "encoder_norm": NORMS})
     profile_dispatch("(d) learned", smi, svc,
                      bench.make_requests(world, SERVE_B, 99), iters)
     serve_stats("(d) learned", smi, svc)
@@ -4450,7 +4710,8 @@ def _learned_counts(m, rec):
     return {"btd_solve": rec["iters"] + train["btd_solve"] + 2 * m.ITERS,
             "sdf_lookup": (_generated(rec) + train["sdf_lookup"]
                            + 2 * (m.ITERS + 1) + 3),
-            "sdf_lookup_bwd": train["sdf_lookup_bwd"]}
+            "sdf_lookup_bwd": train["sdf_lookup_bwd"],
+            "encoder_norm": train["encoder_norm"] + 2 * NORMS}
 
 
 EXAMPLE_LAUNCHES = {
@@ -4880,20 +5141,23 @@ def check_reload(name, planner, state, out_dir, dev):
           f"memory (B={a.shape[0]}, 50 iterations, track_best)")
 
 
-def check_tool_counts(name, counts, rec):
+def check_tool_counts(name, counts, rec, norms=0):
     """The kernels of a tool's path: K-BTD at least a solve per counted
     ``gn.plan`` iteration; K-LOOKUP3D only in the 3-D tools, K-LOOKUP in
     the others; K-LOOKUP-BWD only where a tool trains; K-LOOKUP-LIMB and
-    its splits never."""
+    its splits never; K-NORM ``norms`` launches, the count of
+    :func:`counting_norms`."""
     tool = name.split()[0]
     ok = (counts["btd_solve"] >= max(rec["iters"], 1)
           and counts["sdf_lookup_limbs"] == 0 and counts["limb_splits"] == 0
           and (counts["sdf_lookup3d"] > 0) == (tool in TOOLS_3D)
           and (counts["sdf_lookup"] > 0) != (tool in TOOLS_3D)
-          and (counts["sdf_lookup_bwd"] > 0) == (tool in TOOLS_TRAINING))
+          and (counts["sdf_lookup_bwd"] > 0) == (tool in TOOLS_TRAINING)
+          and counts["encoder_norm"] == norms)
     if not ok:
         raise AssertionError(f"{name}: launches {counts} with "
-                             f"{rec['iters']} counted gn.plan iterations")
+                             f"{rec['iters']} counted gn.plan iterations and "
+                             f"{norms} K-NORM launches of its encoders")
 
 
 PLAN3D_GAP = 0.05  # 4 problems of 80
@@ -4929,7 +5193,8 @@ def run_tool(name, argv, dev, smi, log_dir):
     m = importlib.import_module(f"dgpmp2_tpu_torch.tools.{tool}")
     argv = argv + ([] if dev.type == "cuda" else ["--device", str(dev)])
     log = log_dir / f"{name.replace(' ', '_')}.log"
-    with counting_plans() as rec, open(log, "w") as fp:
+    with counting_plans() as rec, counting_norms() as norms, \
+            open(log, "w") as fp:
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(fp):
@@ -4939,7 +5204,7 @@ def run_tool(name, argv, dev, smi, log_dir):
             print(log.read_text()[-6000:])
             raise
         wall = time.perf_counter() - t0
-    check_tool_counts(name, counts, rec)
+    check_tool_counts(name, counts, rec, norms["launches"])
     add_totals(counts, regimes)
     print(f"[{smi}] tool {name}: {wall:.3f} s wall, {rec['plans']} gn.plan "
           f"calls of {rec['iters']} iterations; launches "
@@ -5709,6 +5974,11 @@ def main():
                         "with the stream step's assembly "
                         "(dgpmp2_tpu/core/stream.py:219 stream_step)",
             "library_ms": None},
+        "encoder_norm": {
+            "source": "dgpmp2_tpu_torch/csrc/encoder_norm.cu",
+            "replaces": "none: the JAX package leaves flax's LayerNorm, "
+                        "ReLU and max-pool to XLA "
+                        "(dgpmp2_tpu/models/conv_encoder.py:45 and :74)"},
     }
     for name, rec in recs.items():
         rec.update(name=name, route="cuda")
@@ -5716,6 +5986,7 @@ def main():
     check_btd_arms(dev, smi, bench_np)
     check_lookup(dev, recs["sdf_lookup"], bench, smi)
     check_lookup3d(dev, recs["sdf_lookup3d"], smi)
+    check_encoder_norm(dev, recs["encoder_norm"], smi)
     lookups = path_lookups(dev)
     check_limbs(dev, recs["sdf_lookup_limbs"], smi, lookups)
     check_path_lookups(lookups)
@@ -5738,7 +6009,7 @@ def main():
     stream_engines(dev, smi, bench, bench3, problems, bench_np,
                    recs["btd_stream"])
     for name, rec in recs.items():
-        rec["launches"] = TOTALS[name]
+        rec["launches"] = TOTALS.get(name)
     recs["btd_solve"]["launches_by_regime"] = dict(REGIME_TOTALS)
     for rec in recs.values():
         print(f"[{smi}] {rec['name']}: {times_line(rec)}")

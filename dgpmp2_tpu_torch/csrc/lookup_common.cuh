@@ -1,5 +1,6 @@
 // Arithmetic shared by the SDF lookup kernels (K-LOOKUP, K-LOOKUP-LIMB,
-// K-LOOKUP3D).
+// K-LOOKUP3D); K-NORM (encoder_norm.cu) forms its LayerNorm outputs with
+// the same correctly rounded operations.
 //
 // Every operation that decides or forms a lookup's result is correctly
 // rounded and never contracted into a fused multiply-add, so a kernel

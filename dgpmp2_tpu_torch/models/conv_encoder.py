@@ -11,15 +11,20 @@ The public layout is the JAX package's channels-last one: inputs are
 (B, *spatial, C) and the flatten order is (*spatial, C), so that a dense
 layer after it reads its inputs in the same order in both packages.  The
 convolutions run on channels-last views (no copy in or out); they are
-``nn.Conv2d``/``nn.Conv3d``, as the JAX package leaves them to XLA.
+``nn.Conv2d``/``nn.Conv3d``, as the JAX package leaves them to XLA.  Each
+block's LayerNorm, ReLU and pool are one call of
+:func:`dgpmp2_tpu_torch.ops.cuda.encoder_norm.norm_relu_pool`: the library
+chain on the CPU, one K-NORM launch on the card.  The ``nn.LayerNorm``
+modules hold the scales and offsets (``norms.i.weight``/``bias``).
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
-import torch.nn.functional as F
 from torch import nn
+
+from dgpmp2_tpu_torch.ops.cuda.encoder_norm import norm_relu_pool
 
 FEATURES = (16, 16, 16, 32, 32)
 POOL_AFTER = (True, True, True, True, False)
@@ -73,13 +78,10 @@ class ConvEncoder(nn.Module):
             nn.init.zeros_(norm.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        pool = F.max_pool2d if self.ndim == 2 else F.max_pool3d
         x = x.to(self.convs[0].weight.dtype)
         for conv, norm, down in zip(self.convs, self.norms, self.pool_after):
             x = conv(x.movedim(-1, 1)).movedim(1, -1)
-            x = torch.relu(norm(x))
-            if down:
-                x = pool(x.movedim(-1, 1), 2).movedim(1, -1)
+            x = norm_relu_pool(x, norm.weight, norm.bias, down, norm.eps)
         return x.reshape(x.shape[0], -1)
 
 

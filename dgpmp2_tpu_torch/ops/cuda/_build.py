@@ -31,6 +31,7 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_D = ctypes.c_double
 # name -> argtypes; every function returns cudaGetLastError() as an int.
 _SIGNATURES = {
     # (diag, off, rhs, x, gain, scratch, batch, steps, d, stream)
@@ -65,6 +66,14 @@ _SIGNATURES = {
     # (plan, sdf, points, d_bar, g_bar, p_bar, s_bar or NULL, stream)
     **{f"dgpmp2_sdf_lookup{nd}_bwd_f{bits}": [_P] * 8
        for nd in ("", "3d") for bits in (32, 64)},
+    # (x, gamma, beta, out, batch, depth, height, width, channels, ndim,
+    #  pool, eps, stream)
+    **{f"dgpmp2_encoder_norm_f{bits}": [_P] * 4 + [_I] * 7 + [_D, _P]
+       for bits in (32, 64)},
+    # (x, gamma, beta, gout, dx, partial, blocks, batch, depth, height,
+    #  width, channels, ndim, pool, eps, stream)
+    **{f"dgpmp2_encoder_norm_bwd_f{bits}": [_P] * 6 + [_I] * 8 + [_D, _P]
+       for bits in (32, 64)},
 }
 
 _lib = None

@@ -78,7 +78,7 @@ import torch
 from dgpmp2_tpu_torch.utils.tree import leaves, tree_map
 
 _KERNEL_MODULES = ("btd_solve", "btd_stream", "sdf_lookup", "sdf_lookup3d",
-                   "sdf_lookup_limbs", "sdf_lookup_bwd")
+                   "sdf_lookup_limbs", "sdf_lookup_bwd", "encoder_norm")
 
 
 @contextlib.contextmanager

@@ -88,7 +88,7 @@ def test_trace_writes_a_chrome_trace_and_annotate_nests(tmp_path):
 def test_launch_counts_name_every_kernel_and_capture_needs_the_card():
     assert set(profiling.launch_counts()) == {
         "btd_solve", "btd_stream", "sdf_lookup", "sdf_lookup3d",
-        "sdf_lookup_limbs", "sdf_lookup_bwd"}
+        "sdf_lookup_limbs", "sdf_lookup_bwd", "encoder_norm"}
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             profiling.CapturedSteps(lambda c: c, torch.ones(2), iters=1)
